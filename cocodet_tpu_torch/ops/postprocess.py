@@ -1,0 +1,102 @@
+"""Batched postprocess: max-class top-K -> f32 decode of the top-K rows ->
+exact NMS (cocodet_tpu/ops/postprocess.py:32-44, 88-163).
+
+Static bounds as in the JAX package: pre-NMS top-K and ``max_det``. The
+multi-class and RMMOP filters (``select_candidates``) and soft-NMS are not
+ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
+
+import torch
+
+from .decode import level_grid
+from .nms import NMSResult, batched_nms
+
+
+class PostprocessConfig(NamedTuple):
+    num_classes: int = 80
+    conf_threshold: float = 0.001
+    nms_threshold: float = 0.65
+    pre_nms_topk: int = 2000
+    max_det: int = 300
+    multi_class: bool = False
+    class_agnostic: bool = False
+    soft: bool = False
+    rmmop: Optional[Tuple[float, float]] = None
+
+
+def topk_stable(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k along the last axis with ties taken lowest index first, as
+    ``jax.lax.top_k`` does (``torch.topk`` does not)."""
+    sorted_vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
+    return sorted_vals[..., :k], idx[..., :k]
+
+
+def _select_topk_fused(head_outputs: Sequence[Dict[str, torch.Tensor]],
+                       strides: Sequence[int], cfg: PostprocessConfig):
+    """Max-class candidate selection on the raw head maps.
+
+    sigmoid is monotone, so the class reduction runs on the raw logits in the
+    model's dtype; only (B, A) scores are ranked (the product of sigmoids in
+    that dtype, bf16 when serving), and just the top-K rows are gathered and
+    decoded in f32, where the reported score is recomputed.
+    """
+    scores_lv, klass_lv, raw_lv, grids_lv, sv_lv = [], [], [], [], []
+    for out, s in zip(head_outputs, strides):
+        b, h, w, _ = out["reg"].shape
+        cls_logit = out["cls"]
+        max_logit = cls_logit.amax(dim=-1)                      # (B,H,W)
+        arg = cls_logit.argmax(dim=-1).to(torch.int32)          # first of ties
+        obj_logit = out["obj"][..., 0]
+        score = torch.sigmoid(obj_logit) * torch.sigmoid(max_logit)
+        scores_lv.append(score.reshape(b, h * w))
+        klass_lv.append(arg.reshape(b, h * w))
+        raw_lv.append(torch.cat([out["reg"], out["obj"], max_logit[..., None]],
+                                dim=-1).reshape(b, h * w, 6))
+        grids_lv.append(level_grid(h, w, device=cls_logit.device))
+        sv_lv.append(torch.full((h * w,), float(s), dtype=torch.float32,
+                                device=cls_logit.device))
+
+    scores = torch.cat(scores_lv, dim=1).to(torch.float32)     # (B, A)
+    klass = torch.cat(klass_lv, dim=1)
+    raw = torch.cat(raw_lv, dim=1)                              # (B, A, 6)
+    grids = torch.cat(grids_lv, dim=0)                          # (A, 2)
+    sv = torch.cat(sv_lv, dim=0)                                # (A,)
+
+    k = min(cfg.pre_nms_topk, scores.shape[1])
+    conf = torch.tensor(cfg.conf_threshold, dtype=torch.float32, device=scores.device)
+    cand = torch.where(scores >= conf, scores, torch.full_like(scores, -1.0))
+    top_s, take = topk_stable(cand, k)                          # (B, K)
+
+    raw_k = torch.gather(raw, 1, take[..., None].expand(-1, -1, 6)).to(torch.float32)
+    klass_k = torch.gather(klass, 1, take)
+    grids_k = grids[take]                                       # (B, K, 2)
+    sv_k = sv[take][..., None]                                  # (B, K, 1)
+
+    xy = (raw_k[..., 0:2] + grids_k) * sv_k
+    half_wh = torch.exp(raw_k[..., 2:4].clamp(-20.0, 20.0)) * (sv_k * 0.5)
+    boxes = torch.cat([xy - half_wh, xy + half_wh], dim=-1)
+    objv = torch.sigmoid(raw_k[..., 4])
+    score_f32 = objv * torch.sigmoid(raw_k[..., 5])
+    valid = top_s >= 0.0
+    return (boxes, torch.where(valid, score_f32, torch.zeros_like(score_f32)),
+            klass_k, objv, valid)
+
+
+def postprocess(head_outputs: Sequence[Dict[str, torch.Tensor]],
+                strides: Sequence[int], cfg: PostprocessConfig) -> NMSResult:
+    """Full batched postprocess from raw NHWC head maps to detections."""
+    if cfg.rmmop is not None or cfg.multi_class:
+        raise NotImplementedError(
+            "multi-class and RMMOP candidate selection are not ported yet")
+    sel = _select_topk_fused(head_outputs, strides, cfg)
+    return batched_nms(
+        *sel,
+        iou_threshold=cfg.nms_threshold,
+        max_det=cfg.max_det,
+        class_agnostic=cfg.class_agnostic,
+        soft=cfg.soft,
+    )
