@@ -8,12 +8,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      process per source, in parallel) into build/kernels/;
   b. hold each kernel against its plain PyTorch version on the card, on the
      dense scene of tests/test_topk_equivalence.py batched to 16 images, at
-     K=1024 (the main path), K=340 (ragged) and K=2048: outputs must be equal
-     bit for bit; time kernel and plain version at the main path's shape;
+     K=1024 (the main path), K=340 (ragged) and K=2048, as it is and widened
+     so that the NMS suppresses; on all 8500 anchors of two images; and on
+     two images of numpy-drawn boxes at the largest K the keep kernel takes:
+     the packed overlap words and the keep masks must be equal bit for bit;
+     time kernel and plain version at the main path's shape on the scene as
+     it is (every valid row kept) and widened, and the keep kernel's chain
+     of row decisions alone (no valid row);
   c. the main path: the full-width YOLOX-M-P6 (depth 0.67, width 0.75) with
      weights drawn from a numpy seed, BN folded, bf16, serves 4 batches of
      16 640x640 requests through Predictor; the launch counts are zeroed just
-     before and read just after, and each kernel must have launched;
+     before and read just after, and each kernel must have launched; then
+     each kernel held against its plain version and timed on a batch's
+     served candidates (the times of the kernels line), and the device time
+     of a batch's parts, the NMS split into class offset, overlap, keep and
+     compaction;
   d. check the served output against the plain reference on a small input:
      the f32 model on the card against the unfused f32 model on the CPU, the
      bf16 model against it at a bf16 tolerance, and the NMS on the card
@@ -39,6 +48,11 @@ SIZE = 640
 N_BATCHES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+HOLD_CYCLES = 200_000_000  # ~0.1 s of the card's clock, while cuda_ms queues its calls
+# PR 1's kernel times at B=16, K=1024 on the dense scene (NVIDIA H100 80GB
+# HBM3, 700.00 W; this script at commit 20314f9), printed beside this run's
+# for comparison and kept out of the kernels line
+PR1_DENSE_MS = {"overlap_matrix": 0.0818, "greedy_keep": 0.9188, "steps only": 0.1083}
 
 
 def _logit(p):
@@ -83,14 +97,20 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters):
-    """Mean device time of ``fn`` in ms over ``iters`` calls, after warm-up."""
+def cuda_ms(fn, iters, hold=True):
+    """Mean device time of ``fn`` in ms over ``iters`` calls, after warm-up.
+    With ``hold``, a sleep kernel holds the card while the host queues the
+    calls, so that the calls run back to back on the card: a kernel shorter
+    than its launch on the host is timed on the card, not at the rate the
+    host launches. Without it, the timer of chip_smoke.py before the hold."""
     import torch
 
     for _ in range(2):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if hold:
+        torch.cuda._sleep(HOLD_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -128,64 +148,132 @@ def kernel_inputs(batch_maps, k, device):
     return class_offset_boxes(boxes, classes, valid).contiguous(), valid.contiguous()
 
 
+def random_candidates(batch, k, seed, device, size=SIZE, n_classes=80):
+    """(class-offset boxes, valid) for ``k`` numpy-drawn candidates a image,
+    an eighth of them shifted copies of others at IoU near 0.55: the
+    largest K the keep kernel takes is more than a 640 px image's 8500
+    anchors give."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+
+    rs = np.random.RandomState(seed)
+    centers = rs.rand(batch, k, 2) * size
+    wh = rs.rand(batch, k, 2) * 60 + 4
+    classes = rs.randint(0, n_classes, (batch, k)).astype(np.int32)
+    src, dst = rs.randint(0, k, (2, batch, k // 8))
+    for b in range(batch):
+        shift = wh[b, src[b], 0] * 0.45 / 1.55 * (1 + rs.uniform(-1e-3, 1e-3, k // 8))
+        centers[b, dst[b]] = centers[b, src[b]] + np.stack([shift, 0 * shift], -1)
+        wh[b, dst[b]] = wh[b, src[b]]
+        classes[b, dst[b]] = classes[b, src[b]]
+    boxes = torch.from_numpy(np.concatenate([centers - wh / 2, centers + wh / 2], -1)
+                             .astype(np.float32))
+    classes = torch.from_numpy(classes)
+    valid = torch.from_numpy(rs.rand(batch, k) > 0.15)
+    boxes = class_offset_boxes(boxes, classes, valid)
+    return boxes.to(device).contiguous(), valid.to(device).contiguous()
+
+
+def kernel_times(boxes, valid, thr):
+    """Device ms of both NMS kernels and of their plain versions on these
+    inputs, with each kernel's bound for the work these inputs need."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+
+    mask = nk.overlap_matrix(boxes, valid, thr)
+    keep = nk.greedy_keep(mask, valid)
+    b, k = valid.shape
+    w = nk.packed_width(k)
+    # overlap: each box and flag read once, each packed word written once;
+    # ~20 f32 ops for every pair above the diagonal
+    ov_bytes = b * k * (16 + 1) + b * k * w * 8
+    ov_ops = b * k * (k - 1) // 2 * 20
+    # keep: the words from the diagonal on of the kept rows, valid, keep
+    kept_rows = keep.nonzero()[:, 1]
+    keep_bytes = float(((w - kept_rows // 64) * 8).sum()) + 2 * b * k
+    torch.cuda.synchronize()
+    return {
+        "overlap_matrix": dict(
+            ms=cuda_ms(lambda: nk.overlap_matrix(boxes, valid, thr), 50),
+            plain_ms=cuda_ms(lambda: nk.overlap_matrix_plain(boxes, valid, thr), 10),
+            bound_ms=max(ov_bytes / HBM_BYTES_PER_S, ov_ops / F32_OPS_PER_S) * 1e3,
+            bound_by="bytes" if ov_bytes / HBM_BYTES_PER_S >= ov_ops / F32_OPS_PER_S
+            else "operations"),
+        "greedy_keep": dict(
+            ms=cuda_ms(lambda: nk.greedy_keep(mask, valid), 50),
+            plain_ms=cuda_ms(lambda: nk.greedy_keep_plain(mask, valid), 3),
+            bound_ms=keep_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes"),
+    }
+
+
+def check_kernels(label, boxes, valid, thr):
+    """Hold both kernels against their plain versions on these inputs, bit
+    for bit; the max abs error of each (0/1 outputs: 1 if any bit differs)."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+
+    mask = nk.overlap_matrix(boxes, valid, thr)
+    mask_plain = nk.overlap_matrix_plain(boxes, valid, thr)
+    keep = nk.greedy_keep(mask, valid)
+    keep_plain = nk.greedy_keep_plain(mask_plain, valid)
+    torch.cuda.synchronize()
+    err = {"overlap_matrix": float(((mask ^ mask_plain) != 0).any()),
+           "greedy_keep": float((keep != keep_plain).any())}
+    ones = int(sum(int(((mask >> j) & 1).sum()) for j in range(64)))
+    print(f"{label}: mask {tuple(mask.shape)} int64, overlap_matrix max_abs_err="
+          f"{err['overlap_matrix']} (overlapping pairs={ones}), greedy_keep max_abs_err="
+          f"{err['greedy_keep']} (valid={int(valid.sum())}, kept={int(keep.sum())})", flush=True)
+    if not (torch.equal(mask, mask_plain) and torch.equal(keep, keep_plain)):
+        raise AssertionError(f"kernel disagrees with its plain version: {label}")
+    return err
+
+
 def phase_kernels(device):
     import numpy as np
     import torch
 
     from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
 
-    def batched(widen):
-        scenes = [dense_scene(seed, widen=widen) for seed in range(BATCH)]
+    def batched(widen, batch=BATCH):
+        scenes = [dense_scene(seed, widen=widen) for seed in range(batch)]
         return [{key: np.concatenate([s[i][key] for s in scenes]) for key in ("reg", "obj", "cls")}
                 for i in range(len(STRIDES))]
 
     thr = 0.55
-    stats, worst = {}, {"overlap_matrix": 0.0, "greedy_keep": 0.0}
-    for widen, k in ((1.5, 1024), (1.5, 340), (1.5, 2048), (0.0, 340), (0.0, 1024)):
-        boxes, valid = kernel_inputs(batched(widen), k, device)
-        ov = nk.overlap_matrix(boxes, valid, thr)
-        ov_plain = nk.overlap_matrix_plain(boxes, valid, thr)
-        keep = nk.greedy_keep(ov, valid)
-        keep_plain = nk.greedy_keep_plain(ov_plain, valid)
-        torch.cuda.synchronize()
-        ov_err = float((ov - ov_plain).abs().max())
-        keep_err = float((keep.int() - keep_plain.int()).abs().max())
-        worst["overlap_matrix"] = max(worst["overlap_matrix"], ov_err)
-        worst["greedy_keep"] = max(worst["greedy_keep"], keep_err)
-        n_valid, n_kept = int(valid.sum()), int(keep.sum())
-        print(f"b. dense scene widen={widen} K={k} B={BATCH}: overlap_matrix max_abs_err={ov_err} "
-              f"(ones={int(ov.sum())}), greedy_keep max_abs_err={keep_err} "
-              f"(valid={n_valid}, kept={n_kept})", flush=True)
-        if not (torch.equal(ov, ov_plain) and torch.equal(keep, keep_plain)):
-            raise AssertionError(f"kernel disagrees with its plain version at K={k}")
-        if k == 1024 and widen == 0.0:  # timed where every valid row is kept
-            kept_rows = keep.nonzero()[:, 1]
-            upper_bytes = float(((k - 1 - kept_rows) * 4).sum())
-            out_bytes = BATCH * k * k * 4
-            ov_bytes = BATCH * k * (16 + 1) + out_bytes
-            ov_ops = BATCH * k * k * 20
-            stats["overlap_matrix"] = dict(
-                ms=cuda_ms(lambda: nk.overlap_matrix(boxes, valid, thr), 50),
-                plain_ms=cuda_ms(lambda: nk.overlap_matrix_plain(boxes, valid, thr), 10),
-                bound_ms=max(ov_bytes / HBM_BYTES_PER_S, ov_ops / F32_OPS_PER_S) * 1e3,
-                bound_by="bytes" if ov_bytes / HBM_BYTES_PER_S >= ov_ops / F32_OPS_PER_S
-                else "operations")
-            keep_bytes = upper_bytes + 2 * BATCH * k
-            none_valid = torch.zeros_like(valid)  # no row kept: the K barrier steps alone
-            stats["greedy_keep"] = dict(
-                ms=cuda_ms(lambda: nk.greedy_keep(ov, valid), 20),
-                plain_ms=cuda_ms(lambda: nk.greedy_keep_plain(ov, valid), 3),
-                bound_ms=keep_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-                full_read_bound_ms=(out_bytes + 2 * BATCH * k) / HBM_BYTES_PER_S * 1e3,
-                steps_only_ms=cuda_ms(lambda: nk.greedy_keep(ov, none_valid), 20))
-    for name, s in stats.items():
-        s["max_abs_err"] = worst[name]
-        print(f"b. {name} at B={BATCH} K=1024: {s['ms']:.4f} ms (plain {s['plain_ms']:.4f} ms,"
-              f" bound {s['bound_ms']:.4f} ms by {s['bound_by']})", flush=True)
-    print(f"b. greedy_keep sequential floor at K=1024: {stats['greedy_keep']['steps_only_ms']:.4f}"
-          f" ms for the 1024 barrier steps with no row kept (no overlap row read); bound if"
-          f" every row were read: {stats['greedy_keep']['full_read_bound_ms']:.4f} ms", flush=True)
-    return stats
+    worst = {"overlap_matrix": 0.0, "greedy_keep": 0.0}
+    scenes = [(f"dense scene widen={widen} K={k} B={BATCH}",
+               lambda widen=widen, k=k: kernel_inputs(batched(widen), k, device))
+              for widen, k in ((1.5, 1024), (1.5, 340), (1.5, 2048), (0.0, 340), (0.0, 1024))]
+    scenes.append(("dense scene widen=1.5, all 8500 anchors, B=2",
+                   lambda: kernel_inputs(batched(1.5, batch=2), 8500, device)))
+    scenes.append((f"random boxes at the keep kernel's largest K={nk.MAX_KEEP_K}, B=2",
+                   lambda: random_candidates(2, nk.MAX_KEEP_K, 0, device)))
+    for label, make in scenes:
+        err = check_kernels(f"b. {label}", *make(), thr)
+        worst = {name: max(worst[name], e) for name, e in err.items()}
+
+    # Times at the main path's shape: widen 0.0 (every valid row kept, few
+    # pairs near the threshold) and widen 1.5 (the NMS suppresses).
+    earlier = "PR 1's time on this scene, from PERF.md, not measured here"
+    for widen, before in ((0.0, PR1_DENSE_MS), (1.5, None)):
+        boxes, valid = kernel_inputs(batched(widen), 1024, device)
+        for name, s in kernel_times(boxes, valid, thr).items():
+            print(f"b. {name} at B={BATCH} K=1024 widen={widen}: {s['ms']:.4f} ms (plain "
+                  f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms by {s['bound_by']})"
+                  + (f"; {earlier}: {before[name]} ms" if before else ""), flush=True)
+        if widen == 0.0:
+            # no valid row: no row kept, none OR-ed; the chain of K steps alone
+            mask = nk.overlap_matrix(boxes, valid, thr)
+            steps_ms = cuda_ms(lambda: nk.greedy_keep(mask, torch.zeros_like(valid)), 50)
+            full_read_ms = (mask.numel() * 8 + 2 * valid.numel()) / HBM_BYTES_PER_S * 1e3
+            print(f"b. greedy_keep steps only at K=1024: {steps_ms:.4f} ms for the 1024 row "
+                  f"decisions with no valid row; bound if every word were read: "
+                  f"{full_read_ms:.4f} ms; {earlier}: {PR1_DENSE_MS['steps only']} ms", flush=True)
+    return worst
 
 
 def serving_variables(seed=0):
@@ -213,7 +301,7 @@ def phase_serve(device, variables, card):
 
     from cocodet_tpu_torch.entry import build_predictor
     from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
-    from cocodet_tpu_torch.ops.nms import batched_nms
+    from cocodet_tpu_torch.ops.nms import batched_nms, class_offset_boxes, compact
     from cocodet_tpu_torch.ops.postprocess import _select_topk_fused, postprocess
 
     t0 = time.perf_counter()
@@ -269,17 +357,47 @@ def phase_serve(device, variables, card):
     with torch.inference_mode():
         maps = predictor.model(x)
         sel = _select_topk_fused(maps, STRIDES, cfg)
+        boxes, scores, classes, obj, valid = sel
+        thr = cfg.nms_threshold
+        nms_boxes = class_offset_boxes(boxes, classes, valid).contiguous()
+        # the kernels on the served candidates: checked, then timed; these
+        # are the times of the kernels line
+        worst = check_kernels(f"c. served candidates K={valid.shape[1]} B={BATCH}",
+                              nms_boxes, valid, thr)
+        stats = kernel_times(nms_boxes, valid, thr)
+        for name, s in stats.items():
+            s["max_abs_err"] = worst[name]
+            print(f"c. {name} on the served candidates: {s['ms']:.4f} ms (plain "
+                  f"{s['plain_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms by {s['bound_by']})",
+                  flush=True)
+        keep = nk.greedy_keep(nk.overlap_matrix(nms_boxes, valid, thr), valid)
         parts = {
             "h2d_copy": cuda_ms(lambda: images.to(device), 5),
             "forward": cuda_ms(lambda: predictor.model(x), 10),
             "postprocess": cuda_ms(lambda: postprocess(maps, STRIDES, cfg), 10),
             "of which select_topk": cuda_ms(lambda: _select_topk_fused(maps, STRIDES, cfg), 10),
             "of which nms": cuda_ms(lambda: batched_nms(
-                *sel, iou_threshold=cfg.nms_threshold, max_det=cfg.max_det), 10),
+                *sel, iou_threshold=thr, max_det=cfg.max_det), 10),
+            "of which class_offset": cuda_ms(
+                lambda: class_offset_boxes(boxes, classes, valid).contiguous(), 10),
+            "of which overlap": stats["overlap_matrix"]["ms"],
+            "of which keep": stats["greedy_keep"]["ms"],
+            "of which compaction": cuda_ms(
+                lambda: compact(keep, boxes, scores, classes, obj, cfg.max_det), 10),
+        }
+        # the same parts with the card not held: the timer of PR 1's runs
+        unheld = {
+            "postprocess": cuda_ms(lambda: postprocess(maps, STRIDES, cfg), 10, hold=False),
+            "of which select_topk": cuda_ms(
+                lambda: _select_topk_fused(maps, STRIDES, cfg), 10, hold=False),
+            "of which nms": cuda_ms(lambda: batched_nms(
+                *sel, iou_threshold=thr, max_det=cfg.max_det), 10, hold=False),
         }
     print("c. device ms per batch: " + ", ".join(f"{k}={v:.3f}" for k, v in parts.items()),
           flush=True)
-    return launches, predictor
+    print("c. device ms per batch, card not held while the calls are queued: "
+          + ", ".join(f"{k}={v:.3f}" for k, v in unheld.items()), flush=True)
+    return launches, stats, predictor
 
 
 def phase_reference(device, variables, predictor):
@@ -342,9 +460,9 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     build_s = phase_build()
-    stats = phase_kernels(device)
+    worst = phase_kernels(device)
     variables = serving_variables(seed=0)
-    launches, predictor = phase_serve(device, variables, card)
+    launches, stats, predictor = phase_serve(device, variables, card)
     phase_reference(device, variables, predictor)
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
@@ -352,8 +470,9 @@ def main():
     kernels = [{"name": name, "route": "cuda",
                 "source": "cocodet_tpu_torch/csrc/nms_kernels.cu",
                 "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": s["max_abs_err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-                "bound_ms": s["bound_ms"], "bound_by": s["bound_by"], "library_ms": None}
+                "max_abs_err": max(s["max_abs_err"], worst[name]), "ms": s["ms"],
+                "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
+                "bound_by": s["bound_by"], "library_ms": None}
                for name, s in stats.items()]
     print(f"build_s={build_s:.2f}")
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,10 @@
 The JAX package resolves the greedy keep mask with a lax.while_loop fixpoint
 (K % 512 != 0) or a tile-sequential lax.scan (K % 512 == 0); both give the
 exact sequential greedy result. The port takes one device path at every K:
-the overlap-matrix kernel, then the greedy-keep kernel
-(``ops/cuda/nms_kernels.py``), with no host sync.
+the overlap-matrix kernel, which writes the overlap matrix bit-packed
+((B, K, W) int64, W = ceil(K / 64) made even; no (B, K, K) tensor), then the
+greedy-keep kernel on those words (``ops/cuda/nms_kernels.py``), then the
+compaction (``compact``), with no host sync.
 """
 
 from __future__ import annotations
@@ -60,7 +62,13 @@ def batched_nms(
     valid = valid.contiguous()
     nms_boxes = boxes if class_agnostic else class_offset_boxes(boxes, classes, valid)
     keep = greedy_keep(overlap_matrix(nms_boxes.contiguous(), valid, iou_threshold), valid)
+    return compact(keep, boxes, scores, classes, obj, max_det)
 
+
+def compact(keep: torch.Tensor, boxes: torch.Tensor, scores: torch.Tensor,
+            classes: torch.Tensor, obj: torch.Tensor, max_det: int) -> NMSResult:
+    """The kept rows of (B, K, ...) candidates moved to the front in their
+    original order, capped at ``max_det`` and padded with invalid rows."""
     b, k = keep.shape
     # A stable ascending sort of ~keep puts the kept rows first and the rest
     # after, each in index order: the order of the JAX top_k over rank_val.

@@ -67,7 +67,8 @@ def _select_topk_fused(head_outputs: Sequence[Dict[str, torch.Tensor]],
     sv = torch.cat(sv_lv, dim=0)                                # (A,)
 
     k = min(cfg.pre_nms_topk, scores.shape[1])
-    conf = torch.tensor(cfg.conf_threshold, dtype=torch.float32, device=scores.device)
+    # a fill on the device: a scalar copied from host memory would synchronise
+    conf = torch.full((), cfg.conf_threshold, dtype=torch.float32, device=scores.device)
     cand = torch.where(scores >= conf, scores, torch.full_like(scores, -1.0))
     top_s, take = topk_stable(cand, k)                          # (B, K)
 

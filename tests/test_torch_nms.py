@@ -1,11 +1,11 @@
 """Port parity: cocodet_tpu_torch NMS (overlap matrix, greedy keep,
 batched_nms) against cocodet_tpu's, exactly, on f32 inputs on the CPU.
 
-The overlap matrix and the keep masks are 0/1 outputs and must be equal bit
-for bit; so must every field of NMSResult when both sides get the same f32
-candidates. On the CPU the wrappers take their plain PyTorch versions and
-count no launch; chip_smoke.py holds the kernels against the plain versions
-on the card.
+The port's overlap matrix is bit-packed ((B, K, W) int64); unpacked, it and
+the keep masks must equal the JAX 0/1 outputs bit for bit; so must every
+field of NMSResult when both sides get the same f32 candidates. On the CPU
+the wrappers take their plain PyTorch versions and count no launch;
+chip_smoke.py holds the kernels against the plain versions on the card.
 """
 
 import numpy as np
@@ -59,9 +59,45 @@ def test_overlap_plain_matches_pallas_interpret(k):
     want = np.asarray(jax_overlap_matrix(jnp.asarray(boxes[0]), jnp.asarray(valid[0]),
                                          THR, interpret=True))
     got = tk.overlap_matrix_plain(torch.from_numpy(boxes), torch.from_numpy(valid), THR)
-    assert got.dtype == torch.float32 and got.shape == (1, k, k)
-    np.testing.assert_array_equal(got[0].numpy(), want)
+    assert got.dtype == torch.int64 and got.shape == (1, k, k // 64)
+    np.testing.assert_array_equal(tk.unpack_overlap(got)[0].numpy(), want)
     assert 0 < want.sum() < k * k / 2
+
+
+def test_packed_layout_ragged_k():
+    """K=200: W=4 words a row (ceil(200/64)=4, even), bit 63 (int64's sign
+    bit) set where column 64w+63 overlaps, no bit past K, zero words below
+    the diagonal; unpacked, the predicate of the JAX jnp overlap matrix."""
+    from cocodet_tpu.ops.boxes import pairwise_iou as jax_iou
+
+    k = 200
+    boxes, _, classes, _, valid = _candidates(2, k, seed=11)
+    for b, (src, dst) in ((0, (0, 63)), (1, (70, 191))):  # column 64w+63 overlaps
+        boxes[b, dst], classes[b, dst] = boxes[b, src], classes[b, src]
+        valid[b, [src, dst]] = True
+    boxes = _offset(boxes, classes, valid)
+    got = tk.overlap_matrix_plain(torch.from_numpy(boxes), torch.from_numpy(valid), THR)
+    assert got.shape == (2, k, 4) and got.is_contiguous() and tk.packed_width(k) % 2 == 0
+    assert got[0, 0, 0] < 0 and got[1, 70, 2] < 0  # bit 63 set
+    assert not (got[..., 3] >> (k - 192)).any()  # bits past K
+    for r in range(k):
+        assert not got[:, r, : r // 64].any()  # words below the diagonal
+    for b in range(2):
+        jb = jnp.asarray(boxes[b])
+        order = np.arange(k)
+        want = (np.asarray(jax_iou(jb, jb)) > THR) & (order[:, None] < order[None, :])
+        want &= valid[b][:, None] & valid[b][None, :]
+        np.testing.assert_array_equal(tk.unpack_overlap(got)[b].numpy(), want.astype(np.float32))
+
+
+def test_packed_width_and_keep_limit():
+    assert [tk.packed_width(k) for k in (1, 64, 65, 129, 340, 1024, 8500, 8704)] == \
+        [2, 2, 2, 4, 6, 16, 134, 136]
+    # greedy_keep's shared memory: 64 bytes of barriers, the W removed words
+    # and two stages of 64 rows x W words, in 232448 bytes
+    smem = lambda k: 64 + 8 * tk.packed_width(k) * (1 + 2 * 64)  # noqa: E731
+    assert tk.MAX_KEEP_K >= 8704 and tk.MAX_KEEP_K % 64 == 0
+    assert smem(tk.MAX_KEEP_K) <= 232448 < smem(tk.MAX_KEEP_K + 64)
 
 
 def test_overlap_wrapper_on_cpu_is_plain_and_counts_nothing():
@@ -135,7 +171,7 @@ def test_wrappers_refuse_other_devices():
         tk.overlap_matrix(torch.zeros(1, 8, 4, device="meta"),
                           torch.zeros(1, 8, dtype=torch.bool, device="meta"), THR)
     with pytest.raises(ValueError):
-        tk.greedy_keep(torch.zeros(1, 8, 8, device="meta"),
+        tk.greedy_keep(torch.zeros(1, 8, 2, dtype=torch.int64, device="meta"),
                        torch.zeros(1, 8, dtype=torch.bool, device="meta"))
 
 
