@@ -27,7 +27,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the f32 model on the card against the unfused f32 model on the CPU, the
      bf16 model against it at a bf16 tolerance, and the NMS on the card
      (kernels) against the NMS on the CPU (plain versions) on the same f32
-     candidates, exactly.
+     candidates, exactly;
+  e. the int8 conv of the headline (bench.py's slim w8a8 YOLOX-M-P6, built
+     by entry.build_headline: weights from a numpy seed, calibrated and
+     quantized on the card): held against its plain version on the card on
+     all 127 w8a8 convs at their served shapes (inputs collected by forward
+     hooks on one served batch of 2 640x640 images) and on ragged cases
+     (cin=12, odd sizes at stride 2, M not a multiple of the tile, scalar
+     and vector act_scale, f32 and bf16 in and out): the s32 accumulators
+     and the outputs must be equal bit for bit; then timed on each distinct
+     shape of a served batch of 16, kernel and plain version, beside each
+     conv's bound;
+  f. the main path of the headline: 4 batches of 16 640x640 requests served
+     through build_headline's Predictor after two warm-up batches, launch
+     counts zeroed just before and read just after (127 int8 convs a batch,
+     one launch of each NMS kernel); the device time of the forward and of
+     the postprocess, beside the same slim model's bf16 forward through
+     cuDNN and phase c's dense numbers; then the headline in f32 on the card
+     against the plain path on the CPU with the same quantized variables.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -48,6 +65,7 @@ SIZE = 640
 N_BATCHES = 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 on the tensor cores
 HOLD_CYCLES = 200_000_000  # ~0.1 s of the card's clock, while cuda_ms queues its calls
 # PR 1's kernel times at B=16, K=1024 on the dense scene (NVIDIA H100 80GB
 # HBM3, 700.00 W; this script at commit 20314f9), printed beside this run's
@@ -397,7 +415,10 @@ def phase_serve(device, variables, card):
           flush=True)
     print("c. device ms per batch, card not held while the calls are queued: "
           + ", ".join(f"{k}={v:.3f}" for k, v in unheld.items()), flush=True)
-    return launches, stats, predictor
+    dense = {"img/s": N_BATCHES * BATCH / wall, "latency ms": latencies,
+             "forward ms": parts["forward"], "postprocess ms": parts["postprocess"],
+             "peak GiB": peak_gib}
+    return launches, stats, predictor, dense
 
 
 def phase_reference(device, variables, predictor):
@@ -439,6 +460,370 @@ def phase_reference(device, variables, predictor):
         raise AssertionError("NMS on the card disagrees with the plain version on the CPU")
 
 
+def headline_variables(seed=0):
+    """Flax-layout random variables of the fused slim YOLOX-M-P6 of the
+    committed channel plan, with the obj/cls prediction biases at logit(0.1)
+    as in serving_variables."""
+    import torch
+
+    from cocodet_tpu_torch.compress import load_slim_spec
+    from cocodet_tpu_torch.entry import SLIM_SPEC
+    from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX
+    from cocodet_tpu_torch.utils.convert import random_variables
+
+    slim = load_slim_spec(str(SLIM_SPEC))
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.67, width=0.75, fused=True, slim=slim)
+    variables = random_variables(shapes, seed)
+    for k in range(len(STRIDES)):
+        for name in (f"obj_pred{k}", f"cls_pred{k}"):
+            variables["params"]["head"][name]["bias"][:] = float(_logit(0.1))
+    return slim, variables
+
+
+def build_headline_model(device):
+    """bench.py's headline through entry.build_headline, on the card."""
+    from cocodet_tpu_torch.entry import build_headline
+
+    slim, variables = headline_variables(seed=0)
+    headline = build_headline(device=device, variables=variables)
+    return headline, (slim, variables)
+
+
+def w8a8_conv_inputs(model, images):
+    """(name, conv, input, output dtype) of every w8a8 conv in one forward
+    of ``images`` (forward hooks), and the forward's head maps."""
+    import torch
+
+    from cocodet_tpu_torch.models.blocks import Conv2d
+
+    records, hooks = [], []
+    for name, m in model.named_modules():
+        if isinstance(m, Conv2d) and m.quant == "w8a8":
+            hooks.append(m.register_forward_hook(
+                lambda mod, args, out, name=name: records.append((name, mod, args[0], out.dtype))))
+    try:
+        with torch.inference_mode():
+            maps = model(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    return records, maps
+
+
+def conv_bound(x, weight, y_numel, out_dtype, vec):
+    """(bytes, operations) of one w8a8 conv: each input read once (x, the
+    int8 weight, the scales, the bias), the output written once; 2 ops a
+    multiply-accumulate."""
+    import torch
+
+    o, c, kh, kw = weight.shape
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (x.numel() * x.element_size() + weight.numel() + 4 * o + 4 * (c if vec else 1)
+              + o * out_size + y_numel * out_size)
+    ops = 2 * y_numel * c * kh * kw
+    return nbytes, ops
+
+
+def check_int8_conv(label, x, weight, act_scale, w_scale, bias, stride, out_dtype):
+    """Kernel against plain version on the card, accumulators and outputs
+    bit for bit; returns the max abs error of the two."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+
+    pad = (weight.shape[-1] - 1) // 2
+    y, acc = ic.int8_conv_acc(x, weight, act_scale, w_scale, bias, stride, pad, dtype=out_dtype)
+    acc_plain = ic.int8_conv_acc_plain(ic.quantize_activations(x, act_scale), weight, stride, pad)
+    y_plain = ic.rescale_plain(acc_plain, act_scale, w_scale, bias, out_dtype)
+    torch.cuda.synchronize()
+    err = max(float((acc.double() - acc_plain.double()).abs().max()),
+              float((y.double() - y_plain.double()).abs().max()))
+    if not (torch.equal(acc, acc_plain) and torch.equal(y, y_plain)):
+        raise AssertionError(f"int8 conv disagrees with its plain version: {label}: "
+                             f"{int((acc != acc_plain).sum())} accumulators, "
+                             f"{int((y != y_plain).sum())} outputs differ, max err {err}")
+    return err
+
+
+def phase_int8_conv(device, headline):
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+
+    model = headline.model
+    worst = 0.0
+    # every conv of the headline at its served shapes, on a batch of 2
+    x2 = torch.from_numpy(np.random.RandomState(3).uniform(
+        0, 255, (2, SIZE, SIZE, 3)).astype(np.float32)).to(device)
+    records, _ = w8a8_conv_inputs(model, x2)
+    if len(records) != 127:
+        raise AssertionError(f"the headline has {len(records)} w8a8 convs, expected 127")
+    kinds = {}
+    for name, m, x, odt in records:
+        worst = max(worst, check_int8_conv(name, x, m.weight, m.act_scale, m.w_scale,
+                                           m.bias.detach().to(odt), m.stride, odt))
+        key = (m.weight.shape[-1], m.stride, "C%32" if x.shape[1] % 32 else "C=32n")
+        kinds[key] = kinds.get(key, 0) + 1
+    print(f"e. int8 conv == plain version (s32 accumulators and outputs, bit for bit) on all "
+          f"{len(records)} w8a8 convs of the headline at B=2 {SIZE}x{SIZE}; kinds (k, stride, "
+          f"C) {kinds}", flush=True)
+    del records
+
+    # ragged cases: B, C, H, W, O, k, stride, x dtype, out dtype, vector act_scale
+    f32, bf16 = torch.float32, torch.bfloat16
+    ragged = [(2, 12, 33, 31, 32, 3, 1, f32, bf16, False),
+              (2, 12, 17, 19, 40, 3, 2, f32, f32, True),
+              (2, 64, 33, 31, 64, 3, 2, bf16, f32, True), (1, 32, 7, 9, 40, 1, 1, f32, f32, False),
+              (3, 48, 17, 15, 50, 3, 2, bf16, bf16, True),
+              (2, 96, 21, 23, 72, 3, 1, bf16, bf16, False),
+              (1, 928, 5, 5, 768, 1, 1, f32, bf16, True),
+              (2, 576, 11, 9, 256, 3, 2, bf16, bf16, False)]
+    g = torch.Generator().manual_seed(0)
+    for (b, c, h, w, o, k, stride, xdt, ydt, vec) in ragged:
+        x = (torch.rand((b, c, h, w), generator=g) * 80 - 20).to(xdt).to(device)
+        weight = torch.randint(-127, 128, (o, c, k, k), generator=g, dtype=torch.int8).to(device)
+        act = (torch.rand((c,) if vec else (), generator=g) * 0.3 + 0.05).to(device)
+        w_scale = (torch.rand((o,), generator=g) * 1e-2 + 1e-3).to(device)
+        bias = (torch.rand((o,), generator=g) * 2 - 1).to(ydt).to(device)
+        cl = torch.channels_last
+        worst = max(worst, check_int8_conv(
+            f"ragged {(b, c, h, w, o, k, stride, xdt, ydt, vec)}", x.contiguous(memory_format=cl),
+            weight.contiguous(memory_format=cl), act, w_scale, bias, stride, ydt))
+    print(f"e. int8 conv == plain version on {len(ragged)} ragged cases (cin=12, odd H and W "
+          f"at stride 2, M not a multiple of the 32-row tile, scalar and vector act_scale, "
+          f"f32 and bf16 in and out); max abs err {worst}", flush=True)
+
+    # times on a served batch of 16, one timing for each distinct shape
+    x16 = torch.from_numpy(np.random.RandomState(4).uniform(
+        0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32)).to(device)
+    records, _ = w8a8_conv_inputs(model, x16)
+    timed = {}
+    total = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
+    # activation elements the kernel quantizes (once for each 64-wide tile of
+    # O and each step of 32 of K = k*k*C), and those the convs read
+    quantized = inputs = 0
+    largest = None
+    for name, m, x, odt in records:
+        bias = m.bias.detach().to(odt)
+        args = (x, m.weight, m.act_scale, m.w_scale, bias, m.stride, m.padding)
+        key = (tuple(x.shape), x.dtype, tuple(m.weight.shape), m.stride, m.act_scale.dim(), odt)
+        if key not in timed:
+            timed[key] = (cuda_ms(lambda: ic.conv2d_w8a8(*args, dtype=odt), 10),
+                          cuda_ms(lambda: ic.conv2d_w8a8_plain(*args, dtype=odt), 1))
+        ms, plain_ms = timed[key]
+        y_numel = x.shape[0] * m.weight.shape[0] * (
+            (x.shape[2] + 2 * m.padding - m.weight.shape[2]) // m.stride + 1) * (
+            (x.shape[3] + 2 * m.padding - m.weight.shape[3]) // m.stride + 1)
+        nbytes, ops = conv_bound(x, m.weight, y_numel, odt, m.act_scale.dim() == 1)
+        o, c, kh, kw = m.weight.shape
+        quantized += y_numel // o * -(-c * kh * kw // 32) * 32 * -(-o // 64)
+        inputs += x.numel()
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+        parts = {"ms": ms, "plain_ms": plain_ms, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                 "ops_ms": ops / INT8_OPS_PER_S * 1e3, "bound_ms": bound}
+        for k_, v in parts.items():
+            total[k_] += v
+        if largest is None or ms > largest[1]:
+            largest = (name, ms, bound, tuple(x.shape), tuple(m.weight.shape), m.stride)
+    del records
+    print(f"e. int8 conv at B={BATCH} {SIZE}x{SIZE}, {len(timed)} distinct shapes timed: "
+          f"sum over the 127 launches {total['ms']:.4f} ms (plain version "
+          f"{total['plain_ms']:.4f} ms); "
+          f"bound {total['bound_ms']:.4f} ms (bytes {total['bytes_ms']:.4f} ms at 3.35 TB/s, "
+          f"operations {total['ops_ms']:.4f} ms at 1979 TOP/s); activation elements quantized "
+          f"{quantized / 1e9:.3f} G, read by the convs {inputs / 1e9:.3f} G; "
+          f"largest single conv {largest[0]} "
+          f"x {largest[3]} w {largest[4]} stride {largest[5]}: {largest[1]:.4f} ms (bound "
+          f"{largest[2]:.4f} ms)", flush=True)
+    return {"max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"}
+
+
+def match_detections(got, want, box_tol=(1e-2, 1e-3), score_tol=1e-4):
+    """True if each image's detections are the same set: equal counts and a
+    cover of same-class pairs with boxes within box_tol (px, relative) and
+    scores within score_tol."""
+    import numpy as np
+
+    for b in range(want.valid.shape[0]):
+        n = int(want.valid[b].sum())
+        if int(got.valid[b].sum()) != n or not bool(got.valid[b, :n].all()):
+            return False
+        g = np.concatenate([got.boxes[b, :n].numpy(), got.scores[b, :n, None].numpy()], 1)
+        w = np.concatenate([want.boxes[b, :n].numpy(), want.scores[b, :n, None].numpy()], 1)
+        tol = np.concatenate([box_tol[0] + box_tol[1] * np.abs(w[:, :4]),
+                              np.full((n, 1), score_tol)], 1)
+        close = (np.abs(g[:, None, :] - w[None, :, :]) <= tol[None]).all(-1)
+        match = close & (got.classes[b, :n].numpy()[:, None] == want.classes[b, :n].numpy()[None])
+        if not (match.any(1).all() and match.any(0).all()):
+            return False
+    return True
+
+
+def exact_hard_swish(x):
+    """x * relu6(x + 3) / 6 as jax.nn.hard_swish writes it, one IEEE op at a
+    time: the same arithmetic on the card and on the CPU. The 6 is a tensor
+    on x's device: PyTorch's CUDA division by a Python number multiplies by
+    its rounded reciprocal instead, as its CUDA hard-swish does."""
+    return x * (x + 3).clamp(0, 6) / x.new_full((), 6.0)
+
+
+def set_activation(model, fn):
+    from cocodet_tpu_torch.models.blocks import ConvBnAct
+
+    for m in model.modules():
+        if isinstance(m, ConvBnAct):
+            m.act = fn
+
+
+def compare_card_cpu(on_card, on_cpu, images, device):
+    """The int8 inputs that differ (per conv, first conv in execution order
+    with any), the head maps' max |d|/(1+|v|) and mean |d|/mean|v|, and
+    whether the detections are the same sets."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+
+    rec_g, maps_g = w8a8_conv_inputs(on_card.model, images.to(device))
+    rec_c, maps_c = w8a8_conv_inputs(on_cpu.model, images)
+    differ = [(n, int((ic.quantize_activations(xg, mg.act_scale).cpu()
+                       != ic.quantize_activations(xc, mc.act_scale)).sum()))
+              for (n, mg, xg, _), (_, mc, xc, _) in zip(rec_g, rec_c)]
+    if len(differ) != 127:
+        raise AssertionError(f"{len(differ)} w8a8 convs, expected 127")
+    n_in = sum(int(xc.numel()) for _, _, xc, _ in rec_c)
+    first = next(((n, d) for n, d in differ if d), None)
+    keys = ("reg", "obj", "cls")
+    g = torch.cat([m[k].reshape(-1).cpu() for m in maps_g for k in keys])
+    w = torch.cat([m[k].reshape(-1) for m in maps_c for k in keys])
+    d = (g - w).abs()
+    res = {"inputs": sum(v for _, v in differ), "max": float((d / (1 + w.abs())).max()),
+           "mean": float(d.mean() / w.abs().mean())}
+    with torch.inference_mode():
+        det_g, det_c = on_card(images), on_cpu(images)
+    res["same"] = match_detections(type(det_g)(*(t.cpu() for t in det_g)), det_c)
+    res["line"] = (f"int8 inputs that differ {res['inputs']} of {n_in} over 127 convs (first: "
+                   f"{first}); head maps max |d|/(1+|v|) = {res['max']:.3e}, mean |d|/mean|v| = "
+                   f"{res['mean']:.3e}; detections the same sets: {res['same']} "
+                   f"({int(det_c.valid.sum())} of {det_c.valid.numel()})")
+    return res
+
+
+def phase_headline(device, card, headline, slim_vars, dense):
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.entry import build_w8a8_predictor, cast_parameters
+    from cocodet_tpu_torch.models import build_model
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.postprocess import postprocess
+
+    secs = headline.seconds
+    rs = np.random.RandomState(1)
+    batches = [rs.uniform(0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32)
+               for _ in range(N_BATCHES)]
+    for _ in range(2):  # warm-up: cuDNN picks the prediction convs' algorithms
+        headline(batches[0])
+        torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    ic.reset_launch_counts()
+    nk.reset_launch_counts()
+    latencies, results = [], []
+    t_all = time.perf_counter()
+    for images in batches:
+        t = time.perf_counter()
+        results.append(headline(images))
+        torch.cuda.synchronize()
+        latencies.append((time.perf_counter() - t) * 1e3)
+    wall = time.perf_counter() - t_all
+    launches = {"int8_conv": ic.conv2d_w8a8.launches, "overlap_matrix": nk.overlap_matrix.launches,
+                "greedy_keep": nk.greedy_keep.launches}
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    want = {"int8_conv": 127 * N_BATCHES, "overlap_matrix": N_BATCHES, "greedy_keep": N_BATCHES}
+    if launches != want:
+        raise AssertionError(f"headline launches {launches}, expected {want}")
+    for res in results:
+        if res.boxes.shape != (BATCH, 300, 4):
+            raise AssertionError(f"served boxes have shape {tuple(res.boxes.shape)}")
+        for field in ("boxes", "scores", "obj"):
+            if not torch.isfinite(getattr(res, field)).all():
+                raise AssertionError(f"non-finite {field} in a served headline result")
+    dets = [int(r.valid.sum()) for r in results]
+    print(f"f. build_headline: build {secs['build']:.2f} s, calibration {secs['calibrate']:.2f} s, "
+          f"quantization {secs['quantize']:.2f} s (slim w8a8 YOLOX-M-P6, weights from numpy "
+          f"seed 0, per-channel activation scales); launches on the served path: {launches}",
+          flush=True)
+
+    x = torch.from_numpy(batches[1]).to(device)
+    model, cfg = headline.model, headline.cfg
+    slim, variables = slim_vars
+    cudnn_slim = cast_parameters(build_model("yolox-p6", depth=0.67, width=0.75, fused=True,
+                                             slim=slim, device=device, variables=variables),
+                                 torch.bfloat16)
+    with torch.inference_mode():
+        maps = model(x)
+        forward_ms = cuda_ms(lambda: model(x), 10)
+        post_ms = cuda_ms(lambda: postprocess(maps, STRIDES, cfg), 10)
+        cudnn_ms = cuda_ms(lambda: cudnn_slim(x), 10)
+    del cudnn_slim
+    print(f"f. headline served {N_BATCHES} batches x {BATCH} requests, {SIZE}x{SIZE}, on {card}: "
+          f"{N_BATCHES * BATCH / wall:.2f} img/s, batch latency ms "
+          f"{', '.join(f'{v:.2f}' for v in latencies)}; device ms per batch: forward "
+          f"{forward_ms:.3f}, postprocess {post_ms:.3f}; peak device memory while serving "
+          f"{peak_gib:.2f} GiB; detections per batch {dets}", flush=True)
+    print(f"f. for context, the same slim model in bf16 through cuDNN (a different function: "
+          f"no quantization): forward {cudnn_ms:.3f} ms; the dense bf16 model of phase c: "
+          f"{dense['img/s']:.2f} img/s, batch latency ms "
+          f"{', '.join(f'{v:.2f}' for v in dense['latency ms'])}, forward "
+          f"{dense['forward ms']:.3f} ms, postprocess {dense['postprocess ms']:.3f} ms, peak "
+          f"{dense['peak GiB']:.2f} GiB",
+          flush=True)
+
+    # The headline in f32 on the card against the plain path on the CPU,
+    # with the same quantized variables, on 2 images of 256 px.
+    images = torch.from_numpy(np.random.RandomState(2).uniform(
+        0, 255, (2, 256, 256, 3)).astype(np.float32))
+    on_card = build_w8a8_predictor(headline.variables, slim, dtype=torch.float32, device=device)
+    on_cpu = build_w8a8_predictor(headline.variables, slim, dtype=torch.float32, device="cpu")
+    # 1. Every op of the path with the same arithmetic on both: the int8
+    # conv is exact, and so are the pools, the upsample, the concats and
+    # the adds; hard-swish as jax.nn.hard_swish writes it, one IEEE op at a
+    # time. So no int8 input may differ (limit 0), the head maps differ only
+    # by the f32 prediction convs' summation order, cuDNN against oneDNN
+    # (limit 1e-4 * (1 + |v|), 100x the 1e-6 seen between XLA and oneDNN on
+    # the CPU), and the detections must be the same sets at the tolerance of
+    # tests/test_torch_entry.py.
+    for p in (on_card, on_cpu):
+        set_activation(p.model, exact_hard_swish)
+    exact = compare_card_cpu(on_card, on_cpu, images, device)
+    print(f"f. headline f32, card vs plain path on the CPU, 2 x 256 px, hard-swish as "
+          f"jax.nn.hard_swish on both: {exact['line']}; limits: 0 inputs, 1e-4, same sets",
+          flush=True)
+    # 2. As served, with PyTorch's own hard-swish on each device: the CUDA
+    # kernel multiplies by the rounded 1/6 where the CPU's divides by 6, so
+    # some outputs differ by an ulp; a quantizer that an ulp moves across a
+    # rounding boundary changes an int8 input by one step, and the steps
+    # spread through the net. Limit: the bf16 limit of phase d on the maps,
+    # mean |d| / mean |v| <= 5e-2.
+    for p in (on_card, on_cpu):
+        set_activation(p.model, torch.nn.functional.hardswish)
+    served = compare_card_cpu(on_card, on_cpu, images, device)
+    t = torch.linspace(-4, 4, 1 << 20)
+    hs_differ = int((torch.nn.functional.hardswish(t.to(device)).cpu()
+                     != torch.nn.functional.hardswish(t)).sum())
+    print(f"f. headline f32, card vs plain path on the CPU, PyTorch's hard-swish on each device "
+          f"({hs_differ} of {t.numel()} hard-swish outputs on [-4, 4] differ between them): "
+          f"{served['line']}; limit: mean |d|/mean |v| <= 5e-2", flush=True)
+    if not (exact["inputs"] == 0 and exact["max"] <= 1e-4 and exact["same"]
+            and served["mean"] <= 5e-2):
+        raise AssertionError("the headline on the card disagrees with the plain path on the CPU")
+    return launches
+
+
 def main():
     try:
         import torch
@@ -462,8 +847,13 @@ def main():
     build_s = phase_build()
     worst = phase_kernels(device)
     variables = serving_variables(seed=0)
-    launches, stats, predictor = phase_serve(device, variables, card)
+    launches, stats, predictor, dense = phase_serve(device, variables, card)
     phase_reference(device, variables, predictor)
+    del predictor
+    headline, slim_vars = build_headline_model(device)
+    int8_stats = phase_int8_conv(device, headline)
+    # the NMS kernels' launches and times in the kernels line stay phase c's
+    launches["int8_conv"] = phase_headline(device, card, headline, slim_vars, dense)["int8_conv"]
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}
@@ -474,6 +864,10 @@ def main():
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": None}
                for name, s in stats.items()]
+    kernels.append({"name": "int8_conv", "route": "cuda",
+                    "source": "cocodet_tpu_torch/csrc/int8_conv.cu",
+                    "replaces": "cocodet_tpu/models/blocks.py:248",
+                    "launches": launches["int8_conv"], **int8_stats, "library_ms": None})
     print(f"build_s={build_s:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -7,7 +7,7 @@ legacy Darknet-21/53 of the ``yolov3`` model is not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Sequence
+from typing import Any, Dict, Optional, Sequence
 
 import torch
 from torch import nn
@@ -79,38 +79,49 @@ class CSPBackbone(nn.Module):
     """Parametric CSPDarknet: Focus stem + N (conv s2, [SPP], CSP) stages.
 
     Takes NHWC images, returns ``{stage_name: NCHW map}`` for
-    ``out_features``; ``channels`` gives each stage's width.
+    ``out_features``; ``channels`` gives each stage's width. ``slim`` is the
+    channel-slim map of compress/merge.py::load_slim_spec: the widths
+    ``stem`` and ``darkN_down``, ``darkN_spp`` ``{"hidden", "out"}`` and
+    the ``darkN_csp`` tables (cocodet_tpu/models/darknet.py:133-179).
+    ``quant`` goes to every conv.
     """
 
     def __init__(self, variant: str = "p6", depth: float = 1.0,
                  width: float = 1.0,
                  out_features: Sequence[str] = ("dark3", "dark4", "dark5", "dark6"),
                  act: str = "hard_swish", depthwise: bool = False,
-                 fused: bool = False):
+                 fused: bool = False, quant: Optional[str] = None,
+                 slim: Optional[Dict[str, Any]] = None):
         super().__init__()
         stages = BACKBONE_STAGES[variant]
         custom = variant != "standard"
         base = int(width * 64)
         base_depth = max(round(depth * 3), 1)
+        slim = slim or {}
+        kw = dict(act=act, fused=fused, quant=quant)
         self.out_features = tuple(out_features)
         self.stage_names = [s.name for s in stages]
-        self.stem = Focus(3, base, kernel_size=3, act=act,
-                          order=_FOCUS_ORDER[variant], fused=fused)
-        self.channels: Dict[str, int] = {"stem": base}
-        cin = base
+        cin = int(slim.get("stem", base))
+        self.stem = Focus(3, cin, kernel_size=3, order=_FOCUS_ORDER[variant], **kw)
+        self.channels: Dict[str, int] = {"stem": cin}
         for spec in stages:
             feats = base * spec.out_mult
+            down_w = int(slim.get(f"{spec.name}_down", feats))
             self.add_module(f"{spec.name}_down", ConvBnAct(
-                cin, feats, _DOWN_KERNEL[variant], 2, act=act, fused=fused))
+                cin, down_w, _DOWN_KERNEL[variant], 2, **kw))
+            cin = down_w
             if spec.spp:
-                self.add_module(f"{spec.name}_spp", SPPBottleneck(
-                    feats, feats, act=act, fused=fused))
+                spp_slim = slim.get(f"{spec.name}_spp") or {}
+                spp = SPPBottleneck(cin, feats, hidden_width=spp_slim.get("hidden"),
+                                    out_width=spp_slim.get("out"), **kw)
+                self.add_module(f"{spec.name}_spp", spp)
+                cin = spp.out_width
             self.add_module(f"{spec.name}_csp", CSPLayer(
-                feats, feats, n=base_depth * spec.n_mult,
+                cin, feats, n=base_depth * spec.n_mult,
                 shortcut=spec.shortcut,
                 depthwise=spec.depthwise or depthwise,
-                kernel_size=spec.kernel_size, act=act, custom=custom,
-                fused=fused))
+                kernel_size=spec.kernel_size, custom=custom,
+                slim=slim.get(f"{spec.name}_csp"), **kw))
             self.channels[spec.name] = cin = feats
 
     def forward(self, x_nhwc: torch.Tensor, dtype: torch.dtype) -> Dict[str, torch.Tensor]:

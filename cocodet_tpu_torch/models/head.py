@@ -6,7 +6,7 @@ Produces only the raw per-level maps; decode and NMS are plain functions in
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import torch
 from torch import nn
@@ -23,20 +23,29 @@ class YOLOXHead(nn.Module):
     """
 
     def __init__(self, in_channels: Sequence[int], num_classes: int = 80,
-                 width: float = 1.0, act: str = "hard_swish", fused: bool = False):
+                 width: float = 1.0, act: str = "hard_swish", fused: bool = False,
+                 quant: Optional[str] = None,
+                 slim: Optional[Mapping[str, int]] = None):
         super().__init__()
         self.num_levels = len(in_channels)
         feat = int(256 * width)
-        kw = dict(act=act, fused=fused)
+        slim = slim or {}
+        kw = dict(act=act, fused=fused, quant=quant)
+
+        def add(name, cin, k):
+            """A stem or tower conv at its slim width (head.py:49-73)."""
+            w = int(slim.get(name, feat))
+            self.add_module(name, ConvBnAct(cin, w, k, 1, **kw))
+            return w
+
         for k, cin in enumerate(in_channels):
-            self.add_module(f"stem{k}", ConvBnAct(cin, feat, 1, 1, **kw))
-            for tower in ("cls", "reg"):
-                for j in range(2):
-                    self.add_module(f"{tower}_conv{k}_{j}",
-                                    ConvBnAct(feat, feat, 3, 1, **kw))
-            self.add_module(f"cls_pred{k}", Conv2d(feat, num_classes, 1, use_bias=True))
-            self.add_module(f"reg_pred{k}", Conv2d(feat, 4, 1, use_bias=True))
-            self.add_module(f"obj_pred{k}", Conv2d(feat, 1, 1, use_bias=True))
+            stem_w = add(f"stem{k}", cin, 1)
+            cls_w = add(f"cls_conv{k}_1", add(f"cls_conv{k}_0", stem_w, 3), 3)
+            reg_w = add(f"reg_conv{k}_1", add(f"reg_conv{k}_0", stem_w, 3), 3)
+            # the prediction convs stay float (compress/quantize.py:21-24)
+            self.add_module(f"cls_pred{k}", Conv2d(cls_w, num_classes, 1, use_bias=True))
+            self.add_module(f"reg_pred{k}", Conv2d(reg_w, 4, 1, use_bias=True))
+            self.add_module(f"obj_pred{k}", Conv2d(reg_w, 1, 1, use_bias=True))
 
     def forward(self, xin: Sequence[torch.Tensor]) -> List[Dict[str, torch.Tensor]]:
         if len(xin) != self.num_levels:

@@ -12,7 +12,7 @@ bu_csp{k}, and the backbone under ``backbone``.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -50,35 +50,44 @@ class YOLOPAFPN(nn.Module):
 
     def __init__(self, variant: str = "p6", depth: float = 1.0,
                  width: float = 1.0, act: str = "hard_swish",
-                 depthwise: bool = False, fused: bool = False):
+                 depthwise: bool = False, fused: bool = False,
+                 quant: Optional[str] = None,
+                 slim: Optional[Dict[str, Any]] = None):
         super().__init__()
         cfg = PAFPN_VARIANTS[variant]
         self.in_features: Tuple[str, ...] = tuple(cfg["in_features"])
         widths = [int(c * width) for c in cfg["in_channels"]]
         self.widths = widths
         L = self.num_levels = len(widths)
-        kw = dict(act=act, fused=fused)
+        slim = slim or {}
+        kw = dict(act=act, fused=fused, quant=quant)
         csp_kw = dict(n=round(3 * depth), shortcut=False,
                       kernel_size=cfg["kernel_size"],
                       depthwise=cfg["depthwise"] or depthwise,
                       custom=cfg["custom"], **kw)
         self.backbone = CSPBackbone(variant=cfg["backbone"], depth=depth,
                                     width=width, out_features=self.in_features,
-                                    act=act, depthwise=depthwise, fused=fused)
+                                    depthwise=depthwise, slim=slim, **kw)
         ch = [self.backbone.channels[f] for f in self.in_features]
 
+        # slim pins (cocodet_tpu/models/pafpn.py:115-167): the widths of
+        # lateral{k} and bu_conv{k}, the td_csp{k} / bu_csp{k} tables
+        lat_w: Dict[int, int] = {}
         carry = ch[L - 1]
         for k in range(L - 1, 0, -1):
-            self.add_module(f"lateral{k}",
-                            ConvBnAct(carry, widths[k - 1], 1, 1, **kw))
+            lat_w[k] = int(slim.get(f"lateral{k}", widths[k - 1]))
+            self.add_module(f"lateral{k}", ConvBnAct(carry, lat_w[k], 1, 1, **kw))
             self.add_module(f"td_csp{k}", CSPLayer(
-                widths[k - 1] + ch[k - 1], widths[k - 1], **csp_kw))
+                lat_w[k] + ch[k - 1], widths[k - 1],
+                slim=slim.get(f"td_csp{k}"), **csp_kw))
             carry = widths[k - 1]
         for k in range(1, L):
+            bu_w = int(slim.get(f"bu_conv{k}", widths[k - 1]))
             self.add_module(f"bu_conv{k}", ConvBnAct(
-                widths[k - 1], widths[k - 1], cfg["down_kernel"], 2, **kw))
+                widths[k - 1], bu_w, cfg["down_kernel"], 2, **kw))
             self.add_module(f"bu_csp{k}", CSPLayer(
-                2 * widths[k - 1], widths[k], **csp_kw))
+                bu_w + lat_w[k], widths[k], slim=slim.get(f"bu_csp{k}"),
+                **csp_kw))
 
     def forward(self, x_nhwc: torch.Tensor, dtype: torch.dtype) -> Tuple[torch.Tensor, ...]:
         feats = self.backbone(x_nhwc, dtype)

@@ -49,18 +49,23 @@ class YOLOX(nn.Module):
 
     def __init__(self, spec: ModelSpec, num_classes: int = 80,
                  depth: float = 1.0, width: float = 1.0, fused: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 slim: Optional[Mapping[str, Any]] = None,
+                 quant: Optional[str] = None):
         super().__init__()
         if spec.variant == "yolofpn":
             raise NotImplementedError(
                 "the yolov3 Darknet-53 + YOLOFPN model is not ported yet")
         self.spec, self.num_classes = spec, num_classes
         self.depth, self.width, self.fused, self.dtype = depth, width, fused, dtype
+        self.slim, self.quant = slim, quant
         self.backbone = YOLOPAFPN(variant=spec.variant, depth=depth,
                                   width=width, act=spec.act,
-                                  depthwise=spec.depthwise, fused=fused)
+                                  depthwise=spec.depthwise, fused=fused,
+                                  quant=quant, slim=slim)
         self.head = YOLOXHead(self.backbone.widths, num_classes=num_classes,
-                              width=width, act=spec.act, fused=fused)
+                              width=width, act=spec.act, fused=fused,
+                              quant=quant, slim=(slim or {}).get("head"))
 
     @property
     def strides(self) -> Tuple[int, ...]:
@@ -81,19 +86,25 @@ def build_model(
     dtype: torch.dtype = torch.float32,
     device: Union[str, torch.device] = "cuda",
     variables: Optional[Mapping[str, Any]] = None,
+    slim: Optional[Mapping[str, Any]] = None,
+    quant: Optional[str] = None,
 ) -> YOLOX:
     """Model registry. ``name`` keys into MODEL_SPECS.
 
     The competition model is build_model("yolox-p6", depth=0.67, width=0.75).
     The weights are the JAX model's flax ``variables`` (utils/convert.py), or,
     without them, drawn from numpy seed 0 (``random_variables``). The model
-    lives on ``device`` in channels-last memory, in eval mode.
+    lives on ``device`` in channels-last memory, in eval mode. ``slim`` is a
+    channel-slim map (compress/merge.py::load_slim_spec) and ``quant`` the
+    int8 PTQ mode of the fused topology (None, "calib" or "w8a8"), as in
+    cocodet_tpu/models/yolox.py:69-75,140-155.
     """
     if name not in MODEL_SPECS:
         raise KeyError(f"unknown model {name!r}; available: {sorted(MODEL_SPECS)}")
     with torch.device("meta"):  # no init: every weight is loaded below
         model = YOLOX(MODEL_SPECS[name], num_classes=num_classes, depth=depth,
-                      width=width, fused=fused, dtype=dtype)
+                      width=width, fused=fused, dtype=dtype, slim=slim,
+                      quant=quant)
     model = model.to_empty(device=device).to(memory_format=torch.channels_last)
     load_variables(model, random_variables(model, 0) if variables is None else variables)
     return model.eval()

@@ -53,7 +53,7 @@ def fuse_model(model: YOLOX) -> YOLOX:
     with torch.device("meta"):  # no init: every weight is loaded below
         fused = YOLOX(model.spec, num_classes=model.num_classes,
                       depth=model.depth, width=model.width, fused=True,
-                      dtype=model.dtype)
+                      dtype=model.dtype, slim=model.slim)
     fused = fused.to_empty(device=ref.device).to(
         dtype=ref.dtype, memory_format=torch.channels_last)
     fused.load_state_dict(fuse_batchnorm(model.state_dict()))

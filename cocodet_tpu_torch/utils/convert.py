@@ -11,6 +11,17 @@ per leaf:
     params/<scope>/scale          -> <scope>.weight        (BatchNorm)
     batch_stats/<scope>/mean      -> <scope>.running_mean
     batch_stats/<scope>/var       -> <scope>.running_var
+    quant/<scope>/w_scale         -> <scope>.w_scale       (w8a8 conv)
+    quant/<scope>/act_scale       -> <scope>.act_scale     (w8a8 conv)
+
+A quantized tree's int8 kernel goes into the w8a8 conv's int8 ``weight``
+buffer, which is OIHW in channels-last memory (physically OHWI, the layout
+of the int8 conv kernel). Its ``act_scale`` takes the shape of the
+variables: a scalar (per-tensor) or a (cin,) vector (per-channel). The
+``w_bits`` leaves of a bits=4 quant tree say how a checkpoint is packed,
+which the runtime does not read; they are skipped. A ``"calib"`` conv's
+``act_absmax`` buffer is state, not a variable: ``jax_layout`` lists it
+under ``quant_stats``, as flax does, and ``load_variables`` leaves it alone.
 
 Loading reference-layout (torch YOLOX) state dicts is not ported yet.
 """
@@ -28,20 +39,23 @@ Path = Tuple[str, ...]
 _TO_TORCH = {("params", "kernel"): "weight", ("params", "bias"): "bias",
              ("params", "scale"): "weight",
              ("batch_stats", "mean"): "running_mean",
-             ("batch_stats", "var"): "running_var"}
+             ("batch_stats", "var"): "running_var",
+             ("quant", "w_scale"): "w_scale", ("quant", "act_scale"): "act_scale"}
+_SKIPPED = {("quant", "w_bits")}
+_STATE = "act_absmax"  # quant_stats: filled by calibration, never loaded
 
 
-def _flatten(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
+def flatten_tree(tree: Mapping[str, Any], prefix: Path = ()) -> Dict[Path, Any]:
     flat: Dict[Path, Any] = {}
     for key, value in tree.items():
         if isinstance(value, Mapping):
-            flat.update(_flatten(value, prefix + (key,)))
+            flat.update(flatten_tree(value, prefix + (key,)))
         else:
             flat[prefix + (key,)] = value
     return flat
 
 
-def _unflatten(flat: Mapping[Path, Any]) -> Dict[str, Any]:
+def unflatten_tree(flat: Mapping[Path, Any]) -> Dict[str, Any]:
     tree: Dict[str, Any] = {}
     for path, value in flat.items():
         node = tree
@@ -69,6 +83,10 @@ def jax_path(name: str, value: torch.Tensor) -> Tuple[Path, Tuple[int, ...]]:
         return ("params", *scope, "bias"), shape
     if leaf in ("running_mean", "running_var"):
         return ("batch_stats", *scope, leaf[len("running_"):]), shape
+    if leaf in ("w_scale", "act_scale"):
+        return ("quant", *scope, leaf), shape
+    if leaf == _STATE:
+        return ("quant_stats", *scope, leaf), shape
     raise KeyError(f"no flax counterpart for {name}")
 
 
@@ -81,7 +99,9 @@ def jax_layout(model: nn.Module) -> Dict[Path, Tuple[int, ...]]:
 def convert_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
     """Flax variables -> ``{torch state-dict name: numpy array}``."""
     out: Dict[str, np.ndarray] = {}
-    for path, value in _flatten(variables).items():
+    for path, value in flatten_tree(variables).items():
+        if (path[0], path[-1]) in _SKIPPED:
+            continue
         rule = _TO_TORCH.get((path[0], path[-1]))
         if rule is None:
             raise KeyError(f"no port counterpart for flax variable {'/'.join(path)}")
@@ -95,21 +115,34 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
 def load_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     """Copy flax ``variables`` into ``model`` in place (dtype, device and
     memory format of the model's tensors are kept). Raises on any missing or
-    unused entry and on any shape mismatch."""
+    unused entry and on any shape mismatch. An ``act_scale`` buffer takes
+    the shape of its variable, a scalar or one scale per input channel."""
     arrays = convert_variables(variables)
-    targets = _torch_entries(model)
+    targets = {n: t for n, t in _torch_entries(model).items()
+               if not n.endswith(_STATE)}
     missing = sorted(set(targets) - set(arrays))
     unused = sorted(set(arrays) - set(targets))
     if missing or unused:
         raise KeyError(f"variables do not match the model: missing {missing[:8]}"
                        f" ({len(missing)}), unused {unused[:8]} ({len(unused)})")
     for name, t in targets.items():
-        if tuple(arrays[name].shape) != tuple(t.shape):
-            raise ValueError(f"{name}: shape {tuple(arrays[name].shape)} from the "
+        shape = tuple(arrays[name].shape)
+        if name.endswith("act_scale"):
+            conv = model.get_submodule(name[: -len(".act_scale")])
+            if shape in ((), (conv.weight.shape[1] * conv.groups,)):
+                conv.act_scale = torch.empty(shape, dtype=t.dtype, device=t.device)
+                targets[name] = conv.act_scale
+                continue
+        if shape != tuple(t.shape):
+            raise ValueError(f"{name}: shape {shape} from the "
                              f"variables, {tuple(t.shape)} in the model")
+        if (arrays[name].dtype == np.int8) != (t.dtype == torch.int8):
+            raise TypeError(f"{name}: {arrays[name].dtype} from the variables, "
+                            f"{t.dtype} in the model (an int8 kernel needs a "
+                            f"model built with quant='w8a8', and only it)")
     with torch.no_grad():
         for name, t in targets.items():
-            t.copy_(torch.from_numpy(np.ascontiguousarray(arrays[name])))
+            t.copy_(torch.tensor(arrays[name]))
     return model
 
 
@@ -118,14 +151,27 @@ def random_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
     kernels U(+-sqrt(3/fan_in)) (unit gain, so the head maps of the full
     model stay of order 1-30 on 0-255 images), biases U(+-0.1), BN scale and
     var U(0.5, 1.5), BN bias and mean N(0, 0.1), all f32. Non-trivial BN
-    statistics make BN folding do real work."""
+    statistics make BN folding do real work. A w8a8 conv gets int8 kernels
+    U{-127..127} with ``w_scale`` sqrt(3/fan_in)/127 and a scalar
+    ``act_scale`` U(0.1, 0.3) (an activation range of about 13-38)."""
     rng = np.random.default_rng(seed)
     flat: Dict[Path, np.ndarray] = {}
-    for path, shape in jax_layout(model).items():
+    for name, t in _torch_entries(model).items():
+        path, shape = jax_path(name, t)
         leaf = path[-1]
+        if path[0] == "quant_stats":
+            continue
+        if leaf == "kernel" and t.dtype == torch.int8:
+            flat[path] = rng.integers(-127, 128, shape).astype(np.int8)
+            continue
         if leaf == "kernel":
             bound = np.sqrt(3.0 / np.prod(shape[:3]))
             v = rng.uniform(-bound, bound, shape)
+        elif leaf == "w_scale":
+            kernel = model.get_submodule(name[: -len(".w_scale")]).weight
+            v = np.full(shape, np.sqrt(3.0 / np.prod(kernel.shape[1:])) / 127.0)
+        elif leaf == "act_scale":
+            v = rng.uniform(0.1, 0.3, shape)
         elif leaf in ("scale", "var"):
             v = rng.uniform(0.5, 1.5, shape)
         elif leaf == "bias" and path[-2] != "bn":
@@ -133,4 +179,4 @@ def random_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
         else:
             v = rng.normal(0.0, 0.1, shape)
         flat[path] = v.astype(np.float32)
-    return _unflatten(flat)
+    return unflatten_tree(flat)

@@ -36,3 +36,74 @@ def shared_variables(jax_module, torch_module, x_nhwc: np.ndarray, seed: int = 0
 def assert_close(got: np.ndarray, want: np.ndarray, rtol: float, atol: float):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32), rtol=rtol, atol=atol)
+
+
+# A channel-slim plan for yolox-p6 at depth 0.33, width 0.25 in the format of
+# artifacts/mp6_chain_slim_spec.json (json keys; compress.load_slim_spec
+# restores the int keys). It pins every kind of width the full plan pins:
+# the stem, down and lateral/bu convs, residual streams ("res"),
+# non-residual (hidden, out) pairs, bypasses ("c2"), the SPP and the head.
+SMALL_SLIM_SPEC = {
+    "stem": 8,
+    "dark2_down": 24, "dark2_csp": {"0": [8, None], "res": 8, "c2": 8},
+    "dark3_down": 48,
+    "dark3_csp": {"0": [8, None], "1": [16, None], "2": [8, None], "res": 24, "c2": 16},
+    "dark4_down": 96,
+    "dark4_csp": {"0": [32, None], "1": [32, None], "2": [16, None], "res": 48, "c2": 40},
+    "dark5_down": 160, "dark5_csp": {"0": [64, 80], "c2": 64},
+    "dark6_down": 200, "dark6_spp": {"hidden": 96, "out": 160},
+    "dark6_csp": {"0": [64, 96], "c2": 72},
+    "lateral3": 160, "td_csp3": {"0": [64, 80], "c2": 112},
+    "lateral2": 96, "td_csp2": {"0": [48, 64], "c2": 80},
+    "lateral1": 48, "td_csp1": {"0": [32, 32], "c2": 40},
+    "bu_conv1": 40, "bu_csp1": {"0": [48, 64], "c2": 40},
+    "bu_conv2": 96, "bu_csp2": {"0": [64, 80], "c2": 88},
+    "bu_conv3": 144, "bu_csp3": {"0": [96, 112], "c2": 120},
+    "head": {"stem0": 48, "cls_conv0_0": 40, "cls_conv0_1": 56, "reg_conv0_0": 64,
+             "reg_conv0_1": 32, "stem1": 64, "cls_conv1_1": 48, "stem2": 40,
+             "reg_conv2_0": 56, "stem3": 32, "cls_conv3_0": 24},
+}
+SMALL_ARCH = dict(depth=0.33, width=0.25)
+
+
+def write_small_slim_spec(tmp_dir) -> str:
+    """SMALL_SLIM_SPEC as a json file in ``tmp_dir``; returns its path."""
+    import json
+    import os
+
+    path = os.path.join(str(tmp_dir), "small_slim_spec.json")
+    with open(path, "w") as f:
+        json.dump(SMALL_SLIM_SPEC, f)
+    return path
+
+
+def images(size: int, batch: int = 2, seed: int = 0) -> np.ndarray:
+    """(batch, size, size, 3) f32 images, U(0, 255) from numpy ``seed``."""
+    rs = np.random.RandomState(seed)
+    return rs.uniform(0.0, 255.0, (batch, size, size, 3)).astype(np.float32)
+
+
+def head_maps(outputs):
+    """Per-level {"reg","obj","cls"} maps of either framework as f32 numpy."""
+    return [{k: (v.detach().float().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v, np.float32)) for k, v in o.items()} for o in outputs]
+
+
+def assert_same_detections(got, want, box_tol=(1e-2, 1e-3), score_tol=1e-4):
+    """Each image's detections of the port (``got``, torch NMSResult) and of
+    JAX (``want``) are the same set: equal counts, and a one-to-one cover
+    of same-class pairs with boxes within ``box_tol`` (absolute px,
+    relative) and scores within ``score_tol``."""
+    for b in range(want.valid.shape[0]):
+        n = int(want.valid[b].sum())
+        assert int(got.valid[b].sum()) == n
+        assert got.valid[b, :n].all()
+        g = np.concatenate([got.boxes[b, :n].numpy(), got.scores[b, :n, None].numpy()], 1)
+        w = np.concatenate([np.asarray(want.boxes[b, :n]),
+                            np.asarray(want.scores[b, :n, None])], 1)
+        tol = np.concatenate([box_tol[0] + box_tol[1] * np.abs(w[:, :4]),
+                              np.full((n, 1), score_tol)], 1)
+        close = (np.abs(g[:, None, :] - w[None, :, :]) <= tol[None]).all(-1)
+        same_class = got.classes[b, :n].numpy()[:, None] == np.asarray(want.classes[b, :n])[None]
+        match = close & same_class
+        assert match.any(1).all() and match.any(0).all()
