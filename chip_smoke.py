@@ -30,21 +30,27 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      candidates, exactly;
   e. the int8 conv of the headline (bench.py's slim w8a8 YOLOX-M-P6, built
      by entry.build_headline: weights from a numpy seed, calibrated and
-     quantized on the card): held against its plain version on the card on
-     all 127 w8a8 convs at their served shapes (inputs collected by forward
-     hooks on one served batch of 2 640x640 images) and on ragged cases
-     (cin=12, odd sizes at stride 2, M not a multiple of the tile, scalar
-     and vector act_scale, f32 and bf16 in and out): the s32 accumulators
-     and the outputs must be equal bit for bit; then timed on each distinct
-     shape of a served batch of 16, kernel and plain version, beside each
-     conv's bound;
+     quantized on the card): held against its plain version on the card,
+     with no activation and with the fused hard-swish, on all 127 w8a8
+     convs at their served shapes (inputs collected by forward hooks on one
+     served batch of 2 640x640 images) and on ragged cases (cin=12, odd
+     sizes at stride 2, a patch cut by the image edge, M not a multiple of
+     the tile, O above one slice of the tile plan, scalar and vector
+     act_scale, f32 and bf16 in and out): the s32 accumulators and the
+     outputs must be equal bit for bit; then timed on each distinct shape
+     of a served batch of 16 as served (fused hard-swish), kernel and plain
+     version, beside each conv's bound, with the activation elements the
+     kernel quantizes (ops/cuda/int8_conv.py::quantized_elements); and the
+     port's hard-swish on the card against the CPU, on every non-NaN bf16
+     bit pattern and 2^20 f32 values in [-4, 4]: equal;
   f. the main path of the headline: 4 batches of 16 640x640 requests served
      through build_headline's Predictor after two warm-up batches, launch
      counts zeroed just before and read just after (127 int8 convs a batch,
      one launch of each NMS kernel); the device time of the forward and of
      the postprocess, beside the same slim model's bf16 forward through
-     cuDNN and phase c's dense numbers; then the headline in f32 on the card
-     against the plain path on the CPU with the same quantized variables.
+     cuDNN and phase c's dense numbers; then the headline as served, in f32
+     and in bf16, on the card against the plain path on the CPU with the
+     same quantized variables.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -527,23 +533,51 @@ def conv_bound(x, weight, y_numel, out_dtype, vec):
 
 def check_int8_conv(label, x, weight, act_scale, w_scale, bias, stride, out_dtype):
     """Kernel against plain version on the card, accumulators and outputs
-    bit for bit; returns the max abs error of the two."""
+    bit for bit, with no activation and with the fused hard-swish; returns
+    the max abs error."""
     import torch
 
     from cocodet_tpu_torch.ops.cuda import int8_conv as ic
 
     pad = (weight.shape[-1] - 1) // 2
-    y, acc = ic.int8_conv_acc(x, weight, act_scale, w_scale, bias, stride, pad, dtype=out_dtype)
     acc_plain = ic.int8_conv_acc_plain(ic.quantize_activations(x, act_scale), weight, stride, pad)
-    y_plain = ic.rescale_plain(acc_plain, act_scale, w_scale, bias, out_dtype)
-    torch.cuda.synchronize()
-    err = max(float((acc.double() - acc_plain.double()).abs().max()),
-              float((y.double() - y_plain.double()).abs().max()))
-    if not (torch.equal(acc, acc_plain) and torch.equal(y, y_plain)):
-        raise AssertionError(f"int8 conv disagrees with its plain version: {label}: "
-                             f"{int((acc != acc_plain).sum())} accumulators, "
-                             f"{int((y != y_plain).sum())} outputs differ, max err {err}")
+    err = 0.0
+    for act in (None, "hard_swish"):
+        y, acc = ic.int8_conv_acc(x, weight, act_scale, w_scale, bias, stride, pad,
+                                  dtype=out_dtype, act=act)
+        y_plain = ic.apply_act(ic.rescale_plain(acc_plain, act_scale, w_scale, bias, out_dtype),
+                               act)
+        torch.cuda.synchronize()
+        err = max(err, float((acc.double() - acc_plain.double()).abs().max()),
+                  float((y.double() - y_plain.double()).nan_to_num().abs().max()))
+        if not (torch.equal(acc, acc_plain) and torch.equal(y, y_plain)):
+            raise AssertionError(f"int8 conv disagrees with its plain version: {label}, act "
+                                 f"{act}: {int((acc != acc_plain).sum())} accumulators, "
+                                 f"{int((y != y_plain).sum())} outputs differ, max err {err}")
     return err
+
+
+def check_hard_swish(device):
+    """The port's hard_swish on the card against the CPU: every bf16 bit
+    pattern that is not a NaN, and 2^20 f32 values in [-4, 4]. Equal bits,
+    or NaN on both (-inf gives -inf * 0)."""
+    import torch
+
+    from cocodet_tpu_torch.models.blocks import hard_swish
+
+    bf16 = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    bf16 = bf16[~torch.isnan(bf16)]
+    f32 = torch.linspace(-4, 4, 1 << 20)
+    counts = []
+    for x, as_int in ((bf16, torch.int16), (f32, torch.int32)):
+        got, want = hard_swish(x.to(device)).cpu(), hard_swish(x)
+        same = (got.view(as_int) == want.view(as_int)) | (torch.isnan(got) & torch.isnan(want))
+        counts.append((int((~same).sum()), x.numel()))
+    print(f"e. hard_swish on the card vs the CPU: bf16 {counts[0][0]} of {counts[0][1]} non-NaN "
+          f"bit patterns differ, f32 {counts[1][0]} of {counts[1][1]} values in [-4, 4] differ",
+          flush=True)
+    if counts[0][0] or counts[1][0]:
+        raise AssertionError("hard_swish on the card differs from the CPU")
 
 
 def phase_int8_conv(device, headline):
@@ -566,9 +600,9 @@ def phase_int8_conv(device, headline):
                                            m.bias.detach().to(odt), m.stride, odt))
         key = (m.weight.shape[-1], m.stride, "C%32" if x.shape[1] % 32 else "C=32n")
         kinds[key] = kinds.get(key, 0) + 1
-    print(f"e. int8 conv == plain version (s32 accumulators and outputs, bit for bit) on all "
-          f"{len(records)} w8a8 convs of the headline at B=2 {SIZE}x{SIZE}; kinds (k, stride, "
-          f"C) {kinds}", flush=True)
+    print(f"e. int8 conv == plain version (s32 accumulators and outputs, bit for bit, with no "
+          f"activation and with the fused hard-swish) on all {len(records)} w8a8 convs of the "
+          f"headline at B=2 {SIZE}x{SIZE}; kinds (k, stride, C) {kinds}", flush=True)
     del records
 
     # ragged cases: B, C, H, W, O, k, stride, x dtype, out dtype, vector act_scale
@@ -579,7 +613,9 @@ def phase_int8_conv(device, headline):
               (3, 48, 17, 15, 50, 3, 2, bf16, bf16, True),
               (2, 96, 21, 23, 72, 3, 1, bf16, bf16, False),
               (1, 928, 5, 5, 768, 1, 1, f32, bf16, True),
-              (2, 576, 11, 9, 256, 3, 2, bf16, bf16, False)]
+              (2, 576, 11, 9, 256, 3, 2, bf16, bf16, False),
+              (2, 64, 37, 45, 96, 3, 2, bf16, bf16, True),
+              (2, 160, 10, 10, 288, 3, 1, bf16, f32, True)]
     g = torch.Generator().manual_seed(0)
     for (b, c, h, w, o, k, stride, xdt, ydt, vec) in ragged:
         x = (torch.rand((b, c, h, w), generator=g) * 80 - 20).to(xdt).to(device)
@@ -592,8 +628,10 @@ def phase_int8_conv(device, headline):
             f"ragged {(b, c, h, w, o, k, stride, xdt, ydt, vec)}", x.contiguous(memory_format=cl),
             weight.contiguous(memory_format=cl), act, w_scale, bias, stride, ydt))
     print(f"e. int8 conv == plain version on {len(ragged)} ragged cases (cin=12, odd H and W "
-          f"at stride 2, M not a multiple of the 32-row tile, scalar and vector act_scale, "
-          f"f32 and bf16 in and out); max abs err {worst}", flush=True)
+          f"at stride 2, patches cut by the image edge, M not a multiple of the tile, O "
+          f"above one slice of the tile plan (928 -> 768, 160 -> 288), scalar and vector "
+          f"act_scale, f32 and bf16 in and out); max abs err {worst}", flush=True)
+    check_hard_swish(device)
 
     # times on a served batch of 16, one timing for each distinct shape
     x16 = torch.from_numpy(np.random.RandomState(4).uniform(
@@ -601,24 +639,24 @@ def phase_int8_conv(device, headline):
     records, _ = w8a8_conv_inputs(model, x16)
     timed = {}
     total = {"ms": 0.0, "plain_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0, "bound_ms": 0.0}
-    # activation elements the kernel quantizes (once for each 64-wide tile of
-    # O and each step of 32 of K = k*k*C), and those the convs read
+    # activation elements the kernel quantizes (its tile plan), and those the
+    # convs read
     quantized = inputs = 0
     largest = None
     for name, m, x, odt in records:
         bias = m.bias.detach().to(odt)
         args = (x, m.weight, m.act_scale, m.w_scale, bias, m.stride, m.padding)
         key = (tuple(x.shape), x.dtype, tuple(m.weight.shape), m.stride, m.act_scale.dim(), odt)
-        if key not in timed:
-            timed[key] = (cuda_ms(lambda: ic.conv2d_w8a8(*args, dtype=odt), 10),
-                          cuda_ms(lambda: ic.conv2d_w8a8_plain(*args, dtype=odt), 1))
+        if key not in timed:  # as served: hard-swish fused
+            timed[key] = (cuda_ms(lambda: ic.conv2d_w8a8(*args, dtype=odt, act="hard_swish"), 10),
+                          cuda_ms(lambda: ic.conv2d_w8a8_plain(*args, dtype=odt,
+                                                               act="hard_swish"), 1))
         ms, plain_ms = timed[key]
         y_numel = x.shape[0] * m.weight.shape[0] * (
             (x.shape[2] + 2 * m.padding - m.weight.shape[2]) // m.stride + 1) * (
             (x.shape[3] + 2 * m.padding - m.weight.shape[3]) // m.stride + 1)
         nbytes, ops = conv_bound(x, m.weight, y_numel, odt, m.act_scale.dim() == 1)
-        o, c, kh, kw = m.weight.shape
-        quantized += y_numel // o * -(-c * kh * kw // 32) * 32 * -(-o // 64)
+        quantized += ic.quantized_elements(x.shape, m.weight.shape, m.stride)
         inputs += x.numel()
         bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
         parts = {"ms": ms, "plain_ms": plain_ms, "bytes_ms": nbytes / HBM_BYTES_PER_S * 1e3,
@@ -627,16 +665,22 @@ def phase_int8_conv(device, headline):
             total[k_] += v
         if largest is None or ms > largest[1]:
             largest = (name, ms, bound, tuple(x.shape), tuple(m.weight.shape), m.stride)
+        if name == "backbone.backbone.stem.conv.conv":
+            stem = (ms, bound)
     del records
     print(f"e. int8 conv at B={BATCH} {SIZE}x{SIZE}, {len(timed)} distinct shapes timed: "
           f"sum over the 127 launches {total['ms']:.4f} ms (plain version "
           f"{total['plain_ms']:.4f} ms); "
           f"bound {total['bound_ms']:.4f} ms (bytes {total['bytes_ms']:.4f} ms at 3.35 TB/s, "
           f"operations {total['ops_ms']:.4f} ms at 1979 TOP/s); activation elements quantized "
-          f"{quantized / 1e9:.3f} G, read by the convs {inputs / 1e9:.3f} G; "
+          f"{quantized / 1e9:.3f} G ({quantized / inputs:.2f}x), read by the convs "
+          f"{inputs / 1e9:.3f} G; the Focus stem {stem[0]:.4f} ms (bound {stem[1]:.4f} ms); "
           f"largest single conv {largest[0]} "
           f"x {largest[3]} w {largest[4]} stride {largest[5]}: {largest[1]:.4f} ms (bound "
           f"{largest[2]:.4f} ms)", flush=True)
+    if quantized > 2 * inputs:
+        raise AssertionError(f"the int8 conv quantizes {quantized / inputs:.2f}x the elements "
+                             f"the convs read (limit 2x)")
     return {"max_abs_err": worst, "ms": total["ms"], "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
             "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"}
@@ -663,22 +707,6 @@ def match_detections(got, want, box_tol=(1e-2, 1e-3), score_tol=1e-4):
     return True
 
 
-def exact_hard_swish(x):
-    """x * relu6(x + 3) / 6 as jax.nn.hard_swish writes it, one IEEE op at a
-    time: the same arithmetic on the card and on the CPU. The 6 is a tensor
-    on x's device: PyTorch's CUDA division by a Python number multiplies by
-    its rounded reciprocal instead, as its CUDA hard-swish does."""
-    return x * (x + 3).clamp(0, 6) / x.new_full((), 6.0)
-
-
-def set_activation(model, fn):
-    from cocodet_tpu_torch.models.blocks import ConvBnAct
-
-    for m in model.modules():
-        if isinstance(m, ConvBnAct):
-            m.act = fn
-
-
 def compare_card_cpu(on_card, on_cpu, images, device):
     """The int8 inputs that differ (per conv, first conv in execution order
     with any), the head maps' max |d|/(1+|v|) and mean |d|/mean|v|, and
@@ -697,8 +725,8 @@ def compare_card_cpu(on_card, on_cpu, images, device):
     n_in = sum(int(xc.numel()) for _, _, xc, _ in rec_c)
     first = next(((n, d) for n, d in differ if d), None)
     keys = ("reg", "obj", "cls")
-    g = torch.cat([m[k].reshape(-1).cpu() for m in maps_g for k in keys])
-    w = torch.cat([m[k].reshape(-1) for m in maps_c for k in keys])
+    g = torch.cat([m[k].reshape(-1).float().cpu() for m in maps_g for k in keys])
+    w = torch.cat([m[k].reshape(-1).float() for m in maps_c for k in keys])
     d = (g - w).abs()
     res = {"inputs": sum(v for _, v in differ), "max": float((d / (1 + w.abs())).max()),
            "mean": float(d.mean() / w.abs().mean())}
@@ -783,44 +811,32 @@ def phase_headline(device, card, headline, slim_vars, dense):
           f"{dense['peak GiB']:.2f} GiB",
           flush=True)
 
-    # The headline in f32 on the card against the plain path on the CPU,
-    # with the same quantized variables, on 2 images of 256 px.
+    # The headline as served on the card against the plain path on the CPU,
+    # with the same quantized variables, on 2 images of 256 px. Every op but
+    # the 12 float prediction convs computes alike on both: the int8 conv
+    # and its fused hard-swish are bit for bit their plain version, and so
+    # are the pools, the upsample, the concats and the adds. So no int8
+    # input may differ (limit 0). In f32 the head maps then differ only by
+    # the prediction convs' summation order, cuDNN against oneDNN (limit
+    # 1e-4 * (1 + |v|), 100x the 1e-6 seen between XLA and oneDNN on the
+    # CPU), and the detections must be the same sets at the tolerance of
+    # tests/test_torch_entry.py. In bf16 the prediction convs round
+    # differently too: the bf16 limit of phase d on the maps.
     images = torch.from_numpy(np.random.RandomState(2).uniform(
         0, 255, (2, 256, 256, 3)).astype(np.float32))
-    on_card = build_w8a8_predictor(headline.variables, slim, dtype=torch.float32, device=device)
-    on_cpu = build_w8a8_predictor(headline.variables, slim, dtype=torch.float32, device="cpu")
-    # 1. Every op of the path with the same arithmetic on both: the int8
-    # conv is exact, and so are the pools, the upsample, the concats and
-    # the adds; hard-swish as jax.nn.hard_swish writes it, one IEEE op at a
-    # time. So no int8 input may differ (limit 0), the head maps differ only
-    # by the f32 prediction convs' summation order, cuDNN against oneDNN
-    # (limit 1e-4 * (1 + |v|), 100x the 1e-6 seen between XLA and oneDNN on
-    # the CPU), and the detections must be the same sets at the tolerance of
-    # tests/test_torch_entry.py.
-    for p in (on_card, on_cpu):
-        set_activation(p.model, exact_hard_swish)
-    exact = compare_card_cpu(on_card, on_cpu, images, device)
-    print(f"f. headline f32, card vs plain path on the CPU, 2 x 256 px, hard-swish as "
-          f"jax.nn.hard_swish on both: {exact['line']}; limits: 0 inputs, 1e-4, same sets",
-          flush=True)
-    # 2. As served, with PyTorch's own hard-swish on each device: the CUDA
-    # kernel multiplies by the rounded 1/6 where the CPU's divides by 6, so
-    # some outputs differ by an ulp; a quantizer that an ulp moves across a
-    # rounding boundary changes an int8 input by one step, and the steps
-    # spread through the net. Limit: the bf16 limit of phase d on the maps,
-    # mean |d| / mean |v| <= 5e-2.
-    for p in (on_card, on_cpu):
-        set_activation(p.model, torch.nn.functional.hardswish)
-    served = compare_card_cpu(on_card, on_cpu, images, device)
-    t = torch.linspace(-4, 4, 1 << 20)
-    hs_differ = int((torch.nn.functional.hardswish(t.to(device)).cpu()
-                     != torch.nn.functional.hardswish(t)).sum())
-    print(f"f. headline f32, card vs plain path on the CPU, PyTorch's hard-swish on each device "
-          f"({hs_differ} of {t.numel()} hard-swish outputs on [-4, 4] differ between them): "
-          f"{served['line']}; limit: mean |d|/mean |v| <= 5e-2", flush=True)
-    if not (exact["inputs"] == 0 and exact["max"] <= 1e-4 and exact["same"]
-            and served["mean"] <= 5e-2):
-        raise AssertionError("the headline on the card disagrees with the plain path on the CPU")
+    for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+        on_card = build_w8a8_predictor(headline.variables, slim, dtype=dtype, device=device)
+        on_cpu = build_w8a8_predictor(headline.variables, slim, dtype=dtype, device="cpu")
+        res = compare_card_cpu(on_card, on_cpu, images, device)
+        limits = "0 inputs, 1e-4, same sets" if dtype == torch.float32 else \
+            "0 inputs, mean |d|/mean|v| <= 5e-2"
+        print(f"f. headline {name} as served, card vs plain path on the CPU, 2 x 256 px: "
+              f"{res['line']}; limits: {limits}", flush=True)
+        ok = res["inputs"] == 0 and (res["max"] <= 1e-4 and res["same"] if dtype == torch.float32
+                                     else res["mean"] <= 5e-2)
+        if not ok:
+            raise AssertionError(f"the {name} headline on the card disagrees with the plain "
+                                 f"path on the CPU")
     return launches
 
 

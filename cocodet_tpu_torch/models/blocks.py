@@ -15,8 +15,10 @@ hands its conv the f32 images and the model's dtype, as JAX does.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Callable, Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -29,13 +31,44 @@ from ..ops.cuda.int8_conv import conv2d_w8a8
 # --------------------------------------------------------------------------
 
 
+HARD_SWISH_NAMES = ("hsilu", "hswish", "hard_silu", "hard_swish")
+_SIXTH_F32 = float(np.float32(1 / 6))  # 0x3e2aaaab
+
+
+@functools.lru_cache(maxsize=None)
+def _six(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return torch.full((), 6.0, dtype=dtype, device=device)
+
+
+def hard_swish(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.hard_swish`` (``x * relu6(x + 3.) / 6.``) with the arithmetic
+    that XLA:CPU gives it under jax 0.9.0, one op at a time:
+
+    - f32: ``x * ((x + 3).clamp(0, 6) * f32(1/6))``. XLA rewrites the f32
+      division by the constant 6 into a multiply by its rounded reciprocal
+      0x3e2aaaab, so the multiply is what JAX computes;
+    - bf16: ``x * ((x + 3).clamp(0, 6) / 6)``, each op computed in f32 and
+      rounded to bf16, the division an IEEE division. The 6 is a tensor on
+      ``x``'s device: a PyTorch CUDA division by a Python number multiplies
+      by the reciprocal instead.
+
+    ``F.hardswish`` rounds otherwise (it differs from JAX on about a quarter
+    of f32 inputs in [-4, 4]). XLA:CPU also flushes subnormal inputs and
+    results to zero; PyTorch keeps them, on the CPU and in the int8 conv's
+    fused epilogue alike, so the two differ only there.
+    """
+    if x.dtype == torch.float32:
+        return x * ((x + 3).clamp(0, 6) * _SIXTH_F32)
+    return x * ((x + 3).clamp(0, 6) / _six(x.device, x.dtype))
+
+
 def get_activation(name: str = "silu") -> Callable[[torch.Tensor], torch.Tensor]:
     """Activation registry (cocodet_tpu/models/blocks.py:48-63)."""
     name = name.lower()
     if name in ("silu", "swish"):
         return F.silu
-    if name in ("hsilu", "hswish", "hard_silu", "hard_swish"):
-        return F.hardswish
+    if name in HARD_SWISH_NAMES:
+        return hard_swish
     if name == "relu":
         return F.relu
     if name in ("lrelu", "leaky_relu"):
@@ -57,8 +90,10 @@ class Conv2d(nn.Module):
     (cocodet_tpu/models/blocks.py:156-344). ``weight`` is OIHW (the flax
     kernel is HWIO).
 
-    ``forward(x, dtype=None)`` computes in ``dtype``, by default the dtype
-    of ``x``; the float path casts ``x`` and the weights to it (:339-340).
+    ``forward(x, dtype=None, act=None)`` computes in ``dtype``, by default
+    the dtype of ``x``; the float path casts ``x`` and the weights to it
+    (:339-340). ``act="hard_swish"`` (w8a8 only) applies ``hard_swish`` to
+    the output in the int8 conv's epilogue.
 
     ``quant`` is the int8 PTQ mode of the JAX ``Conv2d`` (compress/
     quantize.py):
@@ -95,14 +130,16 @@ class Conv2d(nn.Module):
             self.register_buffer("act_absmax", torch.zeros(cin))
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
 
-    def forward(self, x: torch.Tensor,
-                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                act: Optional[str] = None) -> torch.Tensor:
         dtype = dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dtype)
         if self.quant == "w8a8":
             return conv2d_w8a8(x, self.weight, self.act_scale, self.w_scale, b,
                                self.stride, self.padding, self.dilation,
-                               self.groups, dtype)
+                               self.groups, dtype, act)
+        if act is not None:
+            raise ValueError("only a w8a8 conv applies an activation itself")
         if self.quant == "calib":
             absmax = x.detach().float().abs().amax(dim=(0, 2, 3))
             torch.maximum(self.act_absmax, absmax, out=self.act_absmax)
@@ -129,7 +166,8 @@ class BatchNorm(nn.BatchNorm2d):
 class ConvBnAct(nn.Module):
     """Conv -> BN -> activation (blocks.py:347-415). ``fused=True`` is the
     inference topology: the conv carries a bias and there is no BN. ``quant``
-    applies to the fused topology only, as in JAX (:397-398)."""
+    applies to the fused topology only, as in JAX (:397-398). A w8a8 conv
+    followed by hard-swish computes both in one call (the same numbers)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  stride: int = 1, groups: int = 1, dilation: int = 1,
@@ -141,9 +179,13 @@ class ConvBnAct(nn.Module):
                            quant=quant if fused else None)
         self.bn = None if fused else BatchNorm(features)
         self.act = get_activation(act)
+        # a w8a8 conv applies hard-swish in its own epilogue: no extra pass
+        self.act_in_conv = self.conv.quant == "w8a8" and act.lower() in HARD_SWISH_NAMES
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        if self.act_in_conv:
+            return self.conv(x, dtype, act="hard_swish")
         x = self.conv(x, dtype)
         if self.bn is not None:
             x = self.bn(x)

@@ -37,10 +37,49 @@ def _parity(jax_module, torch_module, x, seed=0):
 @pytest.mark.parametrize("act", ["silu", "hard_swish", "relu", "lrelu", "mish",
                                  "identity"])
 def test_get_activation(act):
+    """hard_swish is bit for bit (test_hard_swish_matches_jax); the others
+    call exp/tanh/softplus, which XLA and PyTorch round differently."""
     x = _image((4096,), seed=1) * 4
     want = np.asarray(jb.get_activation(act)(jnp.asarray(x)))
     got = tb.get_activation(act)(torch.from_numpy(x)).numpy()
-    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    if act == "hard_swish":
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _bits(a):
+    return a.view(np.uint32 if a.dtype == np.float32 else np.uint16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hard_swish_matches_jax(dtype):
+    """The port's hard_swish equals jax.nn.hard_swish bit for bit on the CPU.
+
+    f32: 2^21 values, uniform on [-4, 4] (the bend) and N(0, 50^2) (the
+    linear parts). bf16: every bit pattern but the NaNs. XLA:CPU flushes
+    subnormals to zero and PyTorch does not, so subnormal inputs are left
+    out, and where the port's output is at most the smallest normal (an
+    intermediate in f32 may fall below it) JAX's is that or a zero."""
+    if dtype == "float32":
+        rs = np.random.RandomState(0)
+        x = np.concatenate([rs.uniform(-4, 4, 1 << 20),
+                            rs.normal(0, 50, 1 << 20)]).astype(np.float32)
+        want = np.asarray(jax.nn.hard_swish(jnp.asarray(x)))
+        got = tb.hard_swish(torch.from_numpy(x)).numpy()
+        np.testing.assert_array_equal(_bits(got), _bits(want))
+        return
+    f = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    tiny = np.finfo(np.float32).tiny
+    f = f[~np.isnan(f) & ~((f != 0) & (np.abs(f) < tiny))]
+    want = np.asarray(jax.nn.hard_swish(jnp.asarray(f).astype(jnp.bfloat16)).astype(jnp.float32))
+    got = tb.hard_swish(torch.from_numpy(f).to(torch.bfloat16)).float().numpy()
+    flushed = (got != 0) & (np.abs(got) <= tiny)
+    assert ((want[flushed] == 0) | (want[flushed] == got[flushed])).all()
+    both_nan = np.isnan(got) & np.isnan(want)  # -inf * 0
+    same = (_bits(got) == _bits(want)) | both_nan
+    assert same[~flushed].all(), f[~flushed & ~same][:10]
+    assert (~flushed).sum() > 64000
 
 
 @pytest.mark.parametrize("k,stride,groups,fused", [

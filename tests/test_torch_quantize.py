@@ -10,7 +10,10 @@ Tolerances:
   bit for bit (both are the same numpy math);
 - a w8a8 conv: the quantized inputs, the s32 accumulators and the f32
   outputs equal bit for bit; bf16 outputs within 1 bf16 ulp, since XLA
-  may keep excess precision across the ``astype`` before the bias add.
+  may keep excess precision across the ``astype`` before the bias add;
+- a w8a8 ConvBnAct with hard-swish (the conv applies it in its epilogue)
+  against the JAX module run op by op (``apply``): equal bit for bit in f32
+  and in bf16.
 """
 
 import numpy as np
@@ -27,13 +30,14 @@ from cocodet_tpu.compress import quantization_report as jax_quantization_report
 from cocodet_tpu.compress import quantize_weights as jax_quantize_weights
 from cocodet_tpu.models import build_model as jax_build_model
 from cocodet_tpu.models.blocks import Conv2d as JaxConv2d
+from cocodet_tpu.models.blocks import ConvBnAct as JaxConvBnAct
 from cocodet_tpu.models.blocks import Focus as JaxFocus
 from cocodet_tpu_torch.compress import (build_quant_tree, calibrate, quantization_report,
                                         quantize_model, quantize_weights)
 from cocodet_tpu_torch.models import build_model
-from cocodet_tpu_torch.models.blocks import Conv2d, Focus
+from cocodet_tpu_torch.models.blocks import Conv2d, ConvBnAct, Focus
 from cocodet_tpu_torch.ops.cuda import int8_conv as ic
-from cocodet_tpu_torch.utils.convert import load_variables
+from cocodet_tpu_torch.utils.convert import load_variables, random_variables
 from torch_port_utils import SMALL_ARCH, images, shared_variables
 
 
@@ -142,9 +146,14 @@ def _conv_case(k, cin, vec, seed):
 
 
 @pytest.mark.parametrize("vec", [False, True], ids=["scalar_act", "vector_act"])
-@pytest.mark.parametrize("k,stride,cin", [(1, 1, 64), (3, 1, 64), (3, 2, 64), (3, 1, 12)],
-                         ids=["1x1s1", "3x3s1", "3x3s2", "cin12"])
-def test_w8a8_conv_matches_jax(k, stride, cin, vec):
+@pytest.mark.parametrize("k,stride,cin,act", [(1, 1, 64, None), (3, 1, 64, None),
+                                              (3, 2, 64, None), (3, 1, 12, None),
+                                              (3, 1, 64, "hard_swish")],
+                         ids=["1x1s1", "3x3s1", "3x3s2", "cin12", "3x3s1_hard_swish"])
+def test_w8a8_conv_matches_jax(k, stride, cin, act, vec):
+    """The w8a8 conv against JAX's, and with act="hard_swish" against
+    jax.nn.hard_swish of it, both run op by op: exact in f32 and, for the
+    activation, in bf16 too."""
     variables = _conv_case(k, cin, vec, seed=k * 100 + stride * 10 + cin + vec)
     cout = variables["quant"]["w_scale"].shape[0]
     x = np.random.RandomState(cin).uniform(-20, 60, (2, 13, 11, cin)).astype(np.float32)
@@ -163,23 +172,126 @@ def test_w8a8_conv_matches_jax(k, stride, cin, vec):
             dimension_numbers=("NHWC", "HWIO", "NHWC"), preferred_element_type=jnp.int32)
         want = JaxConv2d(cout, k, stride, use_bias=True, quant="w8a8", dtype=jdt).apply(
             variables, xj)
+        if act:
+            want = jax.nn.hard_swish(want)
         xq = ic.quantize_activations(xt, tm.act_scale)
         y, acc = ic.int8_conv_acc(xt, tm.weight, tm.act_scale, tm.w_scale,
-                                  tm.bias.detach(), stride, pad, dtype=tdt)
+                                  tm.bias.detach(), stride, pad, dtype=tdt, act=act)
         with torch.no_grad():
-            got = tm(xt)
+            got = tm(xt, act=act)
         assert got.dtype == tdt and got.is_contiguous(memory_format=torch.channels_last)
         assert torch.equal(got, y)
         nhwc = lambda t: t.detach().permute(0, 2, 3, 1).float().numpy()  # noqa: E731
         assert np.array_equal(nhwc(xq), np.asarray(xq_want))
         assert np.array_equal(acc.permute(0, 2, 3, 1).numpy(), np.asarray(acc_want))
         g, w = nhwc(got), np.asarray(want.astype(jnp.float32))
-        if tdt == torch.float32:
+        if tdt == torch.float32 or act:
             assert np.array_equal(g, w)
         else:  # 1 bf16 ulp: 2^-7 of the value's binade
             ulp = 2.0 ** (np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
             assert (np.abs(g - w) <= ulp).all()
         assert np.abs(np.asarray(xq_want)).max() == 127  # the clamp is exercised
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("vec", [False, True], ids=["scalar_act", "vector_act"])
+@pytest.mark.parametrize("k,stride,cin", [(1, 1, 64), (3, 1, 64), (3, 2, 64), (3, 1, 12)],
+                         ids=["1x1s1", "3x3s1", "3x3s2", "cin12"])
+def test_w8a8_conv_bn_act_hard_swish_matches_jax(k, stride, cin, vec, dtype):
+    """The fused w8a8 ConvBnAct with hard-swish: the port's conv applies the
+    activation in its epilogue (no separate pass), and the output equals
+    the JAX module's, run op by op, bit for bit."""
+    variables = _conv_case(k, cin, vec, seed=k * 100 + stride * 10 + cin + vec)
+    cout = variables["params"]["bias"].shape[0]
+    x = np.random.RandomState(cin + 1).uniform(-20, 60, (2, 13, 11, cin)).astype(np.float32)
+    jdt, tdt = {"float32": (jnp.float32, torch.float32),
+                "bfloat16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    wrapped = {c: {"conv": v} for c, v in variables.items()}
+    xj = jnp.asarray(x).astype(jdt)
+    want = JaxConvBnAct(cout, k, stride, act="hard_swish", fused=True, quant="w8a8",
+                        dtype=jdt).apply(wrapped, xj)
+    tm = ConvBnAct(cin, cout, k, stride, act="hard_swish", fused=True, quant="w8a8").to(
+        memory_format=torch.channels_last)
+    load_variables(tm, wrapped)
+    assert tm.act_in_conv
+    xt = torch.from_numpy(np.array(xj.astype(jnp.float32))).to(tdt).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        got = tm(xt)
+    assert got.dtype == tdt
+    g = got.permute(0, 2, 3, 1).float().numpy()
+    w = np.asarray(want.astype(jnp.float32))
+    assert g.shape == w.shape and np.array_equal(g, w)
+    assert (w == 0).mean() > 0.1 and (w < 0).any()  # both sides of the bend
+
+
+def test_bf16_division_by_six_is_a_multiply():
+    """The int8 conv's bf16 epilogue computes hard-swish's r / 6 as
+    r * f32(1/6): for every bf16 r in [0, 6] (what the clamp leaves) both,
+    rounded to bf16, are the same value."""
+    r = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    r = torch.from_numpy(r[(r >= 0) & (r <= 6)])
+    divided = (r / torch.tensor(6.0)).to(torch.bfloat16)
+    multiplied = (r * float(np.float32(1 / 6))).to(torch.bfloat16)
+    assert r.numel() == 16578
+    assert torch.equal(divided.view(torch.int16), multiplied.view(torch.int16))
+
+
+def _brute_force_quantized(x_shape, w_shape, stride):
+    """Activation elements the kernel quantizes, counted block by block from
+    the input positions that its output pixels' taps read."""
+    plan = ic.tile_plan(x_shape, w_shape, stride)
+    b, c, h, w = x_shape
+    o, _, k, _ = w_shape
+    pad = (k - 1) // 2
+    ho, wo = (h + 2 * pad - k) // stride + 1, (w + 2 * pad - k) // stride + 1
+    rows, cols = 8 * plan.mb, ic.TILE_W
+    total = 0
+    for r0 in range(0, ho, rows):
+        for c0 in range(0, wo, cols):
+            read = {((r0 + i) * stride - pad + dr, (c0 + j) * stride - pad + dc)
+                    for i in range(rows) for j in range(cols)
+                    for dr in range(k) for dc in range(k)}
+            total += len(read) * -(-c // ic.CHUNK) * ic.CHUNK * -(-o // plan.n)
+    return b * total
+
+
+@pytest.mark.parametrize("x_shape,w_shape,stride", [
+    ((2, 48, 21, 19), (40, 48, 3, 3), 1), ((1, 12, 17, 30), (32, 12, 3, 3), 2),
+    ((3, 96, 9, 10), (200, 96, 1, 1), 1), ((1, 64, 40, 40), (96, 64, 3, 3), 1)])
+def test_quantized_elements_matches_brute_force(x_shape, w_shape, stride):
+    plan = ic.tile_plan(x_shape, w_shape, stride)
+    assert plan.n % 32 == 0 and plan.n <= ic.MAX_N and plan.n * plan.slices >= w_shape[0]
+    assert ic.quantized_elements(x_shape, w_shape, stride) == \
+        _brute_force_quantized(x_shape, w_shape, stride)
+
+
+def test_headline_quantizes_each_activation_less_than_twice():
+    """Summed over the 127 w8a8 convs of the slim YOLOX-M-P6 at a batch of
+    16 640 px images (shapes from a forward at 64 px, scaled by 10), the
+    kernel quantizes at most twice the activation elements they read."""
+    from cocodet_tpu_torch.compress import load_slim_spec
+    from cocodet_tpu_torch.entry import SLIM_SPEC
+    from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX
+
+    slim = load_slim_spec(str(SLIM_SPEC))
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.67, width=0.75, fused=True, slim=slim)
+    model = build_model("yolox-p6", depth=0.67, width=0.75, fused=True, slim=slim,
+                        device="cpu", variables=random_variables(shapes, 0))
+    convs = []
+    for name, m in model.named_modules():
+        if isinstance(m, Conv2d) and "_pred" not in name:
+            m.register_forward_hook(lambda mod, a, out: convs.append(
+                (a[0].shape, mod.weight.shape, mod.stride)))
+    with torch.no_grad():
+        model(torch.zeros(1, 64, 64, 3))
+    assert len(convs) == 127
+    quantized = read = 0
+    for (_, c, h, w), w_shape, stride in convs:
+        x_shape = (16, c, 10 * h, 10 * w)
+        quantized += ic.quantized_elements(x_shape, w_shape, stride)
+        read += int(np.prod(x_shape))
+    assert quantized <= 2 * read, quantized / read
 
 
 def test_w8a8_conv_rejects_what_the_kernel_cannot_take():
@@ -191,6 +303,26 @@ def test_w8a8_conv_rejects_what_the_kernel_cannot_take():
     assert ic.conv2d_w8a8(x, w, one, ws, None, 1, 2).shape == (1, 8, 5, 5)
     with pytest.raises(ValueError, match="1x1 or 3x3"):
         ic._launch(x.to("meta"), w.to("meta"), one, ws, None, 1, 2, 1, 1, torch.float32, False)
+
+
+def test_w8a8_conv_kernel_refuses_other_acts_and_channels():
+    """The kernel takes act None or "hard_swish", and C with C * the element
+    size a multiple of 16 (x arrives by TMA) that is a multiple of 16 or at
+    most 32: the wrapper refuses the rest before it looks for a card."""
+    one = torch.ones(())
+    for c, dtype in ((20, torch.bfloat16), (36, torch.float32)):
+        cl = torch.channels_last
+        x = torch.zeros((1, c, 5, 5), dtype=dtype).to("meta", memory_format=cl)
+        w = torch.zeros((8, c, 3, 3), dtype=torch.int8).to("meta", memory_format=cl)
+        with pytest.raises(ValueError, match="multiple of 16"):
+            ic._launch(x, w, one, torch.ones(8), None, 1, 1, 1, 1, torch.float32, False)
+    x = torch.zeros((1, 16, 5, 5)).to("meta", memory_format=torch.channels_last)
+    w = torch.zeros((8, 16, 3, 3), dtype=torch.int8).to("meta", memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="hard_swish"):
+        ic._launch(x, w, one, torch.ones(8), None, 1, 1, 1, 1, torch.float32, False, act="silu")
+    with pytest.raises(ValueError, match="hard_swish"):
+        ic.conv2d_w8a8(torch.zeros(1, 16, 5, 5), torch.zeros((8, 16, 3, 3), dtype=torch.int8),
+                       one, torch.ones(8), None, 1, 1, act="silu")
 
 
 def test_focus_stem_quantizes_the_f32_image():
