@@ -50,7 +50,24 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the postprocess, beside the same slim model's bf16 forward through
      cuDNN and phase c's dense numbers; then the headline as served, in f32
      and in bf16, on the card against the plain path on the CPU with the
-     same quantized variables.
+     same quantized variables;
+  g. the training slice: (g1) the hard-swish kernel held against its plain
+     version on the card, bit for bit, forward and backward, on every
+     non-NaN bf16 pattern (times 16 cotangents) and 2^20 f32 values; (g2)
+     one step of entry.build_trainer at depth 0.33, width 0.125, 128 px,
+     B=4, f32 on the card against the same step on the CPU (TF32 off, cuDNN
+     deterministic): the SimOTA fg mask equal, the losses, parameters and BN
+     statistics within stated limits; (g3) the main path of the slice:
+     build_trainer at full width (YOLOX-M-P6, f32 parameters, bf16 compute),
+     B=16 640 px numpy-seeded images with 5-60 boxes each padded to G=120, 2
+     warm-up steps and 5 timed steps (the last with use_l1), the launch
+     counts zeroed just before and read just after; the device ms of a step
+     and of its forward, SimOTA and losses, backward, optimizer and EMA,
+     img/s, peak memory, every loss and num_fg (finite, num_fg > 0), then the
+     kernel timed on one step's activations beside its bound, its plain
+     version and PyTorch's hardswish; (g4, run after phase d) phase c's
+     dense forward timed with the kernel and with the plain version in its
+     place, in turns.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -60,19 +77,23 @@ of the repository beside it, it exits non-zero and prints no result.
 
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 STRIDES = (8, 16, 32, 64)
 BATCH = 16
 SIZE = 640
 N_BATCHES = 4
+TRAIN_STEPS = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 on the tensor cores
 HOLD_CYCLES = 200_000_000  # ~0.1 s of the card's clock, while cuda_ms queues its calls
+CARD_CYCLES_PER_S = 1.98e9  # H100 SXM's highest SM clock
 # PR 1's kernel times at B=16, K=1024 on the dense scene (NVIDIA H100 80GB
 # HBM3, 700.00 W; this script at commit 20314f9), printed beside this run's
 # for comparison and kept out of the kernels line
@@ -126,15 +147,22 @@ def cuda_ms(fn, iters, hold=True):
     With ``hold``, a sleep kernel holds the card while the host queues the
     calls, so that the calls run back to back on the card: a kernel shorter
     than its launch on the host is timed on the card, not at the rate the
-    host launches. Without it, the timer of chip_smoke.py before the hold."""
+    host launches. The hold lasts at least twice the host's time to queue
+    the calls (timed on one warm-up call), so a forward of hundreds of
+    launches is timed on the card too. Without it, the timer of
+    chip_smoke.py before the hold."""
     import torch
 
     for _ in range(2):
         fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    queue_s = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     if hold:
-        torch.cuda._sleep(HOLD_CYCLES)
+        torch.cuda._sleep(max(HOLD_CYCLES, int(2 * iters * queue_s * CARD_CYCLES_PER_S)))
     start.record()
     for _ in range(iters):
         fn()
@@ -558,9 +586,9 @@ def check_int8_conv(label, x, weight, act_scale, w_scale, bias, stride, out_dtyp
 
 
 def check_hard_swish(device):
-    """The port's hard_swish on the card against the CPU: every bf16 bit
-    pattern that is not a NaN, and 2^20 f32 values in [-4, 4]. Equal bits,
-    or NaN on both (-inf gives -inf * 0)."""
+    """The port's hard_swish on the card (the kernel) against the CPU (the
+    plain version): every bf16 bit pattern that is not a NaN, and 2^20 f32
+    values in [-4, 4]. Equal bits, or NaN on both (-inf gives -inf * 0)."""
     import torch
 
     from cocodet_tpu_torch.models.blocks import hard_swish
@@ -840,6 +868,349 @@ def phase_headline(device, card, headline, slim_vars, dense):
     return launches
 
 
+def training_batch(batch, size, seed, g=120, boxes=(5, 60)):
+    """(images (B, size, size, 3) f32 U(0, 255), labels (B, g, 5)) from a
+    numpy seed: ``boxes`` boxes an image, [class, cx, cy, w, h] in pixels,
+    sides 3-50% of the image, inside it, zero-padded to ``g``."""
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    images = rs.uniform(0, 255, (batch, size, size, 3)).astype(np.float32)
+    labels = np.zeros((batch, g, 5), np.float32)
+    for b in range(batch):
+        n = rs.randint(boxes[0], boxes[1] + 1)
+        wh = rs.uniform(0.03, 0.5, (n, 2)) * size
+        c = rs.uniform(wh / 2, size - wh / 2)
+        labels[b, :n] = np.concatenate([rs.randint(0, 80, (n, 1)), c, wh], 1)
+    return images, labels
+
+
+def bit_diff(got, want):
+    """(elements that differ, max |got - want| over them): equal bits, or NaN
+    on both, is no difference."""
+    import torch
+
+    same = (got == want) & (torch.signbit(got) == torch.signbit(want))
+    same |= torch.isnan(got) & torch.isnan(want)
+    err = torch.where(same, 0.0, (got.double() - want.double()).abs())
+    return int((~same).sum()), float(err.max())
+
+
+def check_hard_swish_kernel(device):
+    """g1: the hard-swish kernel against its plain version on the card, bit
+    for bit, forward and backward: every non-NaN bf16 pattern (times 16
+    cotangents for the backward) and 2^20 f32 values (the bend, the linear
+    parts, +-3, 0, the clamp bounds and their neighbours), plus a
+    misaligned view (the kernel's scalar loop) and a channels-last map with
+    a cotangent in the default layout. Equal bits, or NaN on both."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+
+    bf16 = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    bf16 = bf16[~torch.isnan(bf16)]
+    rs = np.random.RandomState(10)
+    cots = torch.tensor([1.0, -1.0, 0.5, 3.0, -2.5, 1e-3, 700.0, -0.3333, 1e30, 0.0]
+                        + list(rs.normal(0, 2, 6)), dtype=torch.float32)
+    xb = bf16.repeat(len(cots))
+    gb = cots.repeat_interleave(bf16.numel()).to(torch.bfloat16)
+    edges = torch.tensor([-3, 3, 0, -0.0, 6, -6, 2.9999998, -2.9999998, 3.0000002,
+                          -3.0000002, float("inf"), float("-inf")])
+    n = (1 << 20) - edges.numel()
+    xf = torch.cat([torch.from_numpy(rs.uniform(-4, 4, n // 2).astype(np.float32)),
+                    torch.from_numpy(rs.normal(0, 50, n - n // 2).astype(np.float32)), edges])
+    gf = torch.from_numpy(rs.normal(0, 3, xf.numel()).astype(np.float32))
+    x4 = torch.from_numpy(rs.uniform(-5, 5, (2, 24, 9, 7)).astype(np.float32))
+    cases = [("bf16 all patterns", bf16, xb, gb), ("f32 2^20 values", xf, xf, gf),
+             ("f32 misaligned view", xf[1:4097], xf[1:4097], gf[1:4097]),
+             ("bf16 channels-last map", x4.to(torch.bfloat16).contiguous(
+                 memory_format=torch.channels_last), x4.to(torch.bfloat16).contiguous(
+                 memory_format=torch.channels_last), x4.flip(0).to(torch.bfloat16))]
+    worst, lines = 0.0, []
+    for label, x_fwd, x_bwd, g in cases:
+        x_fwd, x_bwd, g = x_fwd.to(device), x_bwd.to(device), g.to(device)
+        pairs = ((hs.hard_swish(x_fwd), hs.hard_swish_plain(x_fwd)),
+                 (hs.hard_swish_grad(x_bwd, g), hs.hard_swish_grad_plain(x_bwd, g)))
+        torch.cuda.synchronize()
+        counts = []
+        for got, want in pairs:
+            n, err = bit_diff(got, want)
+            counts.append((n, got.numel()))
+            worst = max(worst, err)
+        lines.append(f"{label}: forward {counts[0][0]} of {counts[0][1]} differ, backward "
+                     f"{counts[1][0]} of {counts[1][1]} differ")
+        if counts[0][0] or counts[1][0]:
+            raise AssertionError(f"hard_swish kernel disagrees with its plain version: {label}")
+    print("g1. hard_swish kernel == plain version on the card, bit for bit: "
+          + "; ".join(lines), flush=True)
+    return worst
+
+
+def phase_train_parity(device):
+    """g2: one step of build_trainer at a small size (depth 0.33, width
+    0.125, 128 px, B=4, f32; TF32 off, cuDNN deterministic) on the card
+    against the same step on the CPU, from the same seed. The SimOTA fg mask
+    must be equal; the losses within 1e-4, each parameter leaf within 1e-3
+    and each BN statistic within 1e-4 of its largest value. For scale, the
+    CPU's f32 step against its own f64 step (printed beside): at this size
+    f32 rounding alone moves a leaf by ~1e-4 of its value."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.entry import build_trainer
+    from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree
+
+    images, labels = training_batch(4, 128, 7)
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    try:
+        for name, dev, dtype in (("card", device, torch.float32), ("cpu", "cpu", torch.float32),
+                                 ("cpu f64", "cpu", torch.float64)):
+            model, step = build_trainer(0.33, 0.125, torch.float32, dev, seed=1)
+            model.to(dtype)
+            model.dtype = dtype
+            metrics, targets = step(torch.from_numpy(images).to(dev, dtype),
+                                    torch.from_numpy(labels).to(dev), use_l1=True,
+                                    return_targets=True)
+            runs[name] = ({k: float(v) for k, v in metrics.items()},
+                          flatten_tree(export_variables(model)), targets.fg_mask.cpu())
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+
+    def errors(a, b):
+        out = {"loss": max(abs(a[0][k] - b[0][k]) / abs(b[0][k]) for k in b[0] if b[0][k])}
+        for kind in ("params", "batch_stats"):
+            out[kind] = max(float(np.abs(a[1][p] - w).max() / np.abs(w).max())
+                            for p, w in b[1].items() if p[0] == kind)
+        out["fg"] = int((a[2] != b[2]).sum())
+        return out
+
+    card, floor = errors(runs["card"], runs["cpu"]), errors(runs["cpu"], runs["cpu f64"])
+    fmt = ("losses {loss:.2e}, params {params:.2e}, BN statistics {batch_stats:.2e}, "
+           "fg anchors that differ {fg}")
+    print(f"g2. one train step, depth 0.33 width 0.125, 128 px, B=4, f32, card vs CPU (max "
+          f"relative to each leaf's largest value): {fmt.format(**card)} (limits 1e-4, 1e-3, "
+          f"1e-4, 0); num_fg {runs['card'][0]['num_fg']:.0f}; the CPU's f32 step vs its f64 "
+          f"step: {fmt.format(**floor)}", flush=True)
+    if not (card["fg"] == 0 and card["loss"] <= 1e-4 and card["params"] <= 1e-3
+            and card["batch_stats"] <= 1e-4):
+        raise AssertionError("the train step on the card disagrees with the CPU")
+
+
+def activation_shapes(model, run):
+    """{(shape, dtype): count} of every hard-swish input in ``run()``: each
+    ConvBnAct's output (its activation keeps the shape and dtype)."""
+    from cocodet_tpu_torch.models.blocks import ConvBnAct
+
+    shapes, hooks = {}, []
+
+    def hook(mod, args, out):
+        key = (tuple(out.shape), out.dtype)
+        shapes[key] = shapes.get(key, 0) + 1
+
+    for m in model.modules():
+        if isinstance(m, ConvBnAct):
+            hooks.append(m.register_forward_hook(hook))
+    try:
+        run()
+    finally:
+        for h in hooks:
+            h.remove()
+    return shapes
+
+
+def hard_swish_times(shapes, device, backward):
+    """The hard-swish kernel at each of ``shapes`` (channels-last, x uniform
+    on [-5, 5], a normal cotangent) held bit for bit against its plain
+    version, forward or backward: at these sizes the kernel's grid-stride
+    loop takes many trips, which g1's inputs do not. Then the device ms of
+    the kernel, its plain version and the PyTorch call (F.hardswish;
+    aten.hardswish_backward), each summed over ``shapes``, with the bound:
+    each input read once and the output written once (forward: x, y;
+    backward: x, g, dx) at 3.35 TB/s, against ~5 (forward) or ~10
+    (backward) f32 operations an element at 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0, "ops": 0,
+           "max_abs_err": 0.0}
+    gen = torch.Generator(device=device).manual_seed(11)
+    for (shape, dtype), count in shapes.items():
+        x = (torch.rand(shape, generator=gen, device=device) * 10 - 5).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        g = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        if backward:
+            fns = (lambda: hs.hard_swish_grad(x, g), lambda: hs.hard_swish_grad_plain(x, g),
+                   lambda: torch.ops.aten.hardswish_backward(g, x))
+        else:
+            fns = (lambda: hs.hard_swish(x), lambda: hs.hard_swish_plain(x),
+                   lambda: F.hardswish(x))
+        n, err = bit_diff(fns[0](), fns[1]())
+        if n:
+            raise AssertionError(f"hard_swish kernel disagrees with its plain version "
+                                 f"({'backward' if backward else 'forward'}) at {shape} "
+                                 f"{dtype}: {n} of {x.numel()} elements")
+        tot["max_abs_err"] = max(tot["max_abs_err"], err)
+        for key, fn, iters in zip(("ms", "plain_ms", "library_ms"), fns, (20, 5, 20)):
+            tot[key] += count * cuda_ms(fn, iters)
+        tot["bytes"] += count * x.numel() * x.element_size() * (3 if backward else 2)
+        tot["ops"] += count * x.numel() * (10 if backward else 5)
+    bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
+    ops_ms = tot["ops"] / F32_OPS_PER_S * 1e3
+    tot["bound_ms"] = max(bytes_ms, ops_ms)
+    tot["bound_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return tot
+
+
+def phase_dense_forward(device, predictor, dense):
+    """g4: phase c's dense bf16 forward at B=16 with the hard-swish kernel
+    (as served) and with the plain version in its place (the parent's
+    four elementwise passes), timed in turns in this run (each the median
+    of 5 forwards, each queued while the card is held), and the
+    activations' kernel time beside their bound."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.models.blocks import ConvBnAct, hard_swish
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+
+    model = predictor.model
+    x = torch.from_numpy(np.random.RandomState(1).uniform(
+        0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32)).to(device)
+    acts = [m for m in model.modules() if isinstance(m, ConvBnAct) and m.act is hard_swish]
+    times = {}
+    with torch.inference_mode():
+        for label in ("kernel", "plain", "plain", "kernel"):
+            for m in acts:
+                m.act = hard_swish if label == "kernel" else hs.hard_swish_plain
+            # one forward a hold: ten queued forwards (~500 launches each)
+            # outran the hold, and their time followed the host's pace
+            times.setdefault(label, []).append(
+                statistics.median(cuda_ms(lambda: model(x), 1) for _ in range(5)))
+        shapes = activation_shapes(model, lambda: model(x))
+    for m in acts:
+        m.act = hard_swish
+    t = hard_swish_times(shapes, device, backward=False)
+    n = sum(shapes.values())
+    print(f"g4. dense bf16 forward, B={BATCH} {SIZE}x{SIZE}, device ms (in turns kernel, plain, "
+          f"plain, kernel): hard-swish kernel {', '.join(f'{v:.3f}' for v in times['kernel'])}; "
+          f"plain version (the parent's) {', '.join(f'{v:.3f}' for v in times['plain'])}; "
+          f"phase c's forward {dense['forward ms']:.3f}. Its {n} activations ({len(shapes)} "
+          f"shapes; the kernel equals its plain version bit for bit at each): kernel "
+          f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, F.hardswish "
+          f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}",
+          flush=True)
+    return t["max_abs_err"]
+
+
+def phase_train(device, card):
+    """g3: build_trainer at full width (YOLOX-M-P6, depth 0.67, width 0.75,
+    f32 parameters, bf16 compute), B=16 640 px numpy-seeded images and 5-60
+    boxes an image padded to G=120: 2 warm-up steps, then TRAIN_STEPS timed
+    steps (the last with use_l1), launch counts zeroed just before and read
+    just after; then the hard-swish kernel timed on one step's activations,
+    forward and backward."""
+    import torch
+
+    from cocodet_tpu_torch.entry import build_trainer
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+
+    t0 = time.perf_counter()
+    model, step = build_trainer(0.67, 0.75, torch.bfloat16, device, seed=0)
+    setup_s = time.perf_counter() - t0
+    images, labels = training_batch(BATCH, SIZE, 12)
+    images = torch.from_numpy(images).to(device)
+    labels = torch.from_numpy(labels).to(device)
+    torch.backends.cudnn.benchmark = True
+    t0 = time.perf_counter()
+    shapes = activation_shapes(model, lambda: step(images, labels))
+    step(images, labels)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats(device)
+    hs.reset_launch_counts()
+    parts = ("forward", "losses", "backward", "update")
+    rows, metrics = [], []
+    t_all = time.perf_counter()
+    for i in range(TRAIN_STEPS):
+        ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start",) + parts}
+        t0 = time.perf_counter()
+        ev["start"].record()
+        metrics.append(step(images, labels, use_l1=i == TRAIN_STEPS - 1,
+                            mark=lambda name: ev[name].record()))
+        queued = (time.perf_counter() - t0) * 1e3  # the host's time to queue the step
+        torch.cuda.synchronize()
+        names = ("start",) + parts
+        rows.append({p: ev[a].elapsed_time(ev[p]) for a, p in zip(names, parts)}
+                    | {"step": ev["start"].elapsed_time(ev["update"]), "queued": queued})
+    wall = time.perf_counter() - t_all
+    launches = {"forward": hs.hard_swish.launches, "backward": hs.hard_swish_grad.launches}
+    peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
+    # one more step with PyTorch's sync debug mode on: a step that waits for
+    # the card anywhere (.item(), a host copy, a boolean index) would warn
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(images, labels, use_l1=True)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in caught
+             if "called a synchronizing CUDA operation" in str(w.message)]
+    if syncs:
+        raise AssertionError(f"the train step synchronizes with the card {len(syncs)} times, "
+                             f"first: {syncs[0]}")
+    if not (launches["forward"] and launches["backward"]):
+        raise AssertionError(f"hard_swish launched {launches} times in the training steps")
+    for i, m in enumerate(metrics):
+        vals = {k: float(v) for k, v in m.items()}
+        print(f"g3. step {i + 1}{' (use_l1)' if i == TRAIN_STEPS - 1 else ''}: "
+              + ", ".join(f"{k}={v:.4f}" for k, v in vals.items()), flush=True)
+        if not all(map(lambda v: v == v and abs(v) != float("inf"), vals.values())):
+            raise AssertionError(f"non-finite training metrics at step {i + 1}: {vals}")
+        if vals["num_fg"] <= 0:
+            raise AssertionError(f"no foreground anchor at step {i + 1}")
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"g3. train step, YOLOX-M-P6 (depth 0.67, width 0.75, {n_params} f32 parameters, "
+          f"bf16 compute), B={BATCH} {SIZE}x{SIZE}, G=120, on {card}: setup {setup_s:.2f} s, "
+          f"2 warm-up steps {warm_s:.2f} s; {TRAIN_STEPS} timed steps, device ms a step "
+          + ", ".join(f"{r['step']:.2f}" for r in rows)
+          + f" (mean {mean['step']:.2f}: forward {mean['forward']:.2f}, SimOTA and losses "
+          f"{mean['losses']:.2f}, backward {mean['backward']:.2f}, optimizer and EMA "
+          f"{mean['update']:.2f}; the host took {mean['queued']:.2f} to queue a step: where "
+          f"that is as long as the step, the host sets the pace); "
+          f"{BATCH * 1e3 / mean['step']:.2f} img/s on the device, "
+          f"{TRAIN_STEPS * BATCH / wall:.2f} img/s by the host clock; peak device memory "
+          f"{peak_gib:.2f} GiB; hard-swish launches in the {TRAIN_STEPS} steps {launches}, "
+          f"{(launches['forward'] + launches['backward']) // TRAIN_STEPS} a step "
+          f"({sum(shapes.values())} activations); host syncs in a step (sync debug mode): 0",
+          flush=True)
+    del model, step
+    fwd = hard_swish_times(shapes, device, backward=False)
+    bwd = hard_swish_times(shapes, device, backward=True)
+    print(f"g3. hard_swish on one step's {sum(shapes.values())} activations ({len(shapes)} "
+          f"shapes, bf16; the kernel equals its plain version bit for bit at each, forward "
+          f"and backward): forward kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
+          f"F.hardswish {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f} by "
+          f"{fwd['bound_by']}); backward kernel {bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, "
+          f"aten.hardswish_backward {bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.4f} by "
+          f"{bwd['bound_by']})", flush=True)
+    stats = {k: fwd[k] + bwd[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    stats["max_abs_err"] = max(fwd["max_abs_err"], bwd["max_abs_err"])
+    stats["bound_by"] = "bytes" if fwd["bound_by"] == bwd["bound_by"] == "bytes" else "operations"
+    return launches["forward"] + launches["backward"], stats
+
+
 def main():
     try:
         import torch
@@ -865,11 +1236,18 @@ def main():
     variables = serving_variables(seed=0)
     launches, stats, predictor, dense = phase_serve(device, variables, card)
     phase_reference(device, variables, predictor)
+    dense_hs_err = phase_dense_forward(device, predictor, dense)
     del predictor
     headline, slim_vars = build_headline_model(device)
     int8_stats = phase_int8_conv(device, headline)
     # the NMS kernels' launches and times in the kernels line stay phase c's
     launches["int8_conv"] = phase_headline(device, card, headline, slim_vars, dense)["int8_conv"]
+    del headline
+    torch.cuda.empty_cache()
+    hs_err = check_hard_swish_kernel(device)
+    phase_train_parity(device)
+    launches["hard_swish"], hs_stats = phase_train(device, card)
+    hs_stats["max_abs_err"] = max(hs_err, dense_hs_err, hs_stats["max_abs_err"])
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}
@@ -884,6 +1262,10 @@ def main():
                     "source": "cocodet_tpu_torch/csrc/int8_conv.cu",
                     "replaces": "cocodet_tpu/models/blocks.py:248",
                     "launches": launches["int8_conv"], **int8_stats, "library_ms": None})
+    kernels.append({"name": "hard_swish", "route": "cuda",
+                    "source": "cocodet_tpu_torch/csrc/hard_swish.cu",
+                    "replaces": "cocodet_tpu/models/blocks.py:54",
+                    "launches": launches["hard_swish"], **hs_stats})
     print(f"build_s={build_s:.2f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -21,7 +21,7 @@
 //     y   = hard_swish(y)                               (when the caller asks)
 //   with out_scale = w_scale if a_scale is a (C,) vector, else
 //   a_scale * w_scale. Padding is int8 zero (JAX quantizes, then pads).
-//   hard_swish is models/blocks.py::hard_swish in the output type: in f32
+//   hard_swish is ops/cuda/hard_swish.py::hard_swish_plain in the output type: in f32
 //   x * (clamp(x + 3, 0, 6) * f32(1/6)), in bf16 x * (clamp(x + 3, 0, 6) / 6)
 //   with every op rounded to bf16.
 //   Takes groups=1, dilation=1, a square kernel of 1 or 3, stride 1 or 2
@@ -343,7 +343,7 @@ __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-// models/blocks.py::hard_swish in f32: x * (clamp(x + 3, 0, 6) * f32(1/6)).
+// ops/cuda/hard_swish.py::hard_swish_plain in f32: x * (clamp(x + 3, 0, 6) * f32(1/6)).
 __device__ __forceinline__ float hard_swish_f32(float x) {
   const float r = fminf(fmaxf(__fadd_rn(x, 3.0f), 0.0f), 6.0f);
   return __fmul_rn(x, __fmul_rn(r, __int_as_float(0x3e2aaaab)));

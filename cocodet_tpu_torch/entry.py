@@ -1,5 +1,6 @@
-"""The port's inference programs: the counterparts of
-``__graft_entry__.entry()`` and of ``bench.py``'s headline.
+"""The port's programs: the counterparts of ``__graft_entry__.entry()``,
+of ``bench.py``'s headline and of the train step that
+``__graft_entry__.dryrun_multichip`` builds.
 
 ``entry``/``build_predictor``: YOLOX-M-P6 (depth 0.67, width 0.75) in bf16
 with BN folded. ``build_headline``: the same model slimmed to the committed
@@ -8,19 +9,22 @@ per-input-channel activation scales (bench.py:163-187, 218-306). Both end in
 the single batched postprocess at the production point: conf 0.001, NMS IoU
 0.55, pre-NMS top-K 1024, ``max_det`` 300. ``Predictor`` serves batches of
 NHWC float images; letterbox resizing stays with the harness, which is not
-ported yet.
+ported yet. ``build_trainer``: the unfused YOLOX-P6 in train mode with f32
+parameters and compute in ``dtype``, and one device's train step (forward,
+SimOTA and losses, backward, SGD with nesterov momentum, EMA).
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .compress import build_quant_tree, calibrate, load_slim_spec, quantize_weights
+from .core.train_state import build_optimizer, create_train_state, make_train_step
 from .models.yolox import MODEL_SPECS, YOLOX, build_model
 from .ops.fuse import fuse_model
 from .ops.nms import NMSResult
@@ -125,3 +129,22 @@ def entry(device: Union[str, torch.device] = "cuda") -> Tuple[Predictor, Tuple[t
         shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.67, width=0.75)
     fn = build_predictor(random_variables(shapes, 0), device=device)
     return fn, (torch.zeros((1, 256, 256, 3), dtype=torch.float32, device=device),)
+
+
+def build_trainer(depth: float = 0.67, width: float = 0.75,
+                  dtype: torch.dtype = torch.bfloat16,
+                  device: Union[str, torch.device] = "cuda",
+                  seed: int = 0) -> Tuple[YOLOX, Callable]:
+    """(model, step): the unfused YOLOX-P6 at ``depth``/``width`` in train
+    mode, f32 parameters computing in ``dtype``, weights drawn from numpy
+    ``seed`` with the head's cls and obj biases at the prior 0.01, and its
+    train step (``core/train_state.py::make_train_step``) with the optimizer
+    of ``__graft_entry__.dryrun_multichip``: SGD at lr 0.01 with nesterov
+    momentum 0.9 and weight decay 5e-4 on the conv kernels, the EMA at
+    0.9998, the iou loss, 80 classes, strides (8, 16, 32, 64)."""
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=depth, width=width)
+    model = build_model("yolox-p6", depth=depth, width=width, dtype=dtype, device=device,
+                        variables=random_variables(shapes, seed, prior_prob=0.01))
+    state = create_train_state(model, build_optimizer(model, 0.01))
+    return model, make_train_step(state, model.strides, num_classes=model.num_classes)

@@ -15,14 +15,13 @@ hands its conv the f32 images and the model's dtype, as JAX does.
 
 from __future__ import annotations
 
-import functools
 from typing import Any, Callable, Dict, Optional, Sequence
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import hard_swish as hs
 from ..ops.cuda.int8_conv import conv2d_w8a8
 
 
@@ -32,34 +31,31 @@ from ..ops.cuda.int8_conv import conv2d_w8a8
 
 
 HARD_SWISH_NAMES = ("hsilu", "hswish", "hard_silu", "hard_swish")
-_SIXTH_F32 = float(np.float32(1 / 6))  # 0x3e2aaaab
 
 
-@functools.lru_cache(maxsize=None)
-def _six(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
-    return torch.full((), 6.0, dtype=dtype, device=device)
+class _HardSwish(torch.autograd.Function):
+    """``jax.nn.hard_swish`` and its VJP through ``ops/cuda/hard_swish.py``:
+    the CUDA kernel on the card, the plain versions on the CPU. Saves ``x``
+    only; the backward recomputes relu6's mask from it."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return hs.hard_swish(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return hs.hard_swish_grad(x, g)
 
 
 def hard_swish(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.hard_swish`` (``x * relu6(x + 3.) / 6.``) with the arithmetic
-    that XLA:CPU gives it under jax 0.9.0, one op at a time:
-
-    - f32: ``x * ((x + 3).clamp(0, 6) * f32(1/6))``. XLA rewrites the f32
-      division by the constant 6 into a multiply by its rounded reciprocal
-      0x3e2aaaab, so the multiply is what JAX computes;
-    - bf16: ``x * ((x + 3).clamp(0, 6) / 6)``, each op computed in f32 and
-      rounded to bf16, the division an IEEE division. The 6 is a tensor on
-      ``x``'s device: a PyTorch CUDA division by a Python number multiplies
-      by the reciprocal instead.
-
-    ``F.hardswish`` rounds otherwise (it differs from JAX on about a quarter
-    of f32 inputs in [-4, 4]). XLA:CPU also flushes subnormal inputs and
-    results to zero; PyTorch keeps them, on the CPU and in the int8 conv's
-    fused epilogue alike, so the two differ only there.
-    """
-    if x.dtype == torch.float32:
-        return x * ((x + 3).clamp(0, 6) * _SIXTH_F32)
-    return x * ((x + 3).clamp(0, 6) / _six(x.device, x.dtype))
+    """``jax.nn.hard_swish`` (``x * relu6(x + 3.) / 6.``) with the roundings
+    of XLA:CPU under jax 0.9.0, differentiable with JAX's VJP: relu6's
+    gradient is 0 at both bounds, so d/dx is 0 at x = -3 and 1 at x = 3
+    (autograd through ``clamp`` would give -0.5 and 1.5). The arithmetic is
+    in ``ops/cuda/hard_swish.py``."""
+    return _HardSwish.apply(x)
 
 
 def get_activation(name: str = "silu") -> Callable[[torch.Tensor], torch.Tensor]:
@@ -148,18 +144,39 @@ class Conv2d(nn.Module):
 
 
 class BatchNorm(nn.BatchNorm2d):
-    """Eval-mode BN with the JAX package's constants: eps 1e-3 and the torch
-    convention momentum 0.03 (blocks.py:371-372). It normalises in f32 and
-    casts back to the input dtype, as flax's BatchNorm with ``dtype`` does."""
+    """BN with the JAX package's constants: eps 1e-3 and the torch
+    convention momentum 0.03, flax momentum 0.97 (blocks.py:371-372). It
+    normalises in f32 and casts back to the input dtype, as flax's
+    BatchNorm with ``dtype`` does.
+
+    Train mode is flax's (flax/linen/normalization.py, ``_compute_stats``
+    and ``_normalize``), in plain ops under autograd: the batch statistics
+    in f32 (f64 for an f64 input) over N, H and W, ``mean = E[x]`` and the biased ``var =
+    max(0, E[x^2] - mean^2)``; ``y = (x - mean) * (rsqrt(var + eps) *
+    scale) + bias``; the running statistics updated in place with the biased
+    variance, ``ra = 0.97 ra + (1 - 0.97) stat`` (``nn.BatchNorm2d`` would
+    take the unbiased one)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-3, momentum=0.03)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError("the port's models run in eval mode only")
-        y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                         self.weight, self.bias, False, 0.0, self.eps)
+        if not self.training:
+            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(x.dtype)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean((0, 2, 3))
+        # maximum, not clamp: at var == 0 (a constant channel) its gradient
+        # splits in two, as jnp.maximum's does
+        var = torch.maximum((xf * xf).mean((0, 2, 3)) - mean * mean, torch.zeros_like(mean))
+        keep = 1.0 - self.momentum  # flax's momentum
+        with torch.no_grad():
+            for ra, stat in ((self.running_mean, mean), (self.running_var, var)):
+                ra.copy_(keep * ra + (1 - keep) * stat)
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
         return y.to(x.dtype)
 
 

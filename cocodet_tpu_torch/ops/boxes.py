@@ -36,3 +36,24 @@ def pairwise_iou(a: torch.Tensor, b: torch.Tensor, xyxy: bool = True) -> torch.T
     area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
     union = area_a[..., :, None] + area_b[..., None, :] - inter
     return inter / union.clamp_min(1e-12)
+
+
+def iou_cxcywh(pred: torch.Tensor, target: torch.Tensor, eps: float = 1e-12):
+    """Elementwise IoU of aligned (..., 4) cxcywh boxes, with the union and
+    enclosing areas for the GIoU loss (cocodet_tpu/ops/boxes.py:52-75), in
+    the JAX function's order of operations. Returns (iou, union, enclose)."""
+    p_tl = pred[..., :2] - pred[..., 2:] * 0.5
+    p_br = pred[..., :2] + pred[..., 2:] * 0.5
+    t_tl = target[..., :2] - target[..., 2:] * 0.5
+    t_br = target[..., :2] + target[..., 2:] * 0.5
+
+    wh = (torch.minimum(p_br, t_br) - torch.maximum(p_tl, t_tl)).clamp_min(0.0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_p = pred[..., 2] * pred[..., 3]
+    area_t = target[..., 2] * target[..., 3]
+    union = area_p + area_t - inter
+    iou = inter / (union + eps)
+
+    c_wh = torch.maximum(p_br, t_br) - torch.minimum(p_tl, t_tl)
+    enclose = c_wh[..., 0] * c_wh[..., 1]
+    return iou, union, enclose

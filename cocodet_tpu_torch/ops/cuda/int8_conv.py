@@ -14,8 +14,8 @@ quantize_weights folded it into the kernel) and ``act_scale * w_scale``
 when it is a scalar. The division is IEEE (never a multiply by the
 reciprocal), and padding is int8 zero: JAX quantizes first, then pads.
 With ``act="hard_swish"`` the output then goes through
-``models/blocks.py::hard_swish`` in ``dtype``, which the kernel computes in
-its epilogue with the same ops and roundings.
+``ops/cuda/hard_swish.py::hard_swish_plain`` in ``dtype``, which the kernel
+computes in its epilogue with the same ops and roundings.
 
 Layouts: ``x`` is (B, C, H, W) in channels-last memory, f32 or bf16;
 ``weight`` is (O, C/groups, k, k) int8 in channels-last memory (physically
@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from . import build
+from .hard_swish import hard_swish_plain
 
 _SOURCE = "int8_conv"
 _DTYPES = (torch.float32, torch.bfloat16)
@@ -150,9 +151,7 @@ def apply_act(y: torch.Tensor, act: Optional[str]) -> torch.Tensor:
         raise ValueError(f"the int8 conv applies no activation or hard_swish, not {act!r}")
     if act is None:
         return y
-    from ...models.blocks import hard_swish  # blocks imports this module
-
-    return hard_swish(y)
+    return hard_swish_plain(y)
 
 
 def conv2d_w8a8_plain(x: torch.Tensor, weight: torch.Tensor, act_scale: torch.Tensor,

@@ -28,7 +28,8 @@ Loading reference-layout (torch YOLOX) state dicts is not ported yet.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+import math
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -146,14 +147,19 @@ def load_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     return model
 
 
-def random_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
+def random_variables(model: nn.Module, seed: int,
+                     prior_prob: Optional[float] = None) -> Dict[str, Any]:
     """Flax-layout variables for ``model`` drawn from a numpy seed: conv
     kernels U(+-sqrt(3/fan_in)) (unit gain, so the head maps of the full
     model stay of order 1-30 on 0-255 images), biases U(+-0.1), BN scale and
     var U(0.5, 1.5), BN bias and mean N(0, 0.1), all f32. Non-trivial BN
     statistics make BN folding do real work. A w8a8 conv gets int8 kernels
     U{-127..127} with ``w_scale`` sqrt(3/fan_in)/127 and a scalar
-    ``act_scale`` U(0.1, 0.3) (an activation range of about 13-38)."""
+    ``act_scale`` U(0.1, 0.3) (an activation range of about 13-38).
+
+    With ``prior_prob`` (training: 0.01) the head's cls and obj prediction
+    biases are ``logit(prior_prob) = -log((1 - p) / p)``, the focal prior of
+    cocodet_tpu/models/head.py:76-82 (blocks.py:97-103)."""
     rng = np.random.default_rng(seed)
     flat: Dict[Path, np.ndarray] = {}
     for name, t in _torch_entries(model).items():
@@ -178,5 +184,24 @@ def random_variables(model: nn.Module, seed: int) -> Dict[str, Any]:
             v = rng.uniform(-0.1, 0.1, shape)
         else:
             v = rng.normal(0.0, 0.1, shape)
+        if (prior_prob is not None and leaf == "bias"
+                and path[-2].startswith(("cls_pred", "obj_pred"))):
+            v = np.full(shape, -math.log((1.0 - prior_prob) / prior_prob))
         flat[path] = v.astype(np.float32)
+    return unflatten_tree(flat)
+
+
+def export_variables(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of ``load_variables``: the model's parameters and
+    buffers as a flax-layout tree of numpy arrays (``{"params": ...,
+    "batch_stats": ...}``; kernels HWIO), so a port model's state compares
+    leaf by leaf with a flax variable tree."""
+    flat: Dict[Path, np.ndarray] = {}
+    for name, t in _torch_entries(model).items():
+        path, _ = jax_path(name, t)
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+        if path[-1] == "kernel":
+            arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        flat[path] = np.array(arr, order="C")  # a copy: the model trains on in place
     return unflatten_tree(flat)

@@ -185,3 +185,148 @@ def test_conv_bn_act_bf16():
         out = tm.eval()(nchw(x, torch.bfloat16))
     assert out.dtype == torch.bfloat16
     assert_close(nhwc(out), want, rtol=3e-2, atol=3e-2)
+
+
+_HS_VJP = jax.jit(lambda x, g: jax.vjp(jax.nn.hard_swish, x)[1](g)[0])
+
+
+def _hs_grad(x: np.ndarray, g: np.ndarray, dtype):
+    """(port, JAX) d/dx of hard-swish at x with cotangent g, as f32 numpy:
+    the port through autograd (models/blocks.py::hard_swish), JAX by
+    jax.jit(jax.vjp) on XLA:CPU."""
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    want = np.asarray(_HS_VJP(jnp.asarray(x).astype(jdt), jnp.asarray(g).astype(jdt))
+                      .astype(jnp.float32))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_()
+    tb.hard_swish(xt).backward(torch.from_numpy(g).to(tdt))
+    return xt.grad.float().numpy(), want
+
+
+def _assert_bits_equal(got, want):
+    """Equal bits, NaN on both (inf * 0), or a port result at most the
+    smallest normal where XLA:CPU flushed it to zero (or gave the same)."""
+    tiny = np.finfo(np.float32).tiny
+    flushed = (got != 0) & (np.abs(got) <= tiny)
+    assert ((want[flushed] == 0) | (want[flushed] == got[flushed])).all()
+    same = (_bits(got) == _bits(want)) | (np.isnan(got) & np.isnan(want))
+    assert same[~flushed].all(), (got[~flushed & ~same][:8], want[~flushed & ~same][:8])
+
+
+def test_hard_swish_grad_matches_jax_bf16():
+    """The port's hard-swish backward equals jax.vjp of jax.nn.hard_swish
+    under jax.jit, bit for bit, on every non-NaN, non-subnormal bf16 x times
+    a set of cotangents (bf16: each op rounded to bf16, relu6's mask on the
+    rounded x + 3)."""
+    f = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    tiny = np.finfo(np.float32).tiny
+    f = f[~np.isnan(f) & ~((f != 0) & (np.abs(f) < tiny))]
+    cots = [1.0, -1.0, 0.5, 3.0, -2.5, 1e-3, 700.0, -0.3333, 1e30]
+    rs = np.random.RandomState(0)
+    for c in cots + [None]:
+        g = rs.normal(0, 2, f.shape).astype(np.float32) if c is None else np.full_like(f, c)
+        _assert_bits_equal(*_hs_grad(f, g, "bfloat16"))
+
+
+def test_hard_swish_grad_matches_jax_f32():
+    """2^20 f32 values (the bend, the linear parts, and +-3, 0, the clamp
+    bounds and their neighbours), bit for bit: XLA:CPU fuses g * h + s into
+    one fused multiply-add, which the plain version rounds once."""
+    rs = np.random.RandomState(1)
+    edges = np.array([-3, 3, 0, -0.0, 6, -6, 2.9999998, -2.9999998, 3.0000002,
+                      -3.0000002, -3.0000005, 2.9999995], np.float32)
+    n = (1 << 20) - edges.size
+    x = np.concatenate([rs.uniform(-4, 4, n // 2), rs.normal(0, 50, n - n // 2),
+                        edges]).astype(np.float32)
+    g = rs.normal(0, 3, x.shape).astype(np.float32)
+    _assert_bits_equal(*_hs_grad(x, g, "float32"))
+
+
+def test_hard_swish_f64_matches_jax():
+    """Under jax.enable_x64 the port computes f64 in f64: the forward bit for
+    bit (a multiply by the f64 1/6), the backward up to the rounding of
+    g * h, which XLA fuses into the sum (1e-11 of the gradient's size where
+    the two terms cancel); 0 at x = -3 and 1 at x = 3."""
+    rs = np.random.RandomState(2)
+    x = np.concatenate([rs.uniform(-4, 4, 1 << 16), rs.normal(0, 50, 1 << 15),
+                        [0.0, 6.0, -6.0, -3.0, 3.0]])
+    g = np.concatenate([rs.normal(0, 3, x.size - 2), [1.0, 1.0]])
+    with jax.enable_x64(True):
+        y_jax = np.asarray(jax.jit(jax.nn.hard_swish)(jnp.asarray(x)))
+        dx_jax = np.asarray(_HS_VJP(jnp.asarray(x), jnp.asarray(g)))
+    xt = torch.from_numpy(x).requires_grad_()
+    y = tb.hard_swish(xt)
+    y.backward(torch.from_numpy(g))
+    assert y.dtype == xt.grad.dtype == torch.float64
+    np.testing.assert_array_equal(y.detach().numpy(), y_jax)
+    np.testing.assert_allclose(xt.grad.numpy(), dx_jax, rtol=0, atol=1e-11 * np.abs(g).max())
+    np.testing.assert_array_equal(xt.grad.numpy()[-2:], [0.0, 1.0])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hard_swish_grad_at_the_bounds(dtype):
+    """relu6's gradient is 0 at both bounds: d/dx is 0 at x = -3 and 1 at
+    x = 3, and in bf16 x = 2.999 rounds to 3 (autograd through clamp would
+    give -0.5, 1.5, 1.5)."""
+    x = np.array([-3.0, 3.0, 2.999], np.float32)
+    got, want = _hs_grad(x, np.ones_like(x), dtype)
+    np.testing.assert_array_equal(want[:2], [0.0, 1.0])
+    np.testing.assert_array_equal(got, want)
+    if dtype == "bfloat16":
+        assert got[2] == 1.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batchnorm_train_matches_flax(dtype):
+    """Train-mode BN against flax.linen.BatchNorm (momentum 0.97, eps 1e-3,
+    dtype): the output, the running mean and the biased running variance,
+    and the gradients of x, scale and bias. The statistics are f32 sums in
+    another order (XLA against ATen): f32 to 1e-5; in bf16 the output and
+    the input gradient may round one bf16 step apart (2**-7 relative)."""
+    import flax.linen as fnn
+
+    rs = np.random.RandomState(2)
+    x = (rs.normal(0.5, 2.0, (4, 5, 5, 3))).astype(np.float32)
+    g = rs.normal(0, 1, x.shape).astype(np.float32)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                         torch.bfloat16)
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.97, epsilon=1e-3, dtype=jdt)
+    variables = {"params": {"scale": rs.uniform(0.5, 1.5, 3).astype(np.float32),
+                            "bias": rs.normal(0, 0.1, 3).astype(np.float32)},
+                 "batch_stats": {"mean": rs.normal(0, 0.1, 3).astype(np.float32),
+                                 "var": rs.uniform(0.5, 1.5, 3).astype(np.float32)}}
+    xj = jnp.asarray(x).astype(jdt)
+
+    def apply(params, xin):
+        return bn.apply({"params": params, "batch_stats": variables["batch_stats"]}, xin,
+                        mutable=["batch_stats"])
+
+    y, stats = apply(variables["params"], xj)
+    _, vjp = jax.vjp(lambda p, xin: apply(p, xin)[0], variables["params"], xj)
+    dparams, dx = vjp(jnp.asarray(g).astype(jdt))
+
+    m = tb.BatchNorm(3)
+    with torch.no_grad():
+        m.weight.copy_(torch.from_numpy(variables["params"]["scale"]))
+        m.bias.copy_(torch.from_numpy(variables["params"]["bias"]))
+        m.running_mean.copy_(torch.from_numpy(variables["batch_stats"]["mean"]))
+        m.running_var.copy_(torch.from_numpy(variables["batch_stats"]["var"]))
+    xt = nchw(x, tdt).detach().requires_grad_()
+    out = m.train()(xt)
+    assert out.dtype == tdt
+    out.backward(nchw(g, tdt))
+
+    tol = dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else dict(rtol=2**-7, atol=2**-7)
+    assert_close(nhwc(out), np.asarray(y.astype(jnp.float32)), **tol)
+    assert_close(nhwc(xt.grad), np.asarray(dx.astype(jnp.float32)), **tol)
+    for name, want in (("running_mean", "mean"), ("running_var", "var")):
+        assert_close(getattr(m, name).numpy(), np.asarray(stats["batch_stats"][want]),
+                     rtol=1e-5, atol=1e-6)
+    assert_close(m.weight.grad.numpy(), np.asarray(dparams["scale"]), rtol=1e-4, atol=1e-4)
+    assert_close(m.bias.grad.numpy(), np.asarray(dparams["bias"]), rtol=1e-4, atol=1e-4)
+    # the biased variance: nn.BatchNorm2d's unbiased update is another number
+    ref = torch.nn.BatchNorm2d(3, eps=1e-3, momentum=0.03)
+    with torch.no_grad():
+        ref.running_var.copy_(torch.from_numpy(variables["batch_stats"]["var"]))
+        ref(nchw(x))
+    assert not np.allclose(ref.running_var.numpy(), m.running_var.numpy(), rtol=1e-6, atol=0)
