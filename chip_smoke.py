@@ -22,7 +22,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      each kernel held against its plain version and timed on a batch's
      served candidates (the times of the kernels line), and the device time
      of a batch's parts, the NMS split into class offset, overlap, keep and
-     compaction;
+     compaction; (c2) the dense batch served twice with cuDNN deterministic
+     and no benchmark, then twice with benchmark on, and the detection counts
+     of each printed;
   d. check the served output against the plain reference on a small input:
      the f32 model on the card against the unfused f32 model on the CPU, the
      bf16 model against it at a bf16 tolerance, and the NMS on the card
@@ -67,7 +69,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      kernel timed on one step's activations beside its bound, its plain
      version and PyTorch's hardswish; (g4, run after phase d) phase c's
      dense forward timed with the kernel and with the plain version in its
-     place, in turns.
+     place, in turns;
+  h. data-parallel training (parallel/ and entry.build_trainer on a Mesh)
+     on 2 ranks that share the card over gloo, every collective staged
+     through host memory, in one run of ranks: (h1) at depth 0.33, width
+     0.125, f32, cuDNN deterministic, one step of the 1-D mesh (B=4, 128 px)
+     and one of the (1 data x 2 space) mesh (B=4, 256x128) against the
+     single-process step on the card: the fg mask and num_fg equal, the
+     losses, parameters and BN statistics within stated limits, and both
+     ranks holding one state bit for bit; (h2) the main path of the slice:
+     YOLOX-M-P6, f32 parameters, bf16 compute, g3's batch of 16 640 px
+     images on 2 data ranks of 8 images and on 1 data x 2 space ranks of 320
+     rows, 2 warm-up and 3 timed steps, counts zeroed just before and read
+     just after: each rank's device ms a step, host ms in collectives, the
+     collectives staged through the host, peak memory and hard-swish
+     launches (> 0), the losses (finite, num_fg > 0, equal on both ranks).
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -75,6 +91,7 @@ Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 of the repository beside it, it exits non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import statistics
@@ -868,19 +885,21 @@ def phase_headline(device, card, headline, slim_vars, dense):
     return launches
 
 
-def training_batch(batch, size, seed, g=120, boxes=(5, 60)):
-    """(images (B, size, size, 3) f32 U(0, 255), labels (B, g, 5)) from a
+def training_batch(batch, size, seed, g=120, boxes=(5, 60), width=None):
+    """(images (B, size, width, 3) f32 U(0, 255), labels (B, g, 5)) from a
     numpy seed: ``boxes`` boxes an image, [class, cx, cy, w, h] in pixels,
-    sides 3-50% of the image, inside it, zero-padded to ``g``."""
+    sides 3-50% of the image, inside it, zero-padded to ``g``. ``width``
+    defaults to ``size``."""
     import numpy as np
 
     rs = np.random.RandomState(seed)
-    images = rs.uniform(0, 255, (batch, size, size, 3)).astype(np.float32)
+    dims = np.array([width or size, size])
+    images = rs.uniform(0, 255, (batch, size, dims[0], 3)).astype(np.float32)
     labels = np.zeros((batch, g, 5), np.float32)
     for b in range(batch):
         n = rs.randint(boxes[0], boxes[1] + 1)
-        wh = rs.uniform(0.03, 0.5, (n, 2)) * size
-        c = rs.uniform(wh / 2, size - wh / 2)
+        wh = rs.uniform(0.03, 0.5, (n, 2)) * dims
+        c = rs.uniform(wh / 2, dims - wh / 2)
         labels[b, :n] = np.concatenate([rs.randint(0, 80, (n, 1)), c, wh], 1)
     return images, labels
 
@@ -947,6 +966,42 @@ def check_hard_swish_kernel(device):
     return worst
 
 
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN deterministic with no benchmark, TF32 off for convs and
+    matmuls; the flags as they were afterwards."""
+    import torch
+
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+
+
+def step_errors(a, b):
+    """One train step ``a`` against ``b``, each (metrics, flat variables, fg
+    mask): the largest relative difference of a loss, of a parameter leaf and
+    of a BN statistic leaf (each to the leaf's largest value), and the fg
+    anchors that differ."""
+    import numpy as np
+
+    out = {"loss": max(abs(a[0][k] - b[0][k]) / abs(b[0][k]) for k in b[0] if b[0][k])}
+    for kind in ("params", "batch_stats"):
+        out[kind] = max(float(np.abs(a[1][p] - w).max() / np.abs(w).max())
+                        for p, w in b[1].items() if p[0] == kind)
+    out["fg"] = int((np.asarray(a[2]) != np.asarray(b[2])).sum())
+    return out
+
+
+STEP_ERRORS = ("losses {loss:.2e}, params {params:.2e}, BN statistics {batch_stats:.2e}, "
+               "fg anchors that differ {fg}")
+
+
 def phase_train_parity(device):
     """g2: one step of build_trainer at a small size (depth 0.33, width
     0.125, 128 px, B=4, f32; TF32 off, cuDNN deterministic) on the card
@@ -955,19 +1010,14 @@ def phase_train_parity(device):
     and each BN statistic within 1e-4 of its largest value. For scale, the
     CPU's f32 step against its own f64 step (printed beside): at this size
     f32 rounding alone moves a leaf by ~1e-4 of its value."""
-    import numpy as np
     import torch
 
     from cocodet_tpu_torch.entry import build_trainer
     from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree
 
     images, labels = training_batch(4, 128, 7)
-    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
     runs = {}
-    try:
+    with cudnn_deterministic():
         for name, dev, dtype in (("card", device, torch.float32), ("cpu", "cpu", torch.float32),
                                  ("cpu f64", "cpu", torch.float64)):
             model, step = build_trainer(0.33, 0.125, torch.float32, dev, seed=1)
@@ -978,25 +1028,12 @@ def phase_train_parity(device):
                                     return_targets=True)
             runs[name] = ({k: float(v) for k, v in metrics.items()},
                           flatten_tree(export_variables(model)), targets.fg_mask.cpu())
-    finally:
-        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
 
-    def errors(a, b):
-        out = {"loss": max(abs(a[0][k] - b[0][k]) / abs(b[0][k]) for k in b[0] if b[0][k])}
-        for kind in ("params", "batch_stats"):
-            out[kind] = max(float(np.abs(a[1][p] - w).max() / np.abs(w).max())
-                            for p, w in b[1].items() if p[0] == kind)
-        out["fg"] = int((a[2] != b[2]).sum())
-        return out
-
-    card, floor = errors(runs["card"], runs["cpu"]), errors(runs["cpu"], runs["cpu f64"])
-    fmt = ("losses {loss:.2e}, params {params:.2e}, BN statistics {batch_stats:.2e}, "
-           "fg anchors that differ {fg}")
+    card, floor = step_errors(runs["card"], runs["cpu"]), step_errors(runs["cpu"], runs["cpu f64"])
     print(f"g2. one train step, depth 0.33 width 0.125, 128 px, B=4, f32, card vs CPU (max "
-          f"relative to each leaf's largest value): {fmt.format(**card)} (limits 1e-4, 1e-3, "
+          f"relative to each leaf's largest value): {STEP_ERRORS.format(**card)} (limits 1e-4, 1e-3, "
           f"1e-4, 0); num_fg {runs['card'][0]['num_fg']:.0f}; the CPU's f32 step vs its f64 "
-          f"step: {fmt.format(**floor)}", flush=True)
+          f"step: {STEP_ERRORS.format(**floor)}", flush=True)
     if not (card["fg"] == 0 and card["loss"] <= 1e-4 and card["params"] <= 1e-3
             and card["batch_stats"] <= 1e-4):
         raise AssertionError("the train step on the card disagrees with the CPU")
@@ -1211,6 +1248,207 @@ def phase_train(device, card):
     return launches["forward"] + launches["backward"], stats
 
 
+def phase_repeat(device, predictor):
+    """c2: the dense path's detection count on one batch, served twice with
+    cuDNN deterministic and no benchmark, then twice as served (benchmark
+    on: cuDNN may pick other algorithms, whose sums round otherwise). Two
+    deterministic runs that differ would be a fault of the port."""
+    import numpy as np
+    import torch
+
+    images = np.random.RandomState(1).uniform(0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32)
+    runs = {}
+    for label in ("deterministic", "deterministic", "benchmark", "benchmark"):
+        if label == "deterministic":
+            with cudnn_deterministic():
+                res = predictor(images)
+        else:
+            torch.backends.cudnn.benchmark = True
+            res = predictor(images)
+        torch.cuda.synchronize()
+        runs.setdefault(label, []).append(res)
+    counts = {k: [int(r.valid.sum()) for r in v] for k, v in runs.items()}
+    same = {k: all(torch.equal(getattr(v[0], f), getattr(v[1], f))
+                   for f in ("boxes", "scores", "valid")) for k, v in runs.items()}
+    print(f"c2. the dense batch of phase c served twice with cuDNN deterministic and no "
+          f"benchmark: detections {counts['deterministic']}, outputs bit for bit equal: "
+          f"{same['deterministic']}; twice with benchmark on (as served): detections "
+          f"{counts['benchmark']}, equal: {same['benchmark']}", flush=True)
+    return counts, same
+
+
+H_WARMUP, H_STEPS = 2, 3
+# h1's limits on (losses, parameters, BN statistics): g2's, and at 256x128 a
+# parameter limit of 3e-3, where f32 rounding alone moves a leaf by 8.05e-4 of
+# its largest value (the step in f32 against f64 on the CPU)
+H_LIMITS = {"1-D": (1e-4, 1e-3, 1e-4), "2-D": (1e-4, 3e-3, 1e-4)}
+# training_batch arguments of h1's batches: 128x128 and 256x128, B=4
+H_PARITY = ((4, 128, 7), (4, 256, 8, 120, (5, 60), 128))
+
+
+def h_rank(rank, device):
+    """One rank of phase h. (h1) From seed 1 at depth 0.33, width 0.125, f32,
+    cuDNN deterministic and TF32 off: one step of the 1-D mesh and one of the
+    (1 data x 2 space) mesh on H_PARITY's batches: (metrics, flat variables,
+    this rank's fg mask) for each. (h2) YOLOX-M-P6 from seed 0, bf16
+    compute, on g3's batch over the 1-D mesh and the (1 data x 2 space)
+    mesh: H_WARMUP steps, then H_STEPS timed steps (the last with use_l1)
+    with the counts zeroed just before and read just after."""
+    import torch
+    import torch.distributed as dist
+
+    from cocodet_tpu_torch.entry import build_trainer
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.parallel import collectives, make_mesh, make_mesh_2d, shard_batch
+    from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree
+
+    meshes = {"1-D": make_mesh(device), "2-D": make_mesh_2d(2, device)}
+    out = {"parity": {}, "main": {}}
+    with cudnn_deterministic():
+        for name, spec in zip(("1-D", "2-D"), H_PARITY):
+            model, step = build_trainer(0.33, 0.125, torch.float32, seed=1, mesh=meshes[name])
+            metrics, targets = step(*shard_batch(meshes[name], training_batch(*spec)),
+                                    use_l1=True, return_targets=True)
+            out["parity"][name] = ({k: float(v) for k, v in metrics.items()},
+                                   flatten_tree(export_variables(model)),
+                                   targets.fg_mask.cpu().numpy())
+    del model, step
+    torch.backends.cudnn.benchmark = True
+    main_batch = training_batch(BATCH, SIZE, 12)
+    for name, mesh in meshes.items():
+        t0 = time.perf_counter()
+        model, step = build_trainer(0.67, 0.75, torch.bfloat16, seed=0, mesh=mesh)
+        local = shard_batch(mesh, main_batch)
+        for _ in range(H_WARMUP):
+            step(*local)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        dist.barrier()
+        torch.cuda.reset_peak_memory_stats(device)
+        hs.reset_launch_counts()
+        collectives.reset_counts()
+        steps, metrics = [], []
+        for i in range(H_STEPS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            m = step(*local, use_l1=i == H_STEPS - 1)
+            end.record()
+            torch.cuda.synchronize()
+            steps.append((start.elapsed_time(end), (time.perf_counter() - t0) * 1e3))
+            metrics.append({k: float(v) for k, v in m.items()})
+        out["main"][name] = {
+            "rows": tuple(local[0].shape), "setup_s": setup_s, "steps": steps,
+            "metrics": metrics, "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
+            "launches": {"forward": hs.hard_swish.launches,
+                         "backward": hs.hard_swish_grad.launches},
+            "calls": dict(collectives.calls), "staged": dict(collectives.host_staged),
+            "host_ms": {k: v * 1e3 for k, v in collectives.host_seconds.items()}}
+        del model, step, local
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp(device, card):
+    """h: the data-parallel train step (entry.build_trainer on a
+    parallel.Mesh) on 2 ranks that share the card (gloo; every collective
+    staged through host memory), in one run of ranks (h_rank). h1 holds
+    the ranks' step at depth 0.33, width 0.125, f32, against the
+    single-process step on the card: the 1-D mesh (one 128 px batch of 4,
+    2 images a rank) and the (1 data x 2 space) mesh (256x128, 128 rows a
+    rank). Only the order of the sums differs (BN's per-rank partial sums,
+    the halo rows, the gradients summed over ranks): the fg mask and num_fg
+    must be equal, and the losses, each parameter leaf and each BN
+    statistic within H_LIMITS of its largest value; the single step in f32
+    against f64 on the CPU is printed beside, for scale. h2 drives the
+    main path of the slice at full width: YOLOX-M-P6, bf16 compute, g3's
+    batch of 16 640 px images (G=120) on 2 data ranks of 8 images and on 1
+    data x 2 space ranks of 320 rows."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.entry import build_trainer
+    from cocodet_tpu_torch.parallel.launch import run_ranks
+    from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree
+
+    t_phase = time.perf_counter()
+    single = {}
+    with cudnn_deterministic():
+        for name, spec in zip(("1-D", "2-D"), H_PARITY):
+            images, labels = training_batch(*spec)
+            for dev, dtype in ((device, torch.float32), ("cpu", torch.float32),
+                               ("cpu", torch.float64)):
+                model, step = build_trainer(0.33, 0.125, torch.float32, dev, seed=1)
+                model.to(dtype)
+                model.dtype = dtype
+                metrics, targets = step(torch.from_numpy(images).to(dev, dtype),
+                                        torch.from_numpy(labels).to(dev), use_l1=True,
+                                        return_targets=True)
+                single[name, str(dev), dtype] = ({k: float(v) for k, v in metrics.items()},
+                                                 flatten_tree(export_variables(model)),
+                                                 targets.fg_mask.cpu().numpy())
+    del model, step
+    torch.cuda.empty_cache()
+    ranks = run_ranks(h_rank, 2, device=device, timeout=600)
+    lines, ok = [], True
+    for name, mesh in (("1-D", "1-D mesh (2 data), 128x128"),
+                       ("2-D", "(1 data x 2 space) mesh, 256x128")):
+        got = [r["parity"][name] for r in ranks]
+        want = single[name, str(device), torch.float32]
+        # the ranks' fg masks side by side: their images on the 1-D mesh, all
+        # four on each space rank
+        fg = np.concatenate([g[2] for g in got]) if name == "1-D" else got[0][2]
+        err = step_errors((got[0][0], got[0][1], fg), want)
+        floor = step_errors(single[name, "cpu", torch.float32],
+                            single[name, "cpu", torch.float64])
+        same = all(g[0] == got[0][0] for g in got) and all(
+            np.array_equal(v, got[0][1][p]) for g in got for p, v in g[1].items())
+        limits = H_LIMITS[name]
+        lines.append(f"{mesh}, B=4: {STEP_ERRORS.format(**err)} (limits "
+                     f"{', '.join(map(str, limits))}, 0); num_fg {got[0][0]['num_fg']:.0f} "
+                     f"(single {want[0]['num_fg']:.0f}); the ranks hold one state bit for bit: "
+                     f"{same}; for scale, the single step in f32 vs f64 on the CPU: "
+                     f"{STEP_ERRORS.format(**floor)}")
+        ok &= (err["fg"] == 0 and got[0][0]["num_fg"] == want[0]["num_fg"] and same
+               and err["loss"] <= limits[0] and err["params"] <= limits[1]
+               and err["batch_stats"] <= limits[2])
+    print("h1. the data-parallel step on 2 ranks sharing the card (gloo), depth 0.33 width "
+          "0.125, f32, cuDNN deterministic, TF32 off, against the single-process step on the "
+          "card (max relative to each leaf's largest value): " + "; ".join(lines), flush=True)
+    if not ok:
+        raise AssertionError("the data-parallel step disagrees with the single-process step")
+
+    for name, mesh in (("1-D", "2 data x 1 space"), ("2-D", "1 data x 2 space")):
+        runs = [r["main"][name] for r in ranks]
+        for rank, r in enumerate(runs):
+            ms = [d for d, _ in r["steps"]]
+            host = [h for _, h in r["steps"]]
+            coll = sum(r["host_ms"].values()) / H_STEPS
+            print(f"h2. YOLOX-M-P6 (depth 0.67, width 0.75, bf16 compute) data-parallel on "
+                  f"({mesh}), rank {rank} of 2 on {card}: local batch {r['rows']}; setup and "
+                  f"{H_WARMUP} warm-up steps {r['setup_s']:.2f} s; device ms a step "
+                  + ", ".join(f"{v:.2f}" for v in ms)
+                  + " (host ms " + ", ".join(f"{v:.2f}" for v in host)
+                  + f"); host ms in collectives a step {coll:.2f} ("
+                  + ", ".join(f"{k} {v / H_STEPS:.2f}" for k, v in sorted(r["host_ms"].items()))
+                  + f"); collectives a step {({k: v // H_STEPS for k, v in r['calls'].items()})}"
+                  f", of which staged through the host "
+                  f"{({k: v // H_STEPS for k, v in r['staged'].items()})}; peak device memory "
+                  f"{r['peak_gib']:.2f} GiB; hard-swish launches in {H_STEPS} steps "
+                  f"{r['launches']}", flush=True)
+            if not (r["launches"]["forward"] and r["launches"]["backward"]):
+                raise AssertionError(f"hard_swish did not launch on rank {rank} ({mesh})")
+        for i, m in enumerate(runs[0]["metrics"]):
+            print(f"h2. ({mesh}) step {i + 1}{' (use_l1)' if i == H_STEPS - 1 else ''}: "
+                  + ", ".join(f"{k}={v:.4f}" for k, v in m.items()), flush=True)
+            if not all(np.isfinite(v) for v in m.values()) or m["num_fg"] <= 0:
+                raise AssertionError(f"({mesh}) step {i + 1}: non-finite metrics or no "
+                                     f"foreground anchor: {m}")
+        if any(r["metrics"] != runs[0]["metrics"] for r in runs):
+            raise AssertionError(f"({mesh}): the ranks report different metrics")
+    print(f"h. phase h took {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def main():
     try:
         import torch
@@ -1235,6 +1473,7 @@ def main():
     worst = phase_kernels(device)
     variables = serving_variables(seed=0)
     launches, stats, predictor, dense = phase_serve(device, variables, card)
+    phase_repeat(device, predictor)
     phase_reference(device, variables, predictor)
     dense_hs_err = phase_dense_forward(device, predictor, dense)
     del predictor
@@ -1248,6 +1487,8 @@ def main():
     phase_train_parity(device)
     launches["hard_swish"], hs_stats = phase_train(device, card)
     hs_stats["max_abs_err"] = max(hs_err, dense_hs_err, hs_stats["max_abs_err"])
+    torch.cuda.empty_cache()
+    phase_dp(device, card)
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}

@@ -22,6 +22,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.losses import yolox_losses
+from ..parallel.collectives import all_reduce_, gather_rows
+from ..parallel.mesh import Mesh, check_spatial_sizes, replicate, use_mesh
 from ..utils.ema import ModelEMA
 
 Schedule = Union[float, Callable[[int], float]]
@@ -72,13 +74,32 @@ class TrainState:
 
 
 def create_train_state(model: nn.Module, optimizer: SGD, use_ema: bool = True,
-                       ema_decay: float = 0.9998) -> TrainState:
+                       ema_decay: float = 0.9998, mesh: Optional[Mesh] = None) -> TrainState:
+    """The state of a step; on a ``mesh`` the model is first broadcast from
+    rank 0, so every rank starts from the same parameters and statistics."""
+    if mesh is not None:
+        replicate(mesh, model)
     return TrainState(model=model.train(), optimizer=optimizer,
                       ema=ModelEMA(model, ema_decay) if use_ema else None)
 
 
+@torch.no_grad()
+def _sum_gradients(model: nn.Module, group) -> None:
+    """Each parameter's gradient summed over ``group``, in one flat bucket:
+    the gradient of the global batch's loss, whose parts the ranks hold."""
+    params = [p for p in model.parameters() if p.requires_grad]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        if p.grad is None:
+            p.grad = g.view_as(p).clone()
+        else:
+            p.grad.copy_(g.view_as(p))
+
+
 def make_train_step(state: TrainState, strides: Sequence[int], num_classes: int = 80,
-                    iou_type: str = "iou", simota_bf16: bool = False) -> Callable:
+                    iou_type: str = "iou", simota_bf16: bool = False,
+                    mesh: Optional[Mesh] = None) -> Callable:
     """The train step over ``state``, updated in place:
 
         step(images, labels, use_l1=False, mark=None, return_targets=False)
@@ -87,23 +108,43 @@ def make_train_step(state: TrainState, strides: Sequence[int], num_classes: int 
     G, 5) [class, cx, cy, w, h] zero-padded. Returns the metrics dict of
     JAX's step as device tensors (and the SimOTA targets if asked). ``mark``,
     if given, is called with "forward", "losses", "backward" and "update"
-    as each part ends (a caller's timer)."""
+    as each part ends (a caller's timer).
+
+    On a ``mesh`` each rank passes its slice of the global batch
+    (``parallel.shard_batch``): its images, and on a space axis its rows of
+    them. The step is JAX's step on the global batch: BN on the global
+    batch's statistics, the head maps gathered over the space ranks before
+    SimOTA (the anchor grid is global), each loss term over the global
+    ``num_fg``, and the gradients summed over every rank before the same SGD
+    and EMA on each. The metrics are the global batch's, equal on every
+    rank; the targets are this rank's images'."""
     simota_dtype = torch.bfloat16 if simota_bf16 else torch.float32
+    space = None if mesh is None else mesh.space
 
     def step(images: torch.Tensor, labels: torch.Tensor, use_l1: bool = False,
              mark: Optional[Callable[[str], None]] = None, return_targets: bool = False):
         model, opt = state.model, state.optimizer
         model.train()
-        outputs = model(images)
+        if space is not None:
+            check_spatial_sizes([(images.shape[1] * mesh.n_space, images.shape[2])],
+                                mesh.n_space, max(strides))
+        with use_mesh(mesh):
+            outputs = model(images)
+        if space is not None:
+            outputs = [{k: gather_rows(v, space, dim=1) for k, v in level.items()}
+                       for level in outputs]
         if mark:
             mark("forward")
         losses, targets = yolox_losses(outputs, labels, strides=strides,
                                        num_classes=num_classes, use_l1=use_l1,
-                                       iou_type=iou_type, simota_dtype=simota_dtype)
+                                       iou_type=iou_type, simota_dtype=simota_dtype,
+                                       group=None if mesh is None else mesh.data)
         if mark:
             mark("losses")
         opt.zero_grad(set_to_none=True)
         losses.total.backward()
+        if mesh is not None:
+            _sum_gradients(model, mesh.world)
         if mark:
             mark("backward")
         opt.step()
@@ -111,10 +152,12 @@ def make_train_step(state: TrainState, strides: Sequence[int], num_classes: int 
             state.ema.update()
         if mark:
             mark("update")
-        metrics = {"loss": losses.total.detach(), "iou_loss": losses.iou.detach(),
-                   "obj_loss": losses.obj.detach(), "cls_loss": losses.cls.detach(),
-                   "l1_loss": losses.l1.detach(),
-                   "num_fg_per_gt": losses.num_fg_per_gt, "num_fg": targets.num_fg}
+        terms = torch.stack([losses.total, losses.iou, losses.obj, losses.cls,
+                             losses.l1]).detach()
+        if mesh is not None:
+            all_reduce_(terms, mesh.data)
+        metrics = dict(zip(("loss", "iou_loss", "obj_loss", "cls_loss", "l1_loss"), terms))
+        metrics.update(num_fg_per_gt=losses.num_fg_per_gt, num_fg=targets.num_fg)
         return (metrics, targets) if return_targets else metrics
 
     return step

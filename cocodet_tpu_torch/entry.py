@@ -10,18 +10,22 @@ the single batched postprocess at the production point: conf 0.001, NMS IoU
 0.55, pre-NMS top-K 1024, ``max_det`` 300. ``Predictor`` serves batches of
 NHWC float images; letterbox resizing stays with the harness, which is not
 ported yet. ``build_trainer``: the unfused YOLOX-P6 in train mode with f32
-parameters and compute in ``dtype``, and one device's train step (forward,
-SimOTA and losses, backward, SGD with nesterov momentum, EMA).
+parameters and compute in ``dtype``, and its train step (forward, SimOTA
+and losses, backward, SGD with nesterov momentum, EMA), on one device or,
+given a ``parallel.Mesh``, data-parallel over the mesh's ranks.
+``dryrun_multichip``: that step on n spawned ranks, on a data mesh and on
+a data x space mesh.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Callable, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .compress import build_quant_tree, calibrate, load_slim_spec, quantize_weights
 from .core.train_state import build_optimizer, create_train_state, make_train_step
@@ -29,6 +33,8 @@ from .models.yolox import MODEL_SPECS, YOLOX, build_model
 from .ops.fuse import fuse_model
 from .ops.nms import NMSResult
 from .ops.postprocess import PostprocessConfig, postprocess
+from .parallel.launch import run_ranks
+from .parallel.mesh import Mesh, make_mesh, make_mesh_2d, shard_batch
 from .utils.convert import random_variables
 
 PRODUCTION_CONFIG = PostprocessConfig(conf_threshold=0.001, nms_threshold=0.55,
@@ -134,17 +140,60 @@ def entry(device: Union[str, torch.device] = "cuda") -> Tuple[Predictor, Tuple[t
 def build_trainer(depth: float = 0.67, width: float = 0.75,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Union[str, torch.device] = "cuda",
-                  seed: int = 0) -> Tuple[YOLOX, Callable]:
+                  seed: int = 0, mesh: Optional[Mesh] = None) -> Tuple[YOLOX, Callable]:
     """(model, step): the unfused YOLOX-P6 at ``depth``/``width`` in train
     mode, f32 parameters computing in ``dtype``, weights drawn from numpy
     ``seed`` with the head's cls and obj biases at the prior 0.01, and its
     train step (``core/train_state.py::make_train_step``) with the optimizer
     of ``__graft_entry__.dryrun_multichip``: SGD at lr 0.01 with nesterov
     momentum 0.9 and weight decay 5e-4 on the conv kernels, the EMA at
-    0.9998, the iou loss, 80 classes, strides (8, 16, 32, 64)."""
+    0.9998, the iou loss, 80 classes, strides (8, 16, 32, 64). On a
+    ``mesh`` (``parallel.make_mesh``, ``make_mesh_2d``) the model lives on
+    the mesh's device, starts from rank 0's weights, and the step is the
+    data-parallel step over the global batch."""
+    if mesh is not None:
+        device = mesh.device
     with torch.device("meta"):
         shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=depth, width=width)
     model = build_model("yolox-p6", depth=depth, width=width, dtype=dtype, device=device,
                         variables=random_variables(shapes, seed, prior_prob=0.01))
-    state = create_train_state(model, build_optimizer(model, 0.01))
-    return model, make_train_step(state, model.strides, num_classes=model.num_classes)
+    state = create_train_state(model, build_optimizer(model, 0.01), mesh=mesh)
+    return model, make_train_step(state, model.strides, num_classes=model.num_classes,
+                                  mesh=mesh)
+
+
+def _dryrun_rank(rank: int, device: torch.device) -> dict:
+    """One rank of ``dryrun_multichip``: the losses of its two steps."""
+    n = dist.get_world_size()
+    labels = np.tile(np.asarray([[[1.0, 32.0, 32.0, 16.0, 16.0]] + [[0.0] * 5] * 9],
+                                np.float32), (n, 1, 1))
+    out = {}
+    meshes = [("1-D", make_mesh(device), 64)]
+    if n % 2 == 0:
+        meshes.append(("2-D", make_mesh_2d(2, device), 256))
+    for name, mesh, height in meshes:
+        images = np.zeros((n, height, 64, 3), np.float32)  # one image a rank
+        _, step = build_trainer(0.33, 0.125, torch.float32, seed=0, mesh=mesh)
+        metrics = step(*shard_batch(mesh, (images, labels)), use_l1=True)
+        out[name] = float(metrics["loss"])
+    return out
+
+
+def dryrun_multichip(n_devices: int, device: Union[str, torch.device] = "cuda",
+                     timeout: float = 900.0) -> List[dict]:
+    """``__graft_entry__.dryrun_multichip`` on ``n_devices`` ranks: the full
+    data-parallel train step (gradients summed over the ranks, SGD, EMA, BN
+    on the global batch) of yolox-p6 at depth 0.33, width 0.125, one 64 px
+    image a rank, use_l1; then, if ``n_devices`` is even, the same step on
+    the (n/2 data x 2 space) mesh at 256x64, image height sharded. Ranks on
+    ``"cuda"`` share the cards when there are more ranks than cards (gloo);
+    the CPU only when asked for. Returns each rank's losses."""
+    results = run_ranks(_dryrun_rank, n_devices, device=device, timeout=timeout)
+    for name in results[0]:
+        losses = [r[name] for r in results]
+        if not np.isfinite(losses[0]) or any(v != losses[0] for v in losses):
+            raise RuntimeError(f"dryrun_multichip({n_devices}) {name}: the ranks' losses "
+                               f"{losses} are not one finite value")
+        mesh = "" if name == "1-D" else f"2-D ({n_devices // 2} data x 2 space) mesh "
+        print(f"dryrun_multichip({n_devices}): {mesh}ok, loss={losses[0]:.4f}", flush=True)
+    return results

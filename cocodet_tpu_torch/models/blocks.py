@@ -23,6 +23,8 @@ from torch import nn
 
 from ..ops.cuda import hard_swish as hs
 from ..ops.cuda.int8_conv import conv2d_w8a8
+from ..parallel.collectives import all_reduce_sum, halo_exchange
+from ..parallel.mesh import active_mesh
 
 
 # --------------------------------------------------------------------------
@@ -139,8 +141,31 @@ class Conv2d(nn.Module):
         if self.quant == "calib":
             absmax = x.detach().float().abs().amax(dim=(0, 2, 3))
             torch.maximum(self.act_absmax, absmax, out=self.act_absmax)
+        mesh = active_mesh()
+        if mesh is not None and mesh.space is not None:
+            return self._forward_sharded(x.to(dtype), b, mesh)
         return F.conv2d(x.to(dtype), self.weight.to(dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
+
+    def _forward_sharded(self, x: torch.Tensor, b: Optional[torch.Tensor],
+                         mesh) -> torch.Tensor:
+        """The conv of a height-sharded map: this rank's rows with halos
+        from its space neighbours (zeros past the map's edge, the conv's own
+        padding), convolved with no padding in H. Output row o reads input
+        rows o*stride - pad .. o*stride - pad + reach, so a rank whose first
+        output row is its first input row / stride needs ``pad`` rows from
+        above and ``reach - pad - (stride - 1)`` from below."""
+        if self.quant is not None:
+            raise NotImplementedError("a height-sharded conv is a float conv")
+        h = x.shape[2]
+        if h % self.stride:
+            raise ValueError(f"a height-sharded conv of stride {self.stride} needs a local "
+                             f"height it divides, got {h}")
+        reach = self.dilation * (self.weight.shape[2] - 1)
+        x = halo_exchange(x, self.padding, max(0, reach - self.padding - self.stride + 1),
+                          mesh.space)
+        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, (0, self.padding),
+                        self.dilation, self.groups)
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -166,10 +191,20 @@ class BatchNorm(nn.BatchNorm2d):
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(x.dtype)
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean((0, 2, 3))
+        mesh = active_mesh()
+        if mesh is not None and mesh.size > 1:
+            # the statistics of the global batch: every rank's sums and
+            # count, in one all-reduce over the world
+            c = xf.shape[1]
+            count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
+            sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
+                                             count]), mesh.world)
+            mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        else:
+            mean, mean2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
         # maximum, not clamp: at var == 0 (a constant channel) its gradient
         # splits in two, as jnp.maximum's does
-        var = torch.maximum((xf * xf).mean((0, 2, 3)) - mean * mean, torch.zeros_like(mean))
+        var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
         keep = 1.0 - self.momentum  # flax's momentum
         with torch.no_grad():
             for ra, stat in ((self.running_mean, mean), (self.running_var, var)):
@@ -311,7 +346,17 @@ class SPPBottleneck(nn.Module):
 
     def forward(self, x):
         x = self.conv1(x)
-        xs = [x] + [max_pool_same(x, k) for k in self.kernel_sizes]
+        mesh = active_mesh()
+        if mesh is None or mesh.space is None:
+            xs = [x] + [max_pool_same(x, k) for k in self.kernel_sizes]
+        else:
+            # a height-sharded map: one exchange of the widest pool's halo
+            # (from several ranks where it is deeper than a rank's rows),
+            # -inf past the map's edge, as the pool pads
+            r, h = max(self.kernel_sizes) // 2, x.shape[2]
+            xh = halo_exchange(x, r, r, mesh.space, fill=float("-inf"))
+            xs = [x] + [F.max_pool2d(xh.narrow(2, r - k // 2, h + k // 2 * 2), k, stride=1,
+                                     padding=(0, k // 2)) for k in self.kernel_sizes]
         return self.conv2(torch.cat(xs, dim=1))
 
 

@@ -1,4 +1,5 @@
-"""Conv-BN folding (cocodet_tpu/ops/fuse.py:28-83, conv+BN only).
+"""Conv-BN folding (cocodet_tpu/ops/fuse.py:28-83, conv+BN only) and the
+cross-replica mean of the BN statistics (:151).
 
 W' = W * gamma/sqrt(var+eps) per output channel,
 b' = beta - gamma*mean/sqrt(var+eps) (+ gamma/sqrt(var+eps) * conv bias).
@@ -6,11 +7,13 @@ b' = beta - gamma*mean/sqrt(var+eps) (+ gamma/sqrt(var+eps) * conv bias).
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Any, Dict
 
 import torch
+import torch.distributed as dist
 
 from ..models.yolox import YOLOX
+from ..parallel.collectives import all_reduce_
 
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
 
@@ -58,3 +61,17 @@ def fuse_model(model: YOLOX) -> YOLOX:
         dtype=ref.dtype, memory_format=torch.channels_last)
     fused.load_state_dict(fuse_batchnorm(model.state_dict()))
     return fused.eval()
+
+
+@torch.no_grad()
+def bn_stats_allreduce(model: torch.nn.Module, group: Any = None) -> None:
+    """The cross-replica mean of every BN running statistic, in place
+    (cocodet_tpu/ops/fuse.py:151): one all-reduce of the flattened
+    statistics over ``group``, divided by its size."""
+    stats = [b for n, b in model.named_buffers() if n.endswith(("running_mean", "running_var"))]
+    if not stats:
+        return
+    flat = all_reduce_(torch.cat([s.reshape(-1) for s in stats]), group)
+    flat /= dist.get_world_size(group)
+    for s, v in zip(stats, flat.split([s.numel() for s in stats])):
+        s.copy_(v.view_as(s))

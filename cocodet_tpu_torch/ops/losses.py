@@ -7,11 +7,12 @@ no host sync.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Sequence, Tuple
+from typing import Any, NamedTuple, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import all_reduce_
 from .boxes import iou_cxcywh
 from .decode import attach_strides, concat_levels, decode_center_format
 from .simota import SimOTATargets, simota_assign
@@ -53,10 +54,17 @@ def yolox_losses(
     iou_type: str = "iou",
     reg_weight: float = 5.0,
     simota_dtype: torch.dtype = torch.float32,
+    group: Any = None,
 ) -> Tuple[DetectionLosses, SimOTATargets]:
     """The YOLOX training loss from raw NHWC head maps; ``labels`` (B, G, 5)
     [class, cx, cy, w, h] zero-padded. Each term is summed and divided by
-    the number of positives (at least 1)."""
+    the number of positives (at least 1).
+
+    With a process ``group`` (the data ranks of a mesh, each holding some of
+    the images) the counts of positives and of ground truths are summed over
+    it first, so each rank's terms are its images' sums over the global
+    count, as JAX divides on a sharded batch; their sum over the group is
+    the global batch's loss."""
     preds, grids, stride_vec = concat_levels(attach_strides(head_outputs, strides))
     preds = preds.float()
     decoded = decode_center_format(preds, grids, stride_vec)     # (B, A, 5+C)
@@ -69,6 +77,9 @@ def yolox_losses(
     tgt = simota_assign(labels, bbox_preds, cls_logits, obj_logits, centers,
                         stride_vec, num_classes, compute_dtype=simota_dtype)
 
+    if group is not None:
+        counts = all_reduce_(torch.stack([tgt.num_fg, tgt.num_gts]), group)
+        tgt = tgt._replace(num_fg=counts[0], num_gts=counts[1])
     num_fg = tgt.num_fg.clamp_min(1.0)
     fg = tgt.fg_mask.float()
 

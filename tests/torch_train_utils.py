@@ -23,7 +23,7 @@ from cocodet_tpu_torch.core import train_state as ts
 from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX, build_model
 from cocodet_tpu_torch.utils import lr_scheduler as tlr
 from cocodet_tpu_torch.utils.convert import (export_variables, flatten_tree, jax_path,
-                                             random_variables)
+                                             random_variables, unflatten_tree)
 
 DEPTH, WIDTH, SIZE, BATCH = 0.33, 0.125, 64, 2
 STRIDES = (8, 16, 32, 64)
@@ -33,19 +33,31 @@ STEPS = 3
 METRICS = ("loss", "iou_loss", "obj_loss", "cls_loss", "l1_loss", "num_fg_per_gt")
 
 
-def inputs():
+def inputs(batch=BATCH, height=SIZE):
+    """(variables, images (batch, height, 64, 3), labels (batch, 10, 5)):
+    the first two images and their boxes are those of B=2 at 64 px, the
+    boxes' y and height scaled with the image height."""
     with torch.device("meta"):
         shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=DEPTH, width=WIDTH)
     variables = random_variables(shapes, 3, prior_prob=0.01)
     rs = np.random.RandomState(0)
-    images = rs.uniform(0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32)
-    labels = np.zeros((BATCH, 10, 5), np.float32)
-    labels[0, :3] = [[1, 32, 32, 16, 16], [5, 20, 40, 30, 20], [7, 50, 12, 10, 14]]
-    labels[1, :2] = [[2, 30, 30, 40, 40], [79, 10, 50, 12, 12]]
+    images = rs.uniform(0, 255, (batch, height, SIZE, 3)).astype(np.float32)
+    labels = np.zeros((batch, 10, 5), np.float32)
+    boxes = [[[1, 32, 32, 16, 16], [5, 20, 40, 30, 20], [7, 50, 12, 10, 14]],
+             [[2, 30, 30, 40, 40], [79, 10, 50, 12, 12]],
+             [[3, 16, 48, 20, 12], [11, 44, 20, 24, 30]],
+             [[4, 40, 24, 30, 18]]]
+    for b in range(batch):
+        labels[b, :len(boxes[b % 4])] = boxes[b % 4]
+    labels[..., 2::2] *= height / SIZE
     return variables, images, labels
 
 
-def jax_steps(variables, images, labels, dtype):
+def jax_steps(variables, images, labels, dtype, mesh=None, steps=STEPS):
+    """JAX's step ``steps`` times; on a ``mesh`` (cocodet_tpu.parallel) with
+    the state replicated and the batch sharded."""
+    from cocodet_tpu.parallel import replicate, shard_batch
+
     model = jax_build_model("yolox-p6", depth=DEPTH, width=WIDTH)
 
     def decay_mask(params):
@@ -58,17 +70,19 @@ def jax_steps(variables, images, labels, dtype):
     init = jax.tree_util.tree_map(lambda a: jnp.asarray(a.astype(dtype)), variables)
     state = jax_create_state(model, tx, None, None, init_vars=init)
     step = jax_make_step(model, tx, strides=STRIDES, num_classes=80, donate=False)
+    batch = (jnp.asarray(images.astype(dtype)), jnp.asarray(labels))
+    if mesh is not None:
+        state, batch = replicate(mesh, state), shard_batch(mesh, batch)
     out = []
-    for _ in range(STEPS):
-        state, metrics = step(state, jnp.asarray(images.astype(dtype)), jnp.asarray(labels),
-                              use_l1=True)
+    for _ in range(steps):
+        state, metrics = step(state, *batch, use_l1=True)
         out.append(jax.device_get((metrics, {"params": state.params,
                                              "batch_stats": state.batch_stats},
                                    state.ema.shadow)))
     return out
 
 
-def port_steps(variables, images, labels, dtype):
+def port_steps(variables, images, labels, dtype, steps=STEPS):
     model = build_model("yolox-p6", depth=DEPTH, width=WIDTH, device="cpu",
                         variables=variables).to(dtype)
     model.dtype = dtype
@@ -76,7 +90,7 @@ def port_steps(variables, images, labels, dtype):
         model, ts.build_optimizer(model, tlr.build_lr_schedule("yoloxwarmcos", **SCHEDULE)))
     step = ts.make_train_step(state, STRIDES)
     out = []
-    for _ in range(STEPS):
+    for _ in range(steps):
         metrics = step(torch.from_numpy(images).to(dtype), torch.from_numpy(labels),
                        use_l1=True)
         shadow = {name: t.clone() for name, t in state.ema.shadow.items()}
@@ -97,6 +111,19 @@ def run(dtype):
         want = jax_steps(variables, images, labels, np.float32)
         got = port_steps(variables, images, labels, torch.float32)
     return flatten_tree(variables), want, got
+
+
+def as_reference(port_step):
+    """One of port_steps' steps in the layout of a JAX step (metrics, the
+    flax variable tree, the EMA shadow as a flax tree), to hold another port
+    step against it."""
+    metrics, flat, shadow = port_step
+    ema = {}
+    for name, t in shadow.items():
+        path, _ = jax_path(name, t)
+        a = t.numpy()
+        ema[path] = a.transpose(2, 3, 1, 0) if a.ndim == 4 else a
+    return metrics, unflatten_tree(flat), unflatten_tree(ema)
 
 
 def _leaf_errors(p0, want, got):
