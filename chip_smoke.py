@@ -18,7 +18,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   c. the main path: the full-width YOLOX-M-P6 (depth 0.67, width 0.75) with
      weights drawn from a numpy seed, BN folded, bf16, serves 4 batches of
      16 640x640 requests through Predictor; the launch counts are zeroed just
-     before and read just after, and each kernel must have launched; then
+     before and read just after, and each kernel must have launched (the NMS
+     pair and the standalone hard-swish after each conv); then
      each kernel held against its plain version and timed on a batch's
      served candidates (the times of the kernels line), and the device time
      of a batch's parts, the NMS split into class offset, overlap, keep and
@@ -63,13 +64,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      build_trainer at full width (YOLOX-M-P6, f32 parameters, bf16 compute),
      B=16 640 px numpy-seeded images with 5-60 boxes each padded to G=120, 2
      warm-up steps and 5 timed steps (the last with use_l1), the launch
-     counts zeroed just before and read just after; the device ms of a step
-     and of its forward, SimOTA and losses, backward, optimizer and EMA,
-     img/s, peak memory, every loss and num_fg (finite, num_fg > 0), then the
-     kernel timed on one step's activations beside its bound, its plain
-     version and PyTorch's hardswish; (g4, run after phase d) phase c's
-     dense forward timed with the kernel and with the plain version in its
-     place, in turns;
+     counts zeroed just before and read just after: train-mode BN and the
+     hard-swish after it run as the fused pair of csrc/bn_act.cu, 4 x 127
+     launches a step, and the standalone hard-swish never; the device ms of
+     a step and of its forward, SimOTA and losses, backward, optimizer and
+     EMA, the host's ms to queue a step, img/s, peak memory, the CUDA
+     kernels of one step (torch.profiler), every loss and num_fg (finite,
+     num_fg > 0), no host sync; then the pair held against its plain stages
+     at each of one step's BN+act shapes (bf16 and f32) and on ragged cases
+     (the sums within a stated tolerance of f64 sums, the vectors, running
+     statistics and both apply stages bit for bit, each reduce equal in two
+     runs), and timed on one step's maps beside its bound, its plain stages
+     and train-mode F.batch_norm + F.hardswish; (g4, run after phase d)
+     phase c's dense forward timed with the standalone hard-swish kernel
+     (as served) and with its plain version in its place, in turns, and the
+     kernel timed at its activations' shapes beside F.hardswish;
   h. data-parallel training (parallel/ and entry.build_trainer on a Mesh)
      on 2 ranks that share the card over gloo, every collective staged
      through host memory, in one run of ranks: (h1) at depth 0.33, width
@@ -82,8 +91,17 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      images on 2 data ranks of 8 images and on 1 data x 2 space ranks of 320
      rows, 2 warm-up and 3 timed steps, counts zeroed just before and read
      just after: each rank's device ms a step, host ms in collectives, the
-     collectives staged through the host, peak memory and hard-swish
-     launches (> 0), the losses (finite, num_fg > 0, equal on both ranks).
+     collectives staged through the host, peak memory and the launches of
+     the BN+act kernels (each > 0, with the finish kernels that follow the
+     all-reduce of the sums; the standalone hard-swish 0), the losses
+     (finite, num_fg > 0, equal on both ranks).
+
+    python3 chip_smoke.py --step TREE
+
+runs phase a and g3's step measurement alone on the cocodet_tpu_torch
+package of TREE (an earlier commit unpacked with ``git archive``, or this
+checkout) and prints it as one ``step: {...}`` JSON line: two commits are
+compared in one call by running both, in turns.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -94,6 +112,7 @@ of the repository beside it, it exits non-zero and prints no result.
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -194,10 +213,15 @@ def phase_build():
     t0 = time.perf_counter()
     built = build.build()
     seconds = time.perf_counter() - t0
+    # a line a source: its kernels' most registers, shared memory and
+    # spilled bytes; the whole ptxas report goes beside the library
     for name, (_, log) in built.items():
-        for line in log.splitlines():
-            if "registers" in line or "Compiling entry" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+        (build.BUILD_DIR / f"ptxas-{name}.log").write_text(log)
+        regs = [int(v) for v in re.findall(r"Used (\d+) registers", log)]
+        smem = [int(v) for v in re.findall(r"(\d+) bytes smem", log)] or [0]
+        spill = sum(int(v) for v in re.findall(r"(\d+) bytes spill", log))
+        print(f"  ptxas {name}: {len(regs)} kernels, at most {max(regs, default=0)} registers "
+              f"and {max(smem)} bytes of static shared memory, {spill} bytes spilled")
     print(f"a. build: {len(built)} of {len(build.sources())} CUDA sources compiled "
           f"in {seconds:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
     return seconds
@@ -369,6 +393,7 @@ def phase_serve(device, variables, card):
     import torch
 
     from cocodet_tpu_torch.entry import build_predictor
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
     from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
     from cocodet_tpu_torch.ops.nms import batched_nms, class_offset_boxes, compact
     from cocodet_tpu_torch.ops.postprocess import _select_topk_fused, postprocess
@@ -389,6 +414,7 @@ def phase_serve(device, variables, card):
 
     torch.cuda.reset_peak_memory_stats(device)
     nk.reset_launch_counts()
+    hs.reset_launch_counts()
     latencies, results = [], []
     t_all = time.perf_counter()
     for images in batches:
@@ -400,7 +426,8 @@ def phase_serve(device, variables, card):
     wall = time.perf_counter() - t_all
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
     launches = {"overlap_matrix": nk.overlap_matrix.launches,
-                "greedy_keep": nk.greedy_keep.launches}
+                "greedy_keep": nk.greedy_keep.launches,
+                "hard_swish": hs.hard_swish.launches}
 
     for res in results:
         if res.boxes.shape != (BATCH, 300, 4):
@@ -1040,8 +1067,8 @@ def phase_train_parity(device):
 
 
 def activation_shapes(model, run):
-    """{(shape, dtype): count} of every hard-swish input in ``run()``: each
-    ConvBnAct's output (its activation keeps the shape and dtype)."""
+    """{(shape, dtype): count} of each ConvBnAct's output in ``run()``: the
+    maps of its BN and activation (which keep the shape and dtype)."""
     from cocodet_tpu_torch.models.blocks import ConvBnAct
 
     shapes, hooks = {}, []
@@ -1061,16 +1088,13 @@ def activation_shapes(model, run):
     return shapes
 
 
-def hard_swish_times(shapes, device, backward):
-    """The hard-swish kernel at each of ``shapes`` (channels-last, x uniform
-    on [-5, 5], a normal cotangent) held bit for bit against its plain
-    version, forward or backward: at these sizes the kernel's grid-stride
-    loop takes many trips, which g1's inputs do not. Then the device ms of
-    the kernel, its plain version and the PyTorch call (F.hardswish;
-    aten.hardswish_backward), each summed over ``shapes``, with the bound:
-    each input read once and the output written once (forward: x, y;
-    backward: x, g, dx) at 3.35 TB/s, against ~5 (forward) or ~10
-    (backward) f32 operations an element at 67 TFLOP/s."""
+def hard_swish_times(shapes, device):
+    """The standalone hard-swish kernel at each of ``shapes`` (channels-last,
+    x uniform on [-5, 5]) held bit for bit against its plain version: at
+    these sizes the grid takes many blocks, which g1's inputs do not. Then
+    the device ms of the kernel, its plain version and F.hardswish, each
+    summed over ``shapes``, with the bound: x read once and y written once
+    at 3.35 TB/s, against ~5 f32 operations an element at 67 TFLOP/s."""
     import torch
     import torch.nn.functional as F
 
@@ -1082,24 +1106,16 @@ def hard_swish_times(shapes, device, backward):
     for (shape, dtype), count in shapes.items():
         x = (torch.rand(shape, generator=gen, device=device) * 10 - 5).to(dtype).contiguous(
             memory_format=torch.channels_last)
-        g = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
-            memory_format=torch.channels_last)
-        if backward:
-            fns = (lambda: hs.hard_swish_grad(x, g), lambda: hs.hard_swish_grad_plain(x, g),
-                   lambda: torch.ops.aten.hardswish_backward(g, x))
-        else:
-            fns = (lambda: hs.hard_swish(x), lambda: hs.hard_swish_plain(x),
-                   lambda: F.hardswish(x))
+        fns = (lambda: hs.hard_swish(x), lambda: hs.hard_swish_plain(x), lambda: F.hardswish(x))
         n, err = bit_diff(fns[0](), fns[1]())
         if n:
-            raise AssertionError(f"hard_swish kernel disagrees with its plain version "
-                                 f"({'backward' if backward else 'forward'}) at {shape} "
-                                 f"{dtype}: {n} of {x.numel()} elements")
+            raise AssertionError(f"hard_swish kernel disagrees with its plain version at "
+                                 f"{shape} {dtype}: {n} of {x.numel()} elements")
         tot["max_abs_err"] = max(tot["max_abs_err"], err)
         for key, fn, iters in zip(("ms", "plain_ms", "library_ms"), fns, (20, 5, 20)):
             tot[key] += count * cuda_ms(fn, iters)
-        tot["bytes"] += count * x.numel() * x.element_size() * (3 if backward else 2)
-        tot["ops"] += count * x.numel() * (10 if backward else 5)
+        tot["bytes"] += count * x.numel() * x.element_size() * 2
+        tot["ops"] += count * x.numel() * 5
     bytes_ms = tot["bytes"] / HBM_BYTES_PER_S * 1e3
     ops_ms = tot["ops"] / F32_OPS_PER_S * 1e3
     tot["bound_ms"] = max(bytes_ms, ops_ms)
@@ -1135,7 +1151,7 @@ def phase_dense_forward(device, predictor, dense):
         shapes = activation_shapes(model, lambda: model(x))
     for m in acts:
         m.act = hard_swish
-    t = hard_swish_times(shapes, device, backward=False)
+    t = hard_swish_times(shapes, device)
     n = sum(shapes.values())
     print(f"g4. dense bf16 forward, B={BATCH} {SIZE}x{SIZE}, device ms (in turns kernel, plain, "
           f"plain, kernel): hard-swish kernel {', '.join(f'{v:.3f}' for v in times['kernel'])}; "
@@ -1145,21 +1161,51 @@ def phase_dense_forward(device, predictor, dense):
           f"{t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, F.hardswish "
           f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}",
           flush=True)
-    return t["max_abs_err"]
+    return t
 
 
-def phase_train(device, card):
-    """g3: build_trainer at full width (YOLOX-M-P6, depth 0.67, width 0.75,
-    f32 parameters, bf16 compute), B=16 640 px numpy-seeded images and 5-60
-    boxes an image padded to G=120: 2 warm-up steps, then TRAIN_STEPS timed
-    steps (the last with use_l1), launch counts zeroed just before and read
-    just after; then the hard-swish kernel timed on one step's activations,
-    forward and backward."""
+def step_kernel_count(step, images, labels):
+    """(kernels, copies and fills, device busy ms) of one train step, from
+    torch.profiler's CUDA activity: every kernel the step launches on the
+    card (PyTorch's, cuDNN's and this repository's), and its memcpy and
+    memset operations. Where the profiler records no device activity,
+    (None, None, None): not measured."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(images, labels)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None, None, None
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+    busy_ms = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return len(dev) - len(copies), len(copies), busy_ms
+
+
+def measure_train_step(device, card):
+    """g3's measurement of the training step of the cocodet_tpu_torch
+    package on sys.path (this tree's, or an earlier commit's for
+    ``--step``): build_trainer at full width (YOLOX-M-P6, depth 0.67, width
+    0.75, f32 parameters, bf16 compute), B=16 640 px numpy-seeded images
+    and 5-60 boxes an image padded to G=120; 2 warm-up steps, then
+    TRAIN_STEPS timed steps (the last with use_l1), the launch counts zeroed
+    just before and read just after; one step under torch.profiler (the
+    CUDA kernels a step) and one in PyTorch's sync debug mode (a step that
+    waits for the card anywhere warns). Returns the numbers, the model's
+    BN+act shapes (forward hooks on a warm-up step) and the metrics."""
+    import importlib.util
+
     import torch
 
     from cocodet_tpu_torch.entry import build_trainer
     from cocodet_tpu_torch.ops.cuda import hard_swish as hs
 
+    fused = importlib.util.find_spec("cocodet_tpu_torch.ops.cuda.bn_act") is not None
+    if fused:
+        from cocodet_tpu_torch.ops.cuda import bn_act as bnk
     t0 = time.perf_counter()
     model, step = build_trainer(0.67, 0.75, torch.bfloat16, device, seed=0)
     setup_s = time.perf_counter() - t0
@@ -1175,6 +1221,8 @@ def phase_train(device, card):
 
     torch.cuda.reset_peak_memory_stats(device)
     hs.reset_launch_counts()
+    if fused:
+        bnk.reset_launch_counts()
     parts = ("forward", "losses", "backward", "update")
     rows, metrics = [], []
     t_all = time.perf_counter()
@@ -1190,10 +1238,12 @@ def phase_train(device, card):
         rows.append({p: ev[a].elapsed_time(ev[p]) for a, p in zip(names, parts)}
                     | {"step": ev["start"].elapsed_time(ev["update"]), "queued": queued})
     wall = time.perf_counter() - t_all
-    launches = {"forward": hs.hard_swish.launches, "backward": hs.hard_swish_grad.launches}
+    launches = {"hard_swish": hs.hard_swish.launches,
+                "hard_swish_grad": hs.hard_swish_grad.launches}
+    if fused:
+        launches |= {f"bn_act.{fn.__name__}": fn.launches for fn in bnk.WRAPPERS}
     peak_gib = torch.cuda.max_memory_allocated(device) / 2**30
-    # one more step with PyTorch's sync debug mode on: a step that waits for
-    # the card anywhere (.item(), a host copy, a boolean index) would warn
+    kernels, copies, busy_ms = step_kernel_count(step, images, labels)
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1203,49 +1253,369 @@ def phase_train(device, card):
             torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message) for w in caught
              if "called a synchronizing CUDA operation" in str(w.message)]
-    if syncs:
-        raise AssertionError(f"the train step synchronizes with the card {len(syncs)} times, "
-                             f"first: {syncs[0]}")
-    if not (launches["forward"] and launches["backward"]):
-        raise AssertionError(f"hard_swish launched {launches} times in the training steps")
-    for i, m in enumerate(metrics):
-        vals = {k: float(v) for k, v in m.items()}
+    mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
+    return {"card": card, "setup_s": setup_s, "warm_s": warm_s, "rows": rows, "mean": mean,
+            "img/s device": BATCH * 1e3 / mean["step"],
+            "img/s host": TRAIN_STEPS * BATCH / wall, "peak_gib": peak_gib,
+            "launches": launches, "kernels a step": kernels, "copies a step": copies,
+            "device busy ms": busy_ms, "host syncs": len(syncs), "first sync": syncs[:1],
+            "params": sum(p.numel() for p in model.parameters()),
+            "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}, shapes
+
+
+BN_ACT_SUM_TOL = 1e-5  # each sum's error over the sum of its terms' magnitudes
+
+
+def bn_act_case(x, g, act, gen, determinism=False):
+    """The BN+act kernel pair against its plain stages on the card, on map
+    ``x`` with cotangent ``g``: (1) the reduce's sums within BN_ACT_SUM_TOL
+    of the f64 sums, each relative to the sum of its terms' magnitudes (the
+    kernel adds at most ~150 f32 terms a thread, then in f64; the plain
+    version's error is returned beside it); (2) given the kernel's sums, the
+    vectors and the running statistics bit for bit, and so the data-parallel
+    path's finish kernels from the same sums; (3) given the kernel's
+    vectors, both apply stages bit for bit; the backward's reduce and its
+    vectors likewise. With ``determinism``, the reduce runs twice and must
+    give the same bits. Returns a dict: ``rel`` and ``rel_plain``, the sum
+    errors of the kernel and of the plain version; ``bits``, the elements
+    that differ where equal bits are due; and, for the kernels line, each
+    kernel's largest absolute difference from its plain version on the same
+    inputs: ``reduce`` (its sums, both ways), ``apply`` (y and dx) and
+    ``finish`` (the data-parallel finish kernels' vectors and running
+    statistics)."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    c = x.shape[1]
+    dev = x.device
+    weight = torch.rand(c, generator=gen, device=dev) + 0.5
+    bias = torch.randn(c, generator=gen, device=dev) * 0.5
+    stats0 = (torch.randn(c, generator=gen, device=dev) * 0.1,
+              torch.rand(c, generator=gen, device=dev) + 0.5)
+    ra = [t.clone() for t in stats0]
+    sums, fvec = bnk.reduce(x, weight, *ra)
+    rp = [t.clone() for t in stats0]
+    fvec_p = bnk.finish_plain(sums, weight, *rp, 1e-3, 0.03)
+    xd = x.double()
+    s_plain = bnk.stats_plain(x)
+
+    def sum_err(got, ref, mag):
+        return float(((got.double() - ref) / mag.clamp_min(1e-30)).abs().max())
+
+    dims = (0, 2, 3)
+    refs = [(xd.sum(dims), xd.abs().sum(dims)), ((xd * xd).sum(dims), (xd * xd).sum(dims))]
+    err = max(sum_err(sums[i * c:(i + 1) * c], r, m) for i, (r, m) in enumerate(refs))
+    err_p = max(sum_err(s_plain[i * c:(i + 1) * c], r, m) for i, (r, m) in enumerate(refs))
+    absdiff = {"reduce": float((sums - s_plain).abs().max()), "apply": 0.0, "finish": 0.0}
+    bits = 0
+
+    def held(got, want, kernel=None):
+        nonlocal bits
+        n, e = bit_diff(got, want)
+        bits += n
+        if kernel:
+            absdiff[kernel] = max(absdiff[kernel], e)
+
+    for got, want in ((fvec, fvec_p), (ra[0], rp[0]), (ra[1], rp[1])):
+        held(got, want)
+    held(bnk.apply(x, fvec, bias, act), bnk.apply_plain(x, fvec, bias, act), "apply")
+    count = sums[-1:]
+    gsums, bvec = bnk.grad_reduce(x, g, fvec, bias, weight, count, act)
+    held(bvec, bnk.grad_finish_plain(gsums, fvec, weight, count))
+    gz = bnk._grad_z(x, g, fvec, bias, act).double()
+    t = (x.float() - fvec[0].view(1, -1, 1, 1)).double()
+    grefs = [(gz.sum(dims), gz.abs().sum(dims)), ((gz * t).sum(dims), (gz * t).abs().sum(dims))]
+    gplain = bnk.grad_stats_plain(x, g, fvec, bias, act)
+    absdiff["reduce"] = max(absdiff["reduce"], float((gsums - gplain).abs().max()))
+    err = max(err, *(sum_err(gsums[i * c:(i + 1) * c], r, m) for i, (r, m) in enumerate(grefs)))
+    err_p = max(err_p, *(sum_err(gplain[i * c:(i + 1) * c], r, m)
+                         for i, (r, m) in enumerate(grefs)))
+    held(bnk.grad_apply(x, g, fvec, bias, bvec, act),
+         bnk.grad_apply_plain(x, g, fvec, bias, bvec, act), "apply")
+    # the data-parallel path's finish kernels against the plain finish, from
+    # the same sums
+    rf = [t.clone() for t in stats0]
+    held(bnk.finish(sums, weight, *rf), fvec_p, "finish")
+    held(rf[0], rp[0], "finish")
+    held(rf[1], rp[1], "finish")
+    held(bnk.grad_finish(gsums, gsums, fvec, weight, count),
+         bnk.grad_finish_plain(gsums, fvec, weight, count, gsums), "finish")
+    if determinism:
+        again = bnk.reduce(x, weight, *[t.clone() for t in stats0])
+        held(again[0], sums)
+        held(again[1], fvec)
+        held(bnk.grad_reduce(x, g, fvec, bias, weight, count, act)[1], bvec)
+    torch.cuda.synchronize()
+    return {"rel": err, "rel_plain": err_p, "bits": bits, **absdiff}
+
+
+def check_bn_act_kernels(device, shapes):
+    """The BN+act pair held against its plain stages (bn_act_case) at each
+    of ``shapes`` (one step's BN+act maps, channels-last) in bf16 and f32,
+    each twice to show the reduce deterministic, and on ragged cases: C not
+    a multiple of 8, N*H*W not a multiple of a block, a misaligned view, NCHW
+    maps (H*W a multiple of 8 and not), a constant channel, C above one tile
+    (f32 and bf16), a cotangent in another layout, the identity epilogue.
+    Returns the worst of bn_act_case's numbers over all cases."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    cl = torch.channels_last
+
+    def draw(shape, dtype, fmt=cl):
+        # per-channel offsets, so E[x^2] - E[x]^2 cancels as in a real map
+        off = torch.randn(shape[1], generator=gen, device=device).view(1, -1, 1, 1) * 2
+        x = (torch.randn(shape, generator=gen, device=device) * 1.5 + off).to(dtype)
+        return x.contiguous(memory_format=fmt)
+
+    def misaligned(shape, dtype):
+        n = torch.Size(shape).numel()
+        flat = draw((1, 1, 1, n + 1), dtype).view(-1)[1:]
+        nb, cb, hb, wb = shape
+        return flat.view(nb, hb, wb, cb).permute(0, 3, 1, 2)
+
+    worst, lines = {}, []
+
+    def case(x, g, act):
+        r = bn_act_case(x, g, act, gen, determinism=True)
+        for k, v in r.items():
+            worst[k] = worst.get(k, 0) + v if k == "bits" else max(worst.get(k, 0.0), v)
+        return r["bits"]
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for (shape, _), n in shapes.items():
+            case(draw(shape, dtype), draw(shape, dtype), "hard_swish")
+        lines.append(f"{len(shapes)} step shapes in {str(dtype)[6:]}")
+    ragged = [
+        ("C=13 bf16", draw((3, 13, 7, 5), torch.bfloat16), None, "hard_swish"),
+        ("C=13 f32 identity", draw((3, 13, 7, 5), torch.float32), None, "identity"),
+        ("N*H*W=715 bf16", draw((5, 24, 11, 13), torch.bfloat16), None, "hard_swish"),
+        ("misaligned view bf16", misaligned((2, 16, 9, 9), torch.bfloat16), None, "hard_swish"),
+        ("misaligned view f32", misaligned((2, 16, 9, 9), torch.float32), None, "identity"),
+        ("NCHW bf16 H*W=64", draw((2, 16, 8, 8), torch.bfloat16, torch.contiguous_format),
+         None, "hard_swish"),
+        ("NCHW f32 H*W=81", draw((4, 20, 9, 9), torch.float32, torch.contiguous_format),
+         None, "hard_swish"),
+        ("C=1040 f32 (5 apply tiles)", draw((2, 1040, 3, 3), torch.float32), None,
+         "hard_swish"),
+        ("C=2056 bf16 (9 apply tiles)", draw((1, 2056, 2, 3), torch.bfloat16), None,
+         "identity"),
+        ("cotangent in NCHW", draw((4, 32, 6, 6), torch.bfloat16),
+         draw((4, 32, 6, 6), torch.bfloat16, torch.contiguous_format), "hard_swish"),
+    ]
+    const = draw((4, 32, 6, 6), torch.bfloat16)
+    const[:, 3] = 0.5
+    ragged.append(("constant channel bf16", const, None, "hard_swish"))
+    for label, x, g, act in ragged:
+        g = draw(tuple(x.shape), x.dtype) if g is None else g
+        if case(x, g, act):
+            raise AssertionError(f"bn_act kernels disagree with their plain stages: {label}")
+    lines.append(f"{len(ragged)} ragged cases ({'; '.join(r[0] for r in ragged)})")
+    print(f"g3. bn_act kernels vs their plain stages on the card: {', '.join(lines)}: vectors, "
+          f"running statistics and both apply stages bit for bit ({worst['bits']} elements "
+          f"differ), each reduce equal in two runs; the sums' worst error over the sum of their "
+          f"terms' magnitudes: kernel {worst['rel']:.2e} (limit {BN_ACT_SUM_TOL:.0e}), plain "
+          f"version {worst['rel_plain']:.2e}; largest absolute difference from the plain "
+          f"version: reduce's sums {worst['reduce']!r}, apply {worst['apply']!r}, finish "
+          f"{worst['finish']!r}", flush=True)
+    if worst["bits"] or worst["rel"] > BN_ACT_SUM_TOL:
+        raise AssertionError("the bn_act kernels disagree with their plain stages")
+    return worst
+
+
+def bn_act_times(shapes, device):
+    """Device ms of the BN+act pair over ``shapes`` (each timed once, times
+    its count), forward and backward: the kernels, their plain stages and a
+    library yardstick for the pair (torch's train-mode F.batch_norm, then
+    F.hardswish; their backward by autograd: cuDNN's or ATen's BN and
+    hardswish_backward, which round otherwise and update the running
+    variance unbiased). Each stage also beside ATen's own stage of the
+    same split, the kernels of SyncBatchNorm (``<stage>_library``):
+    torch.batch_norm_stats for the reduce, batch_norm_elemt for the apply,
+    batch_norm_backward_reduce and batch_norm_backward_elemt backward; they
+    have no activation, take ``g`` as the BN output's cotangent, compute
+    Welford statistics and an inverse standard deviation, and leave the
+    running statistics alone. Bounds
+    from bytes (each input read once, each output written once: the reduce
+    reads x, and g backward; the apply reads them and writes y or dx) at
+    3.35 TB/s against ~3 (reduce) to ~20 (backward apply) f32 operations an
+    element at 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    keys = ("reduce", "apply", "grad_reduce", "grad_apply")
+    tot = {f"{k}{s}": 0.0 for k in keys + ("finish", "grad_finish") for s in ("", "_plain")}
+    tot |= {"library_fwd": 0.0, "library_bwd": 0.0} | {f"{k}_library": 0.0 for k in keys}
+    elems = {"bytes": dict.fromkeys(keys, 0), "ops": dict.fromkeys(keys, 0)}
+    tot["by shape"] = {}
+    per_elem = {"reduce": (1, 3), "apply": (2, 10), "grad_reduce": (2, 18),
+                "grad_apply": (3, 20)}
+    for (shape, dtype), count in shapes.items():
+        c = shape[1]
+        x = (torch.randn(shape, generator=gen, device=device) * 2).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        g = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        w = torch.rand(c, generator=gen, device=device) + 0.5
+        b = torch.randn(c, generator=gen, device=device)
+        rm, rv = torch.zeros(c, device=device), torch.ones(c, device=device)
+        sums, fvec = bnk.reduce(x, w, rm, rv)
+        cnt = sums[-1:]
+        gsums, bvec = bnk.grad_reduce(x, g, fvec, b, w, cnt)
+        fns = {
+            "reduce": lambda: bnk.reduce(x, w, rm, rv),
+            "reduce_plain": lambda: bnk.reduce_plain(x, w, rm, rv, 1e-3, 0.03),
+            "apply": lambda: bnk.apply(x, fvec, b),
+            "apply_plain": lambda: bnk.apply_plain(x, fvec, b),
+            "grad_reduce": lambda: bnk.grad_reduce(x, g, fvec, b, w, cnt),
+            "grad_reduce_plain": lambda: bnk.grad_reduce_plain(x, g, fvec, b, w, cnt),
+            "grad_apply": lambda: bnk.grad_apply(x, g, fvec, b, bvec),
+            "grad_apply_plain": lambda: bnk.grad_apply_plain(x, g, fvec, b, bvec),
+            "finish": lambda: bnk.finish(sums, w, rm, rv),
+            "finish_plain": lambda: bnk.finish_plain(sums, w, rm, rv, 1e-3, 0.03),
+            "grad_finish": lambda: bnk.grad_finish(gsums, gsums, fvec, w, cnt),
+            "grad_finish_plain": lambda: bnk.grad_finish_plain(gsums, fvec, w, cnt, gsums),
+        }
+        mean, invstd = torch.batch_norm_stats(x, 1e-3)
+        sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(g, x, mean, invstd, w, True,
+                                                                     True, True)
+        n_rows = torch.tensor([x.numel() // c], dtype=torch.int32, device=device)
+        fns |= {
+            "reduce_library": lambda: torch.batch_norm_stats(x, 1e-3),
+            "apply_library": lambda: torch.batch_norm_elemt(x, w, b, mean, invstd, 1e-3),
+            "grad_reduce_library": lambda: torch.batch_norm_backward_reduce(
+                g, x, mean, invstd, w, True, True, True),
+            "grad_apply_library": lambda: torch.batch_norm_backward_elemt(
+                g, x, mean, invstd, w, sum_dy, sum_dy_xmu, n_rows),
+        }
+        ms = {k: cuda_ms(fn, 5 if k.endswith("plain") else 20) for k, fn in fns.items()}
+        for k, v in ms.items():
+            tot[k] += count * v
+        # each kernel's time at this shape over its byte bound
+        tot["by shape"][shape] = (count, {k: ms[k] / (x.numel() * x.element_size()
+                                                      * per_elem[k][0] / HBM_BYTES_PER_S * 1e3)
+                                          for k in keys})
+        xr, wr, br = (x.detach().requires_grad_(), w.clone().requires_grad_(),
+                      b.clone().requires_grad_())
+        with torch.no_grad():
+            tot["library_fwd"] += count * cuda_ms(lambda: F.hardswish(F.batch_norm(
+                x, rm, rv, w, b, True, 0.03, 1e-3)), 20)
+        y = F.hardswish(F.batch_norm(xr, rm, rv, wr, br, True, 0.03, 1e-3))
+        tot["library_bwd"] += count * cuda_ms(
+            lambda: torch.autograd.grad(y, (xr, wr, br), g, retain_graph=True), 20)
+        for k in keys:
+            elems["bytes"][k] += count * x.numel() * x.element_size() * per_elem[k][0]
+            elems["ops"][k] += count * x.numel() * per_elem[k][1]
+        # the finish kernels, C-length f32: forward reads the sums, the scale
+        # and the running statistics and writes the 4 vectors and the
+        # statistics; backward reads both sums, the vectors, the scale and
+        # writes 4 vectors; ~20 operations a channel
+        for k, words in (("finish", (2 * c + 1) + c + 2 * c + 4 * c + 2 * c),
+                         ("grad_finish", 4 * c + 4 * c + c + 1 + 4 * c)):
+            elems["bytes"][k] = elems["bytes"].get(k, 0) + count * words * 4
+            elems["ops"][k] = elems["ops"].get(k, 0) + count * 20 * c
+    for k in keys + ("finish", "grad_finish"):
+        bytes_ms = elems["bytes"][k] / HBM_BYTES_PER_S * 1e3
+        ops_ms = elems["ops"][k] / F32_OPS_PER_S * 1e3
+        tot[f"{k}_bound"] = max(bytes_ms, ops_ms)
+        tot[f"{k}_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    return tot
+
+
+def phase_train(device, card):
+    """g3: the training step's measurement (measure_train_step) with its
+    checks: finite losses, num_fg > 0, no host sync, and the fused BN+act
+    pair launched 4 x 127 times a step (reduce and apply, forward and
+    backward) with no standalone hard-swish and no data-parallel finish;
+    then the pair held against its plain stages (check_bn_act_kernels) and
+    timed (bn_act_times) on one step's maps."""
+    import torch
+
+    res, shapes = measure_train_step(device, card)
+    n_maps = sum(shapes.values())
+    launches = res["launches"]
+    want = {"bn_act.reduce": n_maps, "bn_act.apply": n_maps, "bn_act.grad_reduce": n_maps,
+            "bn_act.grad_apply": n_maps, "bn_act.finish": 0, "bn_act.grad_finish": 0,
+            "hard_swish": 0, "hard_swish_grad": 0}
+    per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
+    if per_step != want:
+        raise AssertionError(f"launches a step {per_step}, want {want}")
+    if res["host syncs"]:
+        raise AssertionError(f"the train step synchronizes with the card {res['host syncs']} "
+                             f"times, first: {res['first sync'][0]}")
+    for i, vals in enumerate(res["metrics"]):
         print(f"g3. step {i + 1}{' (use_l1)' if i == TRAIN_STEPS - 1 else ''}: "
               + ", ".join(f"{k}={v:.4f}" for k, v in vals.items()), flush=True)
         if not all(map(lambda v: v == v and abs(v) != float("inf"), vals.values())):
             raise AssertionError(f"non-finite training metrics at step {i + 1}: {vals}")
         if vals["num_fg"] <= 0:
             raise AssertionError(f"no foreground anchor at step {i + 1}")
-    mean = {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"g3. train step, YOLOX-M-P6 (depth 0.67, width 0.75, {n_params} f32 parameters, "
-          f"bf16 compute), B={BATCH} {SIZE}x{SIZE}, G=120, on {card}: setup {setup_s:.2f} s, "
-          f"2 warm-up steps {warm_s:.2f} s; {TRAIN_STEPS} timed steps, device ms a step "
-          + ", ".join(f"{r['step']:.2f}" for r in rows)
+    pair = sum(v for k, v in launches.items() if k.startswith("bn_act.")) // TRAIN_STEPS
+    mean = res["mean"]
+    kernels = ("not measured (the profiler recorded no device activity)"
+               if res["kernels a step"] is None else
+               f"{res['kernels a step']} kernels and {res['copies a step']} copies or fills, "
+               f"device busy {res['device busy ms']:.2f} ms")
+    print(f"g3. train step, YOLOX-M-P6 (depth 0.67, width 0.75, {res['params']} f32 "
+          f"parameters, bf16 compute), B={BATCH} {SIZE}x{SIZE}, G=120, on {card}: setup "
+          f"{res['setup_s']:.2f} s, 2 warm-up steps {res['warm_s']:.2f} s; {TRAIN_STEPS} timed "
+          f"steps, device ms a step " + ", ".join(f"{r['step']:.2f}" for r in res["rows"])
           + f" (mean {mean['step']:.2f}: forward {mean['forward']:.2f}, SimOTA and losses "
           f"{mean['losses']:.2f}, backward {mean['backward']:.2f}, optimizer and EMA "
           f"{mean['update']:.2f}; the host took {mean['queued']:.2f} to queue a step: where "
           f"that is as long as the step, the host sets the pace); "
-          f"{BATCH * 1e3 / mean['step']:.2f} img/s on the device, "
-          f"{TRAIN_STEPS * BATCH / wall:.2f} img/s by the host clock; peak device memory "
-          f"{peak_gib:.2f} GiB; hard-swish launches in the {TRAIN_STEPS} steps {launches}, "
-          f"{(launches['forward'] + launches['backward']) // TRAIN_STEPS} a step "
-          f"({sum(shapes.values())} activations); host syncs in a step (sync debug mode): 0",
-          flush=True)
-    del model, step
-    fwd = hard_swish_times(shapes, device, backward=False)
-    bwd = hard_swish_times(shapes, device, backward=True)
-    print(f"g3. hard_swish on one step's {sum(shapes.values())} activations ({len(shapes)} "
-          f"shapes, bf16; the kernel equals its plain version bit for bit at each, forward "
-          f"and backward): forward kernel {fwd['ms']:.4f} ms (plain {fwd['plain_ms']:.4f}, "
-          f"F.hardswish {fwd['library_ms']:.4f}, bound {fwd['bound_ms']:.4f} by "
-          f"{fwd['bound_by']}); backward kernel {bwd['ms']:.4f} ms (plain {bwd['plain_ms']:.4f}, "
-          f"aten.hardswish_backward {bwd['library_ms']:.4f}, bound {bwd['bound_ms']:.4f} by "
-          f"{bwd['bound_by']})", flush=True)
-    stats = {k: fwd[k] + bwd[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    stats["max_abs_err"] = max(fwd["max_abs_err"], bwd["max_abs_err"])
-    stats["bound_by"] = "bytes" if fwd["bound_by"] == bwd["bound_by"] == "bytes" else "operations"
-    return launches["forward"] + launches["backward"], stats
+          f"{res['img/s device']:.2f} img/s on the device, {res['img/s host']:.2f} img/s by "
+          f"the host clock; peak device memory {res['peak_gib']:.2f} GiB; one step under the "
+          f"profiler: {kernels}; launches in the {TRAIN_STEPS} steps {launches}: the BN+act "
+          f"pair {pair} a step ({n_maps} BN+act maps), the standalone hard-swish 0; host syncs "
+          f"in a step (sync debug mode): 0", flush=True)
+    torch.cuda.empty_cache()
+    worst = check_bn_act_kernels(device, shapes)
+    t = bn_act_times(shapes, device)
+    fwd = {s: t[f"reduce{s}"] + t[f"apply{s}"] for s in ("", "_plain", "_bound")}
+    bwd = {s: t[f"grad_reduce{s}"] + t[f"grad_apply{s}"] for s in ("", "_plain", "_bound")}
+    print(f"g3. bn_act pair on one step's {n_maps} BN+act maps ({len(shapes)} shapes, bf16, "
+          f"hard-swish): forward {fwd['']:.4f} ms (reduce {t['reduce']:.4f}, apply "
+          f"{t['apply']:.4f}; bound {fwd['_bound']:.4f} by bytes; plain {fwd['_plain']:.4f}; "
+          f"F.batch_norm + F.hardswish {t['library_fwd']:.4f}; ATen's stages "
+          f"batch_norm_stats {t['reduce_library']:.4f}, batch_norm_elemt "
+          f"{t['apply_library']:.4f}); backward {bwd['']:.4f} ms (reduce "
+          f"{t['grad_reduce']:.4f}, apply {t['grad_apply']:.4f}; bound {bwd['_bound']:.4f}; "
+          f"plain {bwd['_plain']:.4f}; autograd of the two {t['library_bwd']:.4f}; ATen's "
+          f"stages batch_norm_backward_reduce {t['grad_reduce_library']:.4f}, "
+          f"batch_norm_backward_elemt {t['grad_apply_library']:.4f})", flush=True)
+    print("g3. bn_act, each kernel's time at each shape over its byte bound (shape x maps: "
+          "reduce, apply, grad_reduce, grad_apply): " + "; ".join(
+              f"{tuple(sh)} x{n}: " + ", ".join(f"{v:.2f}" for v in r.values())
+              for sh, (n, r) in t["by shape"].items()), flush=True)
+    print(f"g3. bn_act_finish (the data-parallel path's, after the all-reduce of the sums) "
+          f"at one step's {n_maps} channel counts: forward {t['finish']:.4f} ms, backward "
+          f"{t['grad_finish']:.4f} (plain {t['finish_plain']:.4f}, "
+          f"{t['grad_finish_plain']:.4f}; bounds {t['finish_bound']:.4f}, "
+          f"{t['grad_finish_bound']:.4f})", flush=True)
+    stats = {}
+    for name, keys in (("bn_act_reduce", ("reduce", "grad_reduce")),
+                       ("bn_act_apply", ("apply", "grad_apply")),
+                       ("bn_act_finish", ("finish", "grad_finish"))):
+        stats[name] = {
+            "launches": sum(launches[f"bn_act.{k}"] for k in keys),
+            "max_abs_err": worst[name[len("bn_act_"):]],
+            # the finish runs on the data-parallel path only: its launches
+            # there are phase h2's (main() fills them in)
+            "ms": sum(t[k] for k in keys), "plain_ms": sum(t[f"{k}_plain"] for k in keys),
+            "bound_ms": sum(t[f"{k}_bound"] for k in keys),
+            "bound_by": "bytes" if all(t[f"{k}_by"] == "bytes" for k in keys)
+            else "operations",
+            # ATen's stages, forward and backward (bn_act_times); no call of
+            # torch computes the backward finish's coefficients from summed
+            # sums, so the finish has none
+            "library_ms": (None if name == "bn_act_finish"
+                           else sum(t[f"{k}_library"] for k in keys))}
+    return stats
 
 
 def phase_repeat(device, predictor):
@@ -1298,6 +1668,7 @@ def h_rank(rank, device):
     import torch.distributed as dist
 
     from cocodet_tpu_torch.entry import build_trainer
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
     from cocodet_tpu_torch.ops.cuda import hard_swish as hs
     from cocodet_tpu_torch.parallel import collectives, make_mesh, make_mesh_2d, shard_batch
     from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree
@@ -1326,6 +1697,7 @@ def h_rank(rank, device):
         dist.barrier()
         torch.cuda.reset_peak_memory_stats(device)
         hs.reset_launch_counts()
+        bnk.reset_launch_counts()
         collectives.reset_counts()
         steps, metrics = [], []
         for i in range(H_STEPS):
@@ -1340,8 +1712,9 @@ def h_rank(rank, device):
         out["main"][name] = {
             "rows": tuple(local[0].shape), "setup_s": setup_s, "steps": steps,
             "metrics": metrics, "peak_gib": torch.cuda.max_memory_allocated(device) / 2**30,
-            "launches": {"forward": hs.hard_swish.launches,
-                         "backward": hs.hard_swish_grad.launches},
+            "launches": {"hard_swish": hs.hard_swish.launches,
+                         "hard_swish_grad": hs.hard_swish_grad.launches}
+            | {f"bn_act.{fn.__name__}": fn.launches for fn in bnk.WRAPPERS},
             "calls": dict(collectives.calls), "staged": dict(collectives.host_staged),
             "host_ms": {k: v * 1e3 for k, v in collectives.host_seconds.items()}}
         del model, step, local
@@ -1434,10 +1807,15 @@ def phase_dp(device, card):
                   + f"); collectives a step {({k: v // H_STEPS for k, v in r['calls'].items()})}"
                   f", of which staged through the host "
                   f"{({k: v // H_STEPS for k, v in r['staged'].items()})}; peak device memory "
-                  f"{r['peak_gib']:.2f} GiB; hard-swish launches in {H_STEPS} steps "
-                  f"{r['launches']}", flush=True)
-            if not (r["launches"]["forward"] and r["launches"]["backward"]):
-                raise AssertionError(f"hard_swish did not launch on rank {rank} ({mesh})")
+                  f"{r['peak_gib']:.2f} GiB; launches in {H_STEPS} steps {r['launches']}",
+                  flush=True)
+            # the BN+act pair with its finish between the passes (the sums
+            # are all-reduced there), each way; no standalone hard-swish
+            fused = [k for k in r["launches"] if k.startswith("bn_act.")]
+            if not all(r["launches"][k] for k in fused) or r["launches"]["hard_swish"] \
+                    or r["launches"]["hard_swish_grad"]:
+                raise AssertionError(f"the BN+act kernels did not all launch, or the "
+                                     f"standalone hard-swish did, on rank {rank} ({mesh})")
         for i, m in enumerate(runs[0]["metrics"]):
             print(f"h2. ({mesh}) step {i + 1}{' (use_l1)' if i == H_STEPS - 1 else ''}: "
                   + ", ".join(f"{k}={v:.4f}" for k, v in m.items()), flush=True)
@@ -1447,6 +1825,9 @@ def phase_dp(device, card):
         if any(r["metrics"] != runs[0]["metrics"] for r in runs):
             raise AssertionError(f"({mesh}): the ranks report different metrics")
     print(f"h. phase h took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    # the finish kernels' launches on rank 0, both meshes (the kernels line)
+    return sum(ranks[0]["main"][name]["launches"][f"bn_act.{k}"]
+               for name in ("1-D", "2-D") for k in ("finish", "grad_finish"))
 
 
 def main():
@@ -1459,23 +1840,33 @@ def main():
         print("chip_smoke: FAIL: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
-    if not os.path.isdir(os.path.join(REPO, "cocodet_tpu_torch")):
-        print(f"chip_smoke: FAIL: no cocodet_tpu_torch package beside {__file__}",
-              file=sys.stderr)
+    args = sys.argv[1:]
+    if args and (len(args) != 2 or args[0] != "--step"):
+        print("usage: python3 chip_smoke.py [--step TREE]", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
+    tree = os.path.abspath(args[1]) if args else REPO
+    if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
+        print(f"chip_smoke: FAIL: no cocodet_tpu_torch package in {tree}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, tree)
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     build_s = phase_build()
+    if args:
+        # --step TREE: g3's step measurement alone, of TREE's package
+        res, _ = measure_train_step(device, card)
+        print("step: " + json.dumps({"tree": tree, **res}), flush=True)
+        return 0
     worst = phase_kernels(device)
     variables = serving_variables(seed=0)
     launches, stats, predictor, dense = phase_serve(device, variables, card)
     phase_repeat(device, predictor)
     phase_reference(device, variables, predictor)
-    dense_hs_err = phase_dense_forward(device, predictor, dense)
+    hs_stats = phase_dense_forward(device, predictor, dense)
     del predictor
     headline, slim_vars = build_headline_model(device)
     int8_stats = phase_int8_conv(device, headline)
@@ -1483,12 +1874,11 @@ def main():
     launches["int8_conv"] = phase_headline(device, card, headline, slim_vars, dense)["int8_conv"]
     del headline
     torch.cuda.empty_cache()
-    hs_err = check_hard_swish_kernel(device)
+    hs_stats["max_abs_err"] = max(check_hard_swish_kernel(device), hs_stats["max_abs_err"])
     phase_train_parity(device)
-    launches["hard_swish"], hs_stats = phase_train(device, card)
-    hs_stats["max_abs_err"] = max(hs_err, dense_hs_err, hs_stats["max_abs_err"])
+    bn_stats = phase_train(device, card)
     torch.cuda.empty_cache()
-    phase_dp(device, card)
+    bn_stats["bn_act_finish"]["launches"] = phase_dp(device, card)
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}
@@ -1506,8 +1896,14 @@ def main():
     kernels.append({"name": "hard_swish", "route": "cuda",
                     "source": "cocodet_tpu_torch/csrc/hard_swish.cu",
                     "replaces": "cocodet_tpu/models/blocks.py:54",
-                    "launches": launches["hard_swish"], **hs_stats})
-    print(f"build_s={build_s:.2f}")
+                    "launches": launches["hard_swish"],
+                    **{k: hs_stats[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                "bound_by", "library_ms")}})
+    for name, st in bn_stats.items():
+        kernels.append({"name": name, "route": "cuda",
+                        "source": "cocodet_tpu_torch/csrc/bn_act.cu",
+                        "replaces": "cocodet_tpu/models/blocks.py:403", **st})
+    print(f"build_s={build_s:.2f} total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -35,119 +35,100 @@
 //   flush to zero), as PyTorch keeps them.
 //   Bound on the H100: bytes. One pass over contiguous memory: the forward
 //   reads x and writes y, the backward reads x and g and writes dx, each
-//   element once, at about 0.25 operations a byte. Each thread moves 16
-//   bytes at a time (4 f32 or 8 bf16) through a grid-stride loop; a
-//   misaligned pointer takes the scalar loop. The autograd Function saves x
+//   element once, at about 0.25 operations a byte. A thread moves one
+//   16-byte vector (4 f32 or 8 bf16), and the grid covers the map in one
+//   pass (no cap below it, no grid-stride trip). Timed on the card
+//   (PERF.md), several vectors a thread and the streaming cache hints
+//   (__ldcs/__stcs) were both slower at the served maps' shapes, the hints
+//   most likely because the conv after the activation reads y while it is
+//   still in L2. A misaligned pointer takes the scalar loop. The autograd Function saves x
 //   only and the backward recomputes t, c and the mask, so no mask tensor is
-//   written or read.
+//   written or read. In training the activation after a BatchNorm is fused
+//   into the BN kernels (bn_act.cu); this kernel serves the folded model,
+//   where hard-swish follows a conv with a bias.
+//   The arithmetic is in hard_swish_ops.cuh, shared with bn_act.cu.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hard_swish_ops.cuh"
+
 namespace {
 
+using namespace hard_swish_ops;
+
 constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 132 * 16;       // 16 blocks of 256 threads an SM
-constexpr float kSixth = 0x1.555556p-3f;   // f32(1/6), 0x3e2aaaab
-
-__device__ __forceinline__ float clamp06(float t) {
-  const float c = t < 0.f ? 0.f : t;  // NaN stays NaN
-  return c > 6.f ? 6.f : c;
-}
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
 
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
-
-// One element. For bf16 the returned float is rounded to bf16 by store().
-__device__ __forceinline__ float forward_op(float x, float) {
-  return __fmul_rn(x, __fmul_rn(clamp06(__fadd_rn(x, 3.f)), kSixth));
-}
-
-__device__ __forceinline__ float forward_op(__nv_bfloat16 xb, __nv_bfloat16) {
-  const float x = __bfloat162float(xb);
-  const float t = round_bf16(__fadd_rn(x, 3.f));
-  const float h = round_bf16(__fmul_rn(clamp06(t), kSixth));
-  return __fmul_rn(x, h);
-}
-
-__device__ __forceinline__ float backward_op(float x, float g) {
-  const float t = __fadd_rn(x, 3.f);
-  const float h = __fmul_rn(clamp06(t), kSixth);
-  const float s = (t > 0.f && t < 6.f) ? __fmul_rn(__fmul_rn(x, g), kSixth) : 0.f;
-  return __fmaf_rn(g, h, s);
-}
-
-__device__ __forceinline__ float backward_op(__nv_bfloat16 xb, __nv_bfloat16 gb) {
-  const float x = __bfloat162float(xb), g = __bfloat162float(gb);
-  const float t = round_bf16(__fadd_rn(x, 3.f));
-  const float h = round_bf16(__fmul_rn(clamp06(t), kSixth));
-  const float a = round_bf16(__fmul_rn(g, h));
-  const float s = (t > 0.f && t < 6.f)
-                      ? round_bf16(__fmul_rn(round_bf16(__fmul_rn(x, g)), kSixth))
-                      : 0.f;
-  return __fadd_rn(a, s);
-}
 
 template <typename T, bool kBackward>
 __device__ __forceinline__ float apply(T x, T g) {
   if constexpr (kBackward) {
     return backward_op(x, g);
   } else {
-    return forward_op(x, g);
+    return forward_op(x);
   }
 }
 
-// y[i] = op(x[i], g[i]) for i < n; g is read only by the backward. kVec:
-// every pointer is 16-byte aligned, and 16 bytes move at a time.
-template <typename T, bool kBackward, bool kVec>
+// y[i] = op(x[i], g[i]) for i < n; g is read only by the backward.
+// Vectorized: every pointer is 16-byte aligned; a thread takes one 16-byte
+// vector; the last n % V elements take the scalar loop of block 0.
+template <typename T, bool kBackward>
 __global__ void __launch_bounds__(kThreads)
     hard_swish_kernel(const T* __restrict__ x, const T* __restrict__ g, T* __restrict__ y,
                       int64_t n) {
   constexpr int V = 16 / sizeof(T);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  int64_t done = 0;
-  if constexpr (kVec) {
-    const int64_t nvec = n / V;
-    for (int64_t i = first; i < nvec; i += stride) {
-      const uint4 xv = __ldg(reinterpret_cast<const uint4*>(x) + i);
-      uint4 gv = xv;
-      if constexpr (kBackward) gv = __ldg(reinterpret_cast<const uint4*>(g) + i);
-      const T* xe = reinterpret_cast<const T*>(&xv);
-      const T* ge = reinterpret_cast<const T*>(&gv);
-      uint4 out;
-      T* oe = reinterpret_cast<T*>(&out);
+  const int64_t nvec = n / V;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < nvec) {
+    const uint4 xr = __ldg(reinterpret_cast<const uint4*>(x) + i);
+    uint4 gr = xr;
+    if constexpr (kBackward) gr = __ldg(reinterpret_cast<const uint4*>(g) + i);
+    const T* xe = reinterpret_cast<const T*>(&xr);
+    const T* ge = reinterpret_cast<const T*>(&gr);
+    uint4 out;
+    T* oe = reinterpret_cast<T*>(&out);
 #pragma unroll
-      for (int j = 0; j < V; ++j) store(oe + j, apply<T, kBackward>(xe[j], ge[j]));
-      reinterpret_cast<uint4*>(y)[i] = out;
+    for (int j = 0; j < V; ++j) store(oe + j, apply<T, kBackward>(xe[j], ge[j]));
+    reinterpret_cast<uint4*>(y)[i] = out;
+  }
+  // the tail, by the first block
+  if (blockIdx.x == 0) {
+    for (int64_t k = nvec * V + threadIdx.x; k < n; k += kThreads) {
+      store(y + k, apply<T, kBackward>(x[k], kBackward ? g[k] : x[k]));
     }
-    done = nvec * V;
   }
-  for (int64_t i = done + first; i < n; i += stride) {
-    store(y + i, apply<T, kBackward>(x[i], kBackward ? g[i] : x[i]));
-  }
+}
+
+// The scalar loop of a misaligned pointer: one element a thread.
+template <typename T, bool kBackward>
+__global__ void __launch_bounds__(kThreads)
+    hard_swish_scalar_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                             T* __restrict__ y, int64_t n) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i < n) store(y + i, apply<T, kBackward>(x[i], kBackward ? g[i] : x[i]));
 }
 
 template <typename T, bool kBackward>
 int launch(const void* x, const void* g, void* y, int64_t n, cudaStream_t stream) {
   const bool vec = (reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
                     (kBackward ? reinterpret_cast<uintptr_t>(g) : 0)) % 16 == 0;
-  const int64_t per_thread = vec ? 16 / sizeof(T) : 1;
-  const int64_t work = (n + per_thread - 1) / per_thread;
-  const int blocks = static_cast<int>(
-      work / kThreads + 1 < kMaxBlocks ? work / kThreads + 1 : kMaxBlocks);
   const T* xp = static_cast<const T*>(x);
   const T* gp = static_cast<const T*>(g);
   T* yp = static_cast<T*>(y);
   if (vec) {
-    hard_swish_kernel<T, kBackward, true><<<blocks, kThreads, 0, stream>>>(xp, gp, yp, n);
+    const int64_t per_block = static_cast<int64_t>(kThreads) * (16 / sizeof(T));
+    const int64_t blocks = n / per_block + 1;  // one pass; the tail rides on block 0
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    hard_swish_kernel<T, kBackward>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(xp, gp, yp, n);
   } else {
-    hard_swish_kernel<T, kBackward, false><<<blocks, kThreads, 0, stream>>>(xp, gp, yp, n);
+    const int64_t blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+    hard_swish_scalar_kernel<T, kBackward>
+        <<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(xp, gp, yp, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -21,9 +21,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cuda import bn_act as bnk
 from ..ops.cuda import hard_swish as hs
 from ..ops.cuda.int8_conv import conv2d_w8a8
-from ..parallel.collectives import all_reduce_sum, halo_exchange
+from ..parallel.collectives import all_reduce_, halo_exchange
 from ..parallel.mesh import active_mesh
 
 
@@ -168,58 +169,81 @@ class Conv2d(nn.Module):
                         self.dilation, self.groups)
 
 
+class _BatchNormAct(torch.autograd.Function):
+    """Train-mode BN and the activation after it through
+    ``ops/cuda/bn_act.py``: the CUDA kernels on the card, the plain stages
+    on the CPU. Two passes each way (a per-channel reduce, then an apply);
+    saves the map ``x`` in its own dtype, the per-channel vectors and the
+    sums' count, no copy of the map in f32.
+
+    On a ``mesh`` of more than one rank the statistics are the global
+    batch's: the forward sums ``[sum x, sum x^2, count]`` over the world
+    between its two passes, and the backward ``[sum gz, sum gz (x -
+    mean)]``, one all-reduce each way. The scale and bias gradients stay
+    this rank's (the step sums every gradient over ranks itself)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, bn, act, mesh):
+        args = (weight, bn.running_mean, bn.running_var, bn.eps, bn.momentum)
+        if mesh is None:
+            sums, fvec = bnk.reduce(x, *args)
+        else:
+            sums, _ = bnk.reduce(x, finish=False)
+            all_reduce_(sums, mesh.world)
+            fvec = bnk.finish(sums, *args)
+        ctx.save_for_backward(x, weight, bias, fvec, sums)
+        ctx.act, ctx.mesh = act, mesh
+        return bnk.apply(x, fvec, bias, ctx.act)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, bias, fvec, sums = ctx.saved_tensors
+        count = sums[-1:]
+        if ctx.mesh is None:
+            _, bvec = bnk.grad_reduce(x, g, fvec, bias, weight, count, ctx.act)
+        else:
+            local, _ = bnk.grad_reduce(x, g, fvec, bias, weight, count, ctx.act, finish=False)
+            total = all_reduce_(local.clone(), ctx.mesh.world)
+            bvec = bnk.grad_finish(total, local, fvec, weight, count)
+        dx = bnk.grad_apply(x, g, fvec, bias, bvec, ctx.act)
+        return dx, bvec[2], bvec[3], None, None, None
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BN with the JAX package's constants: eps 1e-3 and the torch
     convention momentum 0.03, flax momentum 0.97 (blocks.py:371-372). It
     normalises in f32 and casts back to the input dtype, as flax's
-    BatchNorm with ``dtype`` does.
+    BatchNorm with ``dtype`` does. ``forward(x, act="identity")`` applies
+    ``act`` ("identity" or "hard_swish") to the result.
 
     Train mode is flax's (flax/linen/normalization.py, ``_compute_stats``
-    and ``_normalize``), in plain ops under autograd: the batch statistics
-    in f32 (f64 for an f64 input) over N, H and W, ``mean = E[x]`` and the biased ``var =
-    max(0, E[x^2] - mean^2)``; ``y = (x - mean) * (rsqrt(var + eps) *
-    scale) + bias``; the running statistics updated in place with the biased
-    variance, ``ra = 0.97 ra + (1 - 0.97) stat`` (``nn.BatchNorm2d`` would
-    take the unbiased one)."""
+    and ``_normalize``) with the activation fused in (``_BatchNormAct``):
+    the batch statistics in f32 (f64 for an f64 input) over N, H and W,
+    ``mean = E[x]`` and the biased ``var = max(0, E[x^2] - mean^2)``; ``y =
+    act(T((x - mean) * (rsqrt(var + eps) * scale) + bias))``; the running
+    statistics updated in place with the biased variance, ``ra = 0.97 ra +
+    (1 - 0.97) stat`` (``nn.BatchNorm2d`` would take the unbiased one)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-3, momentum=0.03)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: str = "identity") -> torch.Tensor:
         if not self.training:
             y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps)
-            return y.to(x.dtype)
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+                             self.weight, self.bias, False, 0.0, self.eps).to(x.dtype)
+            return hard_swish(y) if act == "hard_swish" else y
         mesh = active_mesh()
-        if mesh is not None and mesh.size > 1:
-            # the statistics of the global batch: every rank's sums and
-            # count, in one all-reduce over the world
-            c = xf.shape[1]
-            count = torch.full((1,), xf.numel() // c, dtype=xf.dtype, device=xf.device)
-            sums = all_reduce_sum(torch.cat([xf.sum((0, 2, 3)), (xf * xf).sum((0, 2, 3)),
-                                             count]), mesh.world)
-            mean, mean2 = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-        else:
-            mean, mean2 = xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))
-        # maximum, not clamp: at var == 0 (a constant channel) its gradient
-        # splits in two, as jnp.maximum's does
-        var = torch.maximum(mean2 - mean * mean, torch.zeros_like(mean))
-        keep = 1.0 - self.momentum  # flax's momentum
-        with torch.no_grad():
-            for ra, stat in ((self.running_mean, mean), (self.running_var, var)):
-                ra.copy_(keep * ra + (1 - keep) * stat)
-        shape = (1, -1, 1, 1)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (xf - mean.view(shape)) * mul.view(shape) + self.bias.view(shape)
-        return y.to(x.dtype)
+        if mesh is not None and mesh.size <= 1:
+            mesh = None
+        return _BatchNormAct.apply(x, self.weight, self.bias, self, act, mesh)
 
 
 class ConvBnAct(nn.Module):
     """Conv -> BN -> activation (blocks.py:347-415). ``fused=True`` is the
     inference topology: the conv carries a bias and there is no BN. ``quant``
-    applies to the fused topology only, as in JAX (:397-398). A w8a8 conv
-    followed by hard-swish computes both in one call (the same numbers)."""
+    applies to the fused topology only, as in JAX (:397-398). Hard-swish
+    after a BN runs in the BN's own passes, and after a w8a8 conv in the
+    conv's epilogue (the same numbers, no extra pass)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  stride: int = 1, groups: int = 1, dilation: int = 1,
@@ -231,14 +255,17 @@ class ConvBnAct(nn.Module):
                            quant=quant if fused else None)
         self.bn = None if fused else BatchNorm(features)
         self.act = get_activation(act)
-        # a w8a8 conv applies hard-swish in its own epilogue: no extra pass
-        self.act_in_conv = self.conv.quant == "w8a8" and act.lower() in HARD_SWISH_NAMES
+        hard = act.lower() in HARD_SWISH_NAMES
+        self.act_in_conv = self.conv.quant == "w8a8" and hard
+        self.act_in_bn = self.bn is not None and hard
 
     def forward(self, x: torch.Tensor,
                 dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         if self.act_in_conv:
             return self.conv(x, dtype, act="hard_swish")
         x = self.conv(x, dtype)
+        if self.act_in_bn:
+            return self.bn(x, act="hard_swish")
         if self.bn is not None:
             x = self.bn(x)
         return self.act(x)

@@ -3,10 +3,11 @@ ctypes).
 
 Each ``cocodet_tpu_torch/csrc/<name>.cu`` becomes
 ``build/kernels/lib<name>-<hash>.so`` at the repository root, where the hash
-covers the source and the flags, so an edited source is rebuilt and a stale
-library is never loaded. Nothing is built when a module is imported: a
-kernel's wrapper builds its library at first use, and ``build()`` builds all
-of them at once, one ``nvcc`` process per source, started together.
+covers the source, the headers beside it and the flags, so an edited source
+is rebuilt and a stale library is never loaded. Nothing is built when a
+module is imported: a kernel's wrapper builds its library at first use, and
+``build()`` builds all of them at once, one ``nvcc`` process per source,
+started together.
 """
 
 from __future__ import annotations
@@ -43,7 +44,10 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    headers beside it (``csrc/*.cuh``, which a source may include) and the
+    flags."""
+    src = b"".join(p.read_bytes() for p in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))])
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

@@ -2,7 +2,9 @@
 step, written out for ``torch.distributed``.
 
 - ``all_reduce_sum``: the sum over a group; its backward sums the
-  cotangents over the group (BN's batch statistics).
+  cotangents over the group. (BN's batch statistics are summed with
+  ``all_reduce_`` inside BN's own autograd Function, models/blocks.py::
+  _BatchNormAct, whose backward sums its cotangent sums the same way.)
 - ``gather_rows``: the whole height from the space ranks' rows; its backward
   keeps this rank's rows of the cotangent, which is right where every rank of
   the group computes the same function of the gathered tensor (the loss).

@@ -81,6 +81,36 @@ def test_iou_loss_matches_jax(loss_type):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+@pytest.mark.parametrize("wh_logit", [88.0, 89.0])
+def test_iou_loss_gradient_past_the_exp_range_matches_jax(wh_logit):
+    """A background anchor whose wh logit decodes past f32's largest value
+    (exp overflows above 88.72): the loss stays finite in both frameworks,
+    and its gradient with respect to that anchor's logits is 0 * inf = NaN
+    in both, as it is for a step that trains far enough from random
+    weights; at 88 both are finite. The foreground anchor's gradient is
+    the same in both either way."""
+    raw = np.array([[3.0, 4.0, wh_logit, 1.0], [5.0, 5.0, 1.5, 2.0]], np.float32)
+    target = np.array([[0.0, 0.0, 0.0, 0.0], [44.0, 40.0, 40.0, 60.0]], np.float32)
+    fg = np.array([0.0, 1.0], np.float32)
+
+    def jax_loss(r):
+        pred = jnp.concatenate([r[:, :2] * 8.0, jnp.exp(r[:, 2:]) * 8.0], 1)
+        return (jl.iou_loss(pred, jnp.asarray(target)) * jnp.asarray(fg)).sum()
+
+    want, want_grad = jax.value_and_grad(jax_loss)(jnp.asarray(raw))
+    r = torch.from_numpy(raw).requires_grad_()
+    pred = torch.cat([r[:, :2] * 8.0, torch.exp(r[:, 2:]) * 8.0], 1)
+    got = (tl.iou_loss(pred, torch.from_numpy(target)) * torch.from_numpy(fg)).sum()
+    got.backward()
+    got_grad, want_grad = r.grad.numpy(), np.asarray(want_grad)
+    assert np.isfinite(got.item()) and np.isfinite(float(want))
+    np.testing.assert_allclose(got.item(), float(want), rtol=1e-6)
+    overflow = wh_logit > np.log(np.finfo(np.float32).max)
+    assert np.isnan(got_grad[0, 2:]).all() == overflow
+    assert np.isnan(want_grad[0, 2:]).all() == overflow
+    np.testing.assert_allclose(got_grad[1], want_grad[1], rtol=1e-5)
+
+
 def test_sigmoid_bce_matches_optax():
     import optax
 
