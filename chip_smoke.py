@@ -5,7 +5,8 @@
 
 Phases, each of which must pass (the script exits non-zero otherwise):
   a. build every CUDA kernel from cocodet_tpu_torch/csrc/ with nvcc (one
-     process per source, in parallel) into build/kernels/;
+     process per source, in parallel) into build/kernels/, and the host C++
+     libraries of csrc/host/ with g++ into build/host/;
   b. hold each kernel against its plain PyTorch version on the card, on the
      dense scene of tests/test_topk_equivalence.py batched to 16 images, at
      K=1024 (the main path), K=340 (ragged) and K=2048, as it is and widened
@@ -94,7 +95,25 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      collectives staged through the host, peak memory and the launches of
      the BN+act kernels (each > 0, with the finish kernels that follow the
      all-reduce of the sums; the standalone hard-swish 0), the losses
-     (finite, num_fg > 0, equal on both ranks).
+     (finite, num_fg > 0, equal on both ranks);
+  i. the evaluation family on the port's synthetic val set (128 PNG images,
+     variant "default", 256-512 px, generated into a temporary directory):
+     (i1) a crafted model whose head maps decode to each image's ground
+     truth through entry.build_evaluator's COCOEvaluator at 768 px, B=16:
+     AP50 = 1.0 and AP >= 0.99, and with every box moved AP50 < 0.2; (i2)
+     phase c's dense bf16 model through the same evaluator (K=2000): img/s,
+     forward+NMS and host ms an image, peak memory, the launches of the NMS
+     pair and hard-swish (one a batch, 127 a batch), the 12 stats finite and
+     equal with the plain matcher, the NMS kernels against their plain
+     versions on the first batch's candidates, the first two images' f32
+     detections on the card and on the CPU the same sets, and the pageable
+     copy of a batch; (i3) the headline through it (127 int8 convs a
+     batch), img/s; (i4) the harness (cocodet_tpu_torch/harness.py) with
+     harness/config/yolox_m_p6.json on the set, 832 px, B=16, K=2048, the
+     contrast TTA, --profile: the seconds of each phase, the records, the
+     self-evaluation's mAP@0.5, the launches and the distinct batch shapes;
+     then the NMS kernels at K=2048 and hard-swish on the stem's activation
+     of a bucket batch against their plain versions.
 
     python3 chip_smoke.py --step TREE
 
@@ -208,6 +227,7 @@ def cuda_ms(fn, iters, hold=True):
 
 
 def phase_build():
+    from cocodet_tpu_torch.ops import host_build
     from cocodet_tpu_torch.ops.cuda import build
 
     t0 = time.perf_counter()
@@ -224,7 +244,12 @@ def phase_build():
               f"and {max(smem)} bytes of static shared memory, {spill} bytes spilled")
     print(f"a. build: {len(built)} of {len(build.sources())} CUDA sources compiled "
           f"in {seconds:.2f} s (nvcc {' '.join(build.NVCC_FLAGS)})", flush=True)
-    return seconds
+    t0 = time.perf_counter()
+    host = host_build.build()
+    host_s = time.perf_counter() - t0
+    print(f"a. build: {len(host)} of {len(host_build.sources())} host C++ sources compiled in "
+          f"{host_s:.2f} s (g++ {' '.join(host_build.CXX_FLAGS)})", flush=True)
+    return seconds + host_s
 
 
 def kernel_inputs(batch_maps, k, device):
@@ -758,10 +783,24 @@ def phase_int8_conv(device, headline):
             "bound_by": "bytes" if total["bytes_ms"] >= total["ops_ms"] else "operations"}
 
 
+def same_set(g, w, gc, wc, box_tol=(1e-2, 1e-3), score_tol=1e-4):
+    """True if the rows of g and w ((n, 4) boxes then a score column, numpy)
+    with classes gc, wc are the same set: equal counts and a cover of
+    same-class pairs with boxes within box_tol (px, relative) and scores
+    within score_tol."""
+    import numpy as np
+
+    if len(g) != len(w):
+        return False
+    tol = np.concatenate([box_tol[0] + box_tol[1] * np.abs(w[:, :4]),
+                          np.full((len(w), 1), score_tol)], 1)
+    close = (np.abs(g[:, None, :] - w[None, :, :]) <= tol[None]).all(-1)
+    match = close & (np.asarray(gc)[:, None] == np.asarray(wc)[None])
+    return bool(match.any(1).all() and match.any(0).all())
+
+
 def match_detections(got, want, box_tol=(1e-2, 1e-3), score_tol=1e-4):
-    """True if each image's detections are the same set: equal counts and a
-    cover of same-class pairs with boxes within box_tol (px, relative) and
-    scores within score_tol."""
+    """True if each image's detections are the same set (``same_set``)."""
     import numpy as np
 
     for b in range(want.valid.shape[0]):
@@ -770,13 +809,29 @@ def match_detections(got, want, box_tol=(1e-2, 1e-3), score_tol=1e-4):
             return False
         g = np.concatenate([got.boxes[b, :n].numpy(), got.scores[b, :n, None].numpy()], 1)
         w = np.concatenate([want.boxes[b, :n].numpy(), want.scores[b, :n, None].numpy()], 1)
-        tol = np.concatenate([box_tol[0] + box_tol[1] * np.abs(w[:, :4]),
-                              np.full((n, 1), score_tol)], 1)
-        close = (np.abs(g[:, None, :] - w[None, :, :]) <= tol[None]).all(-1)
-        match = close & (got.classes[b, :n].numpy()[:, None] == want.classes[b, :n].numpy()[None])
-        if not (match.any(1).all() and match.any(0).all()):
+        if not same_set(g, w, got.classes[b, :n].numpy(), want.classes[b, :n].numpy(),
+                        box_tol, score_tol):
             return False
     return True
+
+
+def match_records(got, want):
+    """True if the COCO records of each image are the same set
+    (``same_set`` on the xywh boxes, scores and category ids)."""
+    import numpy as np
+
+    def by_image(records):
+        out = {}
+        for r in records:
+            out.setdefault(r["image_id"], []).append(r)
+        return out
+
+    g, w = by_image(got), by_image(want)
+    if g.keys() != w.keys():
+        return False
+    rows = lambda rs: np.asarray([r["bbox"] + [r["score"]] for r in rs], np.float64)
+    cats = lambda rs: [r["category_id"] for r in rs]
+    return all(same_set(rows(g[k]), rows(w[k]), cats(g[k]), cats(w[k])) for k in w)
 
 
 def compare_card_cpu(on_card, on_cpu, images, device):
@@ -1830,6 +1885,307 @@ def phase_dp(device, card):
                for name in ("1-D", "2-D") for k in ("finish", "grad_finish"))
 
 
+def crafted_boxes(dataset, size, moved=False):
+    """Each image's ground-truth boxes (in the dataset's order) in
+    letterboxed pixels at ``size``: (cx, cy, w, h, contiguous class). With
+    ``moved``, each box shifted by its own width and height (IoU 0 with
+    where it was), its centre kept inside the image."""
+    from cocodet_tpu_torch.data.coco import COCO_CLASS_ID
+
+    out = []
+    for img_id in dataset.coco.ids:
+        im = dataset.coco.images[img_id]
+        r = min(size / im["height"], size / im["width"])
+        boxes = []
+        for a in dataset.coco.anns_per_image.get(img_id, []):
+            x, y, w, h = a["bbox"]
+            cx, cy = (x + w / 2) * r, (y + h / 2) * r
+            if moved:
+                cx = min(cx + w * r, im["width"] * r - 1)
+                cy = min(cy + h * r, im["height"] * r - 1)
+            boxes.append((cx, cy, w * r, h * r, COCO_CLASS_ID.index(a["category_id"])))
+        out.append(boxes)
+    return out
+
+
+def crafted_model(boxes_per_image, device, num_classes=80):
+    """A torch module whose head maps decode to ``boxes_per_image`` (one
+    list an image, as crafted_boxes gives them): its k-th call serves the
+    k-th batch of images in turn (a Python counter; nothing is traced). A
+    box takes the cell of its centre on the finest level whose cell is
+    free, with obj and class logits 20 and every other logit -20; a box
+    that finds no free cell is counted in ``dropped``."""
+    import math
+
+    import numpy as np
+    import torch
+
+    class Crafted(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.anchor = torch.nn.Parameter(torch.zeros((), device=device))  # its device
+            self.strides = STRIDES
+            self.served = 0
+            self.dropped = 0
+
+        def forward(self, images):
+            b, h, w = images.shape[:3]
+            maps = [{"reg": np.zeros((b, h // s, w // s, 4), np.float32),
+                     "obj": np.full((b, h // s, w // s, 1), -20.0, np.float32),
+                     "cls": np.full((b, h // s, w // s, num_classes), -20.0, np.float32)}
+                    for s in STRIDES]
+            for i in range(b):
+                k = self.served + i
+                for cx, cy, bw, bh, c in (boxes_per_image[k] if k < len(boxes_per_image)
+                                          else ()):
+                    for m, s in zip(maps, STRIDES):
+                        gx = min(int(cx // s), m["obj"].shape[2] - 1)
+                        gy = min(int(cy // s), m["obj"].shape[1] - 1)
+                        if m["obj"][i, gy, gx, 0] > 0:
+                            continue
+                        m["reg"][i, gy, gx] = [cx / s - gx, cy / s - gy,
+                                               math.log(bw / s), math.log(bh / s)]
+                        m["obj"][i, gy, gx, 0] = 20.0
+                        m["cls"][i, gy, gx, c] = 20.0
+                        break
+                    else:
+                        self.dropped += 1
+            self.served += b
+            return [{k: torch.from_numpy(v).to(images.device) for k, v in m.items()}
+                    for m in maps]
+
+    return Crafted()
+
+
+EVAL_IMAGES = 128  # phase i's synthetic val set (variant "default", 256-512 px)
+CONVS = 127  # YOLOX-M-P6's convs with hard-swish, and the headline's w8a8 convs
+
+
+def eval_timing_line(ev):
+    t = ev.timing
+    n = max(t["images"], 1)
+    return (f"{n / t['total s']:.2f} img/s ({n} images, {t['batches']} batches, "
+            f"{t['total s']:.2f} s), forward+NMS {1e3 * t['forward+nms s'] / n:.3f} ms/img, "
+            f"host {1e3 * t['host s'] / n:.3f} ms/img")
+
+
+def check_stats(label, ev):
+    """The evaluator's 12 stats: finite, and equal with the plain matcher."""
+    import math
+
+    plain = ev.evaluate_prediction(ev.records, use_native=False)
+    if not all(math.isfinite(v) for v in ev.stats.values()) or plain != ev.stats:
+        raise AssertionError(f"{label}: stats {ev.stats}, with the plain matcher {plain}")
+
+
+def phase_eval(device, card, root):
+    """i1-i3: the COCO evaluator (entry.build_evaluator: 768 px, B=16, conf
+    0.001, NMS 0.65, K=2000, 300 detections) on the card; i2 and i3 after a
+    warm-up batch (cuDNN's algorithm search at this shape, outside the
+    timed evaluation)."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch import entry
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+    from cocodet_tpu_torch.ops.postprocess import _select_topk_fused, postprocess
+
+    size = entry.EVAL_SIZE
+    # i1: the crafted model, boxes where the ground truth is, then moved
+    for moved in (False, True):
+        ev = entry.build_evaluator(root)
+        model = crafted_model(crafted_boxes(ev.dataset, size, moved), device)
+        ap, ap50, _ = ev.evaluate(entry.Predictor(model))
+        check_stats("i1", ev)
+        ok = ap50 < 0.2 if moved else (ap50 == 1.0 and ap >= 0.99)
+        print(f"i1. crafted model{', every box moved' if moved else ''}, {EVAL_IMAGES} images at "
+              f"{size} px on the card: AP={ap:.4f} AP50={ap50:.4f} ({len(ev.records)} records, "
+              f"{model.dropped} boxes without a free cell; "
+              f"{'AP50 < 0.2' if moved else 'AP50 = 1.0 and AP >= 0.99'} required)", flush=True)
+        if not ok or model.dropped:
+            raise AssertionError("i1: the crafted model's mAP is not what its boxes give")
+
+    # i2: the dense bf16 model of phase c
+    variables = serving_variables(seed=0)
+    ev = entry.build_evaluator(root)
+    predictor = entry.build_predictor(variables, device=device, cfg=ev.postprocess_config)
+    warm = np.zeros((ev.batch_size, size, size, 3), np.float32)
+    predictor(warm)  # warm-up: cuDNN picks its algorithms for this shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    nk.reset_launch_counts()
+    hs.reset_launch_counts()
+    ap, ap50, _ = ev.evaluate(predictor)
+    launches = {"overlap_matrix": nk.overlap_matrix.launches,
+                "greedy_keep": nk.greedy_keep.launches, "hard_swish": hs.hard_swish.launches}
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    n_batches = ev.timing["batches"]
+    if launches != {"overlap_matrix": n_batches, "greedy_keep": n_batches,
+                    "hard_swish": CONVS * n_batches}:
+        raise AssertionError(f"i2: launches {launches} for {n_batches} batches")
+    check_stats("i2", ev)
+    print(f"i2. dense bf16 YOLOX-M-P6 through COCOEvaluator, {size} px, B={ev.batch_size}, "
+          f"K={ev.pre_nms_topk}, on {card}: {eval_timing_line(ev)}; peak device memory "
+          f"{peak:.2f} GiB; launches {launches}; AP={ap:.4f} AP50={ap50:.4f}, the 12 stats "
+          f"finite and equal with the plain matcher ({len(ev.records)} records)", flush=True)
+
+    images = np.stack([ev.dataset[i][0] for i in range(ev.batch_size)])
+    x = torch.from_numpy(images).to(device)
+    cfg = ev.postprocess_config
+    copy_ms = cuda_ms(lambda: torch.from_numpy(images).to(device), 5)
+    with torch.inference_mode():
+        boxes, _, classes, _, valid = _select_topk_fused(predictor.model(x), STRIDES, cfg)
+        check_kernels(f"i2. NMS kernels on the first batch's candidates, K={cfg.pre_nms_topk} "
+                      f"B={ev.batch_size}", class_offset_boxes(boxes, classes, valid).contiguous(),
+                      valid.contiguous(), cfg.nms_threshold)
+    print(f"i2. host-to-card copy of a {size} px batch ({images.nbytes / 1e6:.1f} MB f32, "
+          f"pageable): {copy_ms:.3f} ms", flush=True)
+    # the first batch's first two images, f32, on the card (no TF32) and on the CPU
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    two = torch.from_numpy(images[:2])
+    card32 = entry.build_predictor(variables, dtype=torch.float32, device=device, cfg=cfg)
+    cpu32 = entry.build_predictor(variables, dtype=torch.float32, device="cpu", cfg=cfg)
+    with torch.inference_mode():
+        maps_g = card32.model(two.to(device))
+        maps_c = cpu32.model(two)
+        got = postprocess(maps_g, STRIDES, cfg)
+        same_maps = postprocess([{k: v.cpu() for k, v in m.items()} for m in maps_g],
+                                STRIDES, cfg)
+        want = postprocess(maps_c, STRIDES, cfg)
+    infos = [ev.dataset[i][2] for i in range(2)]
+    ids = [ev.dataset.ids[i] for i in range(2)]
+
+    def records(res):
+        return ev.convert_to_coco_format(tuple(t.cpu().numpy() for t in (
+            res.boxes, res.scores, res.classes, res.valid)), infos, ids)
+
+    g = torch.cat([m[k].reshape(-1).cpu() for m in maps_g for k in m])
+    w = torch.cat([m[k].reshape(-1) for m in maps_c for k in m])
+    err = float(((g - w).abs() / (1 + w.abs())).max())
+    same_path = match_records(records(got), records(same_maps))
+    same = match_records(records(got), records(want))
+    print(f"i2. the first batch's first two images in f32 ({int(want.valid.sum())} records): "
+          f"head maps, card against CPU, max |d|/(1+|v|) = {err:.3e} (limit 1e-3, phase d's); "
+          f"records the same sets (match_detections' tolerances): of the card's maps through "
+          f"the card's and the CPU's postprocess {same_path}, of the card's and the CPU's own "
+          f"maps {same}", flush=True)
+    if not (err <= 1e-3 and same_path and same):
+        raise AssertionError("i2: the evaluator's records on the card differ from the CPU's")
+    del predictor, card32, cpu32
+    torch.cuda.empty_cache()
+
+    # i3: the headline (slim w8a8) through the same evaluator
+    headline, _ = build_headline_model(device)
+    ev = entry.build_evaluator(root)
+    headline(warm)
+    torch.cuda.synchronize()
+    ic.reset_launch_counts()
+    nk.reset_launch_counts()
+    ap, ap50, _ = ev.evaluate(headline)
+    n_batches = ev.timing["batches"]
+    launches = {"int8_conv": ic.conv2d_w8a8.launches, "overlap_matrix": nk.overlap_matrix.launches,
+                "greedy_keep": nk.greedy_keep.launches}
+    if launches != {"int8_conv": CONVS * n_batches, "overlap_matrix": n_batches,
+                    "greedy_keep": n_batches}:
+        raise AssertionError(f"i3: launches {launches} for {n_batches} batches")
+    check_stats("i3", ev)
+    print(f"i3. headline (slim w8a8) through COCOEvaluator, {size} px, on {card}: "
+          f"{eval_timing_line(ev)}; launches {launches}; AP={ap:.4f} AP50={ap50:.4f}", flush=True)
+    del headline
+    torch.cuda.empty_cache()
+
+
+def phase_harness(device, card, root):
+    """i4: the submission harness with harness/config/yolox_m_p6.json (832
+    px, B=16, conf 0.001, NMS 0.55, K=2048, the contrast TTA), weights from
+    numpy seed 0, on the generated val set."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.data.folder import FolderLoader, ImageFolderDataset
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+    from cocodet_tpu_torch.ops.postprocess import _select_topk_fused
+
+    with open(os.path.join(REPO, "harness", "config", "yolox_m_p6.json")) as f:
+        cfg = json.load(f)
+    cfg["data_dir"] = os.path.join(root, "val2017")
+    cfg["annotation"] = os.path.join(root, "annotations", "instances_val2017.json")
+    report = {}
+    nk.reset_launch_counts()
+    hs.reset_launch_counts()
+    results = harness.run(cfg, os.path.join(root, "answers.json"), profile=True,
+                          device=device, report=report)
+    launches = {"overlap_matrix": nk.overlap_matrix.launches,
+                "greedy_keep": nk.greedy_keep.launches, "hard_swish": hs.hard_swish.launches}
+    batches = len(report["shapes"]) + 1  # and the warm-up
+    if launches != {"overlap_matrix": batches, "greedy_keep": batches,
+                    "hard_swish": CONVS * batches}:
+        raise AssertionError(f"i4: launches {launches} for {batches} batches")
+    distinct = sorted(set(report["shapes"]))
+    stats = report["stats"]
+    print(f"i4. harness {cfg['img_size']} px, B={cfg['dataloader']['batch_size']}, on {card}: "
+          f"phase seconds {json.dumps({k: round(v, 4) for k, v in report['phases'].items()})}; "
+          f"{len(results)} records for {report['images']} images; self-eval mAP@0.5 = "
+          f"{stats['AP50']:.4f}; launches {launches}; {len(distinct)} distinct batch shapes of "
+          f"{len(report['shapes'])} batches: {distinct}", flush=True)
+    if report["images"] != EVAL_IMAGES or not results:
+        raise AssertionError("i4: the harness did not serve every image")
+
+    # the kernels on a bucket batch of this run: its non-square shape if any
+    predictor = harness.build_predictor_from_config(cfg, device=device)
+    ds = ImageFolderDataset(cfg["data_dir"], cfg["img_size"])
+    loader = FolderLoader(ds, cfg["dataloader"]["batch_size"], pad_multiple=64)
+    batch = next((b for b, _ in loader if b.shape[1] != b.shape[2]), None)
+    batch = next(iter(loader))[0] if batch is None else batch
+    x = torch.from_numpy(batch).to(device)
+    copy_ms = cuda_ms(lambda: torch.from_numpy(batch).to(device), 5)
+    first_conv = next(m for m in predictor.model.modules() if hasattr(m, "act_in_conv"))
+    seen = []
+    hook = first_conv.conv.register_forward_hook(lambda mod, args, out: seen.append(out))
+    try:
+        with torch.inference_mode():
+            maps = predictor.model(x * 0.9 + 11.4)
+    finally:
+        hook.remove()
+    pcfg = predictor.cfg
+    with torch.inference_mode():
+        boxes, _, classes, _, valid = _select_topk_fused(maps, STRIDES, pcfg)
+        check_kernels(f"i4. NMS kernels on a bucket batch {tuple(batch.shape)}, "
+                      f"K={pcfg.pre_nms_topk}", class_offset_boxes(boxes, classes, valid)
+                      .contiguous(), valid.contiguous(), pcfg.nms_threshold)
+        act_in = seen[0]
+        n, err = bit_diff(hs.hard_swish(act_in), hs.hard_swish_plain(act_in))
+    print(f"i4. hard_swish kernel on the stem's activation of that batch "
+          f"{tuple(act_in.shape)} {act_in.dtype}: {n} of {act_in.numel()} elements differ from "
+          f"the plain version (max |d| {err}); host-to-card copy of the batch "
+          f"({batch.nbytes / 1e6:.1f} MB f32, pageable): {copy_ms:.3f} ms", flush=True)
+    if n:
+        raise AssertionError("i4: hard_swish kernel disagrees with its plain version")
+
+
+def phase_i(device, card):
+    """i: the evaluation family on the port's synthetic val set."""
+    import tempfile
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_eval_") as tmp:
+        t0 = time.perf_counter()
+        root = make_synthetic_coco(tmp, n_train=0, n_val=EVAL_IMAGES, size_range=(256, 512),
+                                   seed=0, variant="default")
+        print(f"i. synthetic val set: {EVAL_IMAGES} PNG images (variant default, 256-512 px) "
+              f"in {time.perf_counter() - t0:.2f} s", flush=True)
+        phase_eval(device, card, root)
+        phase_harness(device, card, root)
+
+
 def main():
     try:
         import torch
@@ -1879,6 +2235,7 @@ def main():
     bn_stats = phase_train(device, card)
     torch.cuda.empty_cache()
     bn_stats["bn_act_finish"]["launches"] = phase_dp(device, card)
+    phase_i(device, card)
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}

@@ -8,13 +8,15 @@ channel plan ``artifacts/mp6_chain_slim_spec.json`` and quantized w8a8 with
 per-input-channel activation scales (bench.py:163-187, 218-306). Both end in
 the single batched postprocess at the production point: conf 0.001, NMS IoU
 0.55, pre-NMS top-K 1024, ``max_det`` 300. ``Predictor`` serves batches of
-NHWC float images; letterbox resizing stays with the harness, which is not
-ported yet. ``build_trainer``: the unfused YOLOX-P6 in train mode with f32
+NHWC float images; reading and resizing them is the data pipeline's
+(``data/``). ``build_trainer``: the unfused YOLOX-P6 in train mode with f32
 parameters and compute in ``dtype``, and its train step (forward, SimOTA
 and losses, backward, SGD with nesterov momentum, EMA), on one device or,
 given a ``parallel.Mesh``, data-parallel over the mesh's ranks.
 ``dryrun_multichip``: that step on n spawned ranks, on a data mesh and on
-a data x space mesh.
+a data x space mesh. ``build_evaluator``/``evaluate``: the COCO evaluator
+at the competition exp's point over a COCO-layout directory (the harness,
+``python -m cocodet_tpu_torch.harness``, serves an image folder).
 """
 
 from __future__ import annotations
@@ -29,6 +31,9 @@ import torch.distributed as dist
 
 from .compress import build_quant_tree, calibrate, load_slim_spec, quantize_weights
 from .core.train_state import build_optimizer, create_train_state, make_train_step
+from .data.coco import COCODataset
+from .data.transforms import ValTransform
+from .evaluators.coco_evaluator import COCOEvaluator
 from .models.yolox import MODEL_SPECS, YOLOX, build_model
 from .ops.fuse import fuse_model
 from .ops.nms import NMSResult
@@ -135,6 +140,41 @@ def entry(device: Union[str, torch.device] = "cuda") -> Tuple[Predictor, Tuple[t
         shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.67, width=0.75)
     fn = build_predictor(random_variables(shapes, 0), device=device)
     return fn, (torch.zeros((1, 256, 256, 3), dtype=torch.float32, device=device),)
+
+
+# The competition exp's evaluation point (exps/p6/yolox_m_p6.py:37-39: test
+# size 768, conf 0.001, NMS IoU 0.65) with the evaluator's pre-NMS top-K and
+# max_det (cocodet_tpu/evaluators/coco_evaluator.py:33-37).
+EVAL_SIZE = 768
+EVAL_CONF = 0.001
+EVAL_NMS = 0.65
+EVAL_TOPK = 2000
+EVAL_MAX_DET = 300
+
+
+def build_evaluator(data_dir: str, img_size: int = EVAL_SIZE, batch_size: int = 16,
+                    json_file: str = "instances_val2017.json", name: str = "val2017",
+                    conf_threshold: float = EVAL_CONF, nms_threshold: float = EVAL_NMS,
+                    pre_nms_topk: int = EVAL_TOPK, max_det: int = EVAL_MAX_DET) -> COCOEvaluator:
+    """A ``COCOEvaluator`` over ``data_dir``'s ``annotations/<json_file>`` and
+    ``<name>/`` images (8-bit PNG; JPEG raises), letterboxed to ``img_size``
+    square, at the competition exp's point."""
+    dataset = COCODataset(data_dir, json_file=json_file, name=name,
+                          img_size=(img_size, img_size), preproc=ValTransform())
+    return COCOEvaluator(dataset, img_size=(img_size, img_size), conf_threshold=conf_threshold,
+                         nms_threshold=nms_threshold, batch_size=batch_size,
+                         max_det=max_det, pre_nms_topk=pre_nms_topk)
+
+
+def evaluate(data_dir: str, predictor: Optional[Predictor] = None,
+             device: Union[str, torch.device] = "cuda", output_json: Optional[str] = None,
+             **evaluator_args) -> Tuple[float, float, str]:
+    """(AP, AP50, summary) of ``predictor`` (by default the dense bf16
+    YOLOX-M-P6 of ``entry()``, weights from numpy seed 0, on ``device``) on
+    the COCO-layout set at ``data_dir``, through ``build_evaluator``."""
+    if predictor is None:
+        predictor, _ = entry(device)
+    return build_evaluator(data_dir, **evaluator_args).evaluate(predictor, output_json)
 
 
 def build_trainer(depth: float = 0.67, width: float = 0.75,

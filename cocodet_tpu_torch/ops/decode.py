@@ -1,4 +1,4 @@
-"""Grid decode of raw head outputs (cocodet_tpu/ops/decode.py:22-69)."""
+"""Grid decode of raw head outputs (cocodet_tpu/ops/decode.py:22-89)."""
 
 from __future__ import annotations
 
@@ -51,3 +51,20 @@ def decode_center_format(preds: torch.Tensor, grids: torch.Tensor,
     xy = (f32[..., :2] + grids[None]) * s
     wh = torch.exp(f32[..., 2:4]) * s
     return torch.cat([xy, wh, f32[..., 4:]], dim=-1)
+
+
+def decode_corner_scores(preds: torch.Tensor, grids: torch.Tensor,
+                         strides: torch.Tensor):
+    """Inference decode (cocodet_tpu/ops/decode.py:72-89): corner boxes and
+    sigmoid scores. Returns (boxes_xyxy (B, A, 4), obj (B, A, 1),
+    cls (B, A, C) already multiplied by obj), f32. The wh logits are clamped
+    to [-20, 20] before exp, so an untrained model's boxes stay finite."""
+    f32 = preds.float()
+    s = strides[None, :, None]
+    xy = (f32[..., :2] + grids[None]) * s
+    half_wh = torch.exp(f32[..., 2:4].clamp(-20.0, 20.0)) * (s * 0.5)
+    boxes = torch.cat([xy - half_wh, xy + half_wh], dim=-1)
+    one = torch.ones((), dtype=torch.float32, device=preds.device)
+    obj = (one / (1.0 + torch.exp(-f32[..., 4:5]))).clamp(0.0, 1.0)
+    cls = (one / (1.0 + torch.exp(-f32[..., 5:]))).clamp(0.0, 1.0) * obj
+    return boxes, obj, cls

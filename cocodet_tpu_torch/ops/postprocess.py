@@ -1,9 +1,11 @@
-"""Batched postprocess: max-class top-K -> f32 decode of the top-K rows ->
-exact NMS (cocodet_tpu/ops/postprocess.py:32-44, 88-163).
+"""Batched postprocess: candidate selection -> exact NMS
+(cocodet_tpu/ops/postprocess.py:32-163).
 
 Static bounds as in the JAX package: pre-NMS top-K and ``max_det``. The
-multi-class and RMMOP filters (``select_candidates``) and soft-NMS are not
-ported yet and raise.
+max-class filter ranks on the raw head maps and decodes only the top-K
+rows (``_select_topk_fused``); the multi-class and RMMOP filters decode
+every anchor and select per image (``select_candidates``), batched on the
+device with no host sync. Soft-NMS is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
-from .decode import level_grid
+from .decode import attach_strides, concat_levels, decode_corner_scores, level_grid
 from .nms import NMSResult, batched_nms
 
 
@@ -33,6 +35,44 @@ def topk_stable(values: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tenso
     ``jax.lax.top_k`` does (``torch.topk`` does not)."""
     sorted_vals, idx = torch.sort(values, dim=-1, descending=True, stable=True)
     return sorted_vals[..., :k], idx[..., :k]
+
+
+def select_candidates(boxes: torch.Tensor, obj: torch.Tensor, cls: torch.Tensor,
+                      cfg: PostprocessConfig):
+    """Candidate selection of cocodet_tpu/ops/postprocess.py:47-85, batched:
+    boxes (B, A, 4), obj (B, A, 1), cls (B, A, C) already obj-multiplied ->
+    score-sorted (boxes (B, K, 4), scores (B, K), classes (B, K) int32,
+    obj (B, K), valid (B, K)). Ties go lowest index first (``topk_stable``).
+
+    - RMMOP (``cfg.rmmop = (r1, r2)``): the top class is a candidate if its
+      score is at least r1 times the second's and obj^2 at least r2 times
+      its score. No conf threshold, as in the JAX package (:61).
+    - multi-class: every (anchor, class) pair at or above the threshold.
+    - otherwise max-class: each anchor's best class.
+    """
+    b, a, c = cls.shape
+    objv = obj[..., 0]
+    conf = torch.full((), cfg.conf_threshold, dtype=cls.dtype, device=cls.device)
+    none = torch.full((), -1.0, dtype=cls.dtype, device=cls.device)
+    if cfg.rmmop is not None:
+        r1, r2 = cfg.rmmop
+        top2, idx2 = topk_stable(cls, 2)
+        score, klass = top2[..., 0], idx2[..., 0]
+        ok = (score >= r1 * top2[..., 1]) & (objv.square() >= r2 * score)
+        cand = torch.where(ok, score, none)
+    elif not cfg.multi_class:
+        score, klass = cls.max(dim=-1).values, cls.argmax(dim=-1)
+        cand = torch.where(score >= conf, score, none)
+    else:  # every (anchor, class) pair
+        flat = cls.reshape(b, a * c)
+        cand = torch.where(flat >= conf, flat, none)
+    top_scores, take = topk_stable(cand, min(cfg.pre_nms_topk, cand.shape[1]))
+    if cfg.rmmop is None and cfg.multi_class:
+        anchor, klass_k = torch.div(take, c, rounding_mode="floor"), take % c
+    else:
+        anchor, klass_k = take, torch.gather(klass, 1, take)
+    return (torch.gather(boxes, 1, anchor[..., None].expand(-1, -1, 4)), top_scores,
+            klass_k.to(torch.int32), torch.gather(objv, 1, anchor), top_scores >= 0.0)
 
 
 def _select_topk_fused(head_outputs: Sequence[Dict[str, torch.Tensor]],
@@ -90,10 +130,11 @@ def _select_topk_fused(head_outputs: Sequence[Dict[str, torch.Tensor]],
 def postprocess(head_outputs: Sequence[Dict[str, torch.Tensor]],
                 strides: Sequence[int], cfg: PostprocessConfig) -> NMSResult:
     """Full batched postprocess from raw NHWC head maps to detections."""
-    if cfg.rmmop is not None or cfg.multi_class:
-        raise NotImplementedError(
-            "multi-class and RMMOP candidate selection are not ported yet")
-    sel = _select_topk_fused(head_outputs, strides, cfg)
+    if cfg.rmmop is None and not cfg.multi_class:
+        sel = _select_topk_fused(head_outputs, strides, cfg)
+    else:
+        preds, grids, stride_vec = concat_levels(attach_strides(head_outputs, strides))
+        sel = select_candidates(*decode_corner_scores(preds, grids, stride_vec), cfg)
     return batched_nms(
         *sel,
         iou_threshold=cfg.nms_threshold,

@@ -90,19 +90,21 @@ def test_entry_full_width_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port, and chip_smoke.py, loads no jax,
-    flax, cocodet_tpu or cv2."""
+    """Importing every module of the port (48, the evaluation family's
+    among them), and chip_smoke.py, loads no jax, flax, cocodet_tpu, cv2
+    or PIL."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import cocodet_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             cocodet_tpu_torch.__path__, "cocodet_tpu_torch.")]
-        assert len(names) >= 15, names
+        assert len(names) >= 48, names
         for name in names:
             importlib.import_module(name)
         import chip_smoke
         bad = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "cocodet_tpu", "cv2"))
+                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "cocodet_tpu", "cv2",
+                                                 "PIL"))
         assert not bad, bad
         print("ok", len(names))
     """)

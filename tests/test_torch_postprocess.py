@@ -132,11 +132,55 @@ def test_level_grid_x_fastest():
 
 
 @pytest.mark.parametrize("cfg", [PostprocessConfig(multi_class=True),
-                                 PostprocessConfig(rmmop=(1.0, 1.0))])
+                                 PostprocessConfig(rmmop=(1.0, 0.01))])
 def test_other_filters_not_ported(cfg):
+    """The multi-class and RMMOP filters (select_candidates), which raised
+    until they were ported, against JAX on the dense scene: every discrete
+    output exact, the floats within 4 ulps. RMMOP applies no conf
+    threshold, multi-class ranks every (anchor, class) pair."""
+    maps = _scene()
+    kw = dict(conf_threshold=0.001, nms_threshold=0.55, pre_nms_topk=1024, max_det=300,
+              multi_class=cfg.multi_class, rmmop=cfg.rmmop)
+    want = jax.device_get(jax.jit(lambda o: jax_postprocess(o, STRIDES, JaxConfig(**kw)))(
+        [{k: jnp.asarray(v) for k, v in m.items()} for m in maps]))
+    tk.reset_launch_counts()
+    got = postprocess([{k: torch.from_numpy(v) for k, v in m.items()} for m in maps],
+                      STRIDES, PostprocessConfig(**kw))
+    assert int(want.valid.sum()) > 200
+    _assert_matches(got, want, ULP4)
+    assert tk.overlap_matrix.launches == 0
+
+
+@pytest.mark.parametrize("case", ["rmmop_no_conf", "multi_class_small_k", "max_class"])
+def test_select_candidates_matches_jax(case):
+    """select_candidates alone, batched, on decoded random scores: RMMOP
+    keeps candidates below the conf threshold; multi-class at a K that
+    cuts the (anchor, class) pairs; max-class."""
+    from cocodet_tpu.ops.postprocess import select_candidates as jax_select
+    from cocodet_tpu_torch.ops.postprocess import select_candidates
+
+    rs = np.random.RandomState(3)
+    b, a, c = 2, 300, 6
+    boxes = rs.uniform(0, 100, (b, a, 4)).astype(np.float32)
+    obj = rs.uniform(0, 1, (b, a, 1)).astype(np.float32)
+    cls = (np.round(rs.uniform(0, 1, (b, a, c)), 2) * obj).astype(np.float32)  # ties
+    kw = {"rmmop_no_conf": dict(rmmop=(1.2, 0.5), conf_threshold=0.9, pre_nms_topk=64),
+          "multi_class_small_k": dict(multi_class=True, conf_threshold=0.2, pre_nms_topk=100),
+          "max_class": dict(conf_threshold=0.3, pre_nms_topk=128)}[case]
+    want = jax.vmap(lambda x, o, k: jax_select(x, o, k, JaxConfig(**kw)))(
+        jnp.asarray(boxes), jnp.asarray(obj), jnp.asarray(cls))
+    got = select_candidates(torch.from_numpy(boxes), torch.from_numpy(obj),
+                            torch.from_numpy(cls), PostprocessConfig(**kw))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    if case == "rmmop_no_conf":
+        assert bool(((got[1] < 0.9) & got[4]).any())
+
+
+def test_soft_nms_not_ported():
     maps = [{k: torch.from_numpy(v) for k, v in m.items()} for m in _tie_maps()]
-    with pytest.raises(NotImplementedError):
-        postprocess(maps, STRIDES, cfg)
+    with pytest.raises(NotImplementedError, match="soft"):
+        postprocess(maps, STRIDES, PostprocessConfig(soft=True))
 
 
 def test_chip_smoke_scene_is_the_dense_scene():
