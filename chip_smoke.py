@@ -115,12 +115,45 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      then the NMS kernels at K=2048 and hard-swish on the stem's activation
      of a bucket batch against their plain versions.
 
+  j. the training runtime (exp, trainer, CLI) with the device-mosaic input
+     pipeline, on the port's synthetic train set (64 train and 16 val PNG
+     images, 256-512 px, in a temporary directory): (j1) the four kernels
+     of csrc/train_aug.cu (canvas, the warp's two passes, mixup, HSV + flip
+     + letterbox) against their plain versions on the card, bit for bit, on
+     a collated batch of 16 at 768 px with mosaic and mixup on and on one
+     after close_mosaic; each timed beside its plain version and its byte
+     bound; (j2) the main path of the slice: the training CLI's main() in
+     process (entry.train) with the port's yolox_m_p6 exp at full width,
+     B=16, device_mosaic True, --cache, 3 epochs (one warm-up, the last
+     without aug), the launch counts zeroed just before and read just after
+     (K1-K4 once a step, the pair twice; the BN+act pair, the NMS pair and
+     hard-swish > 0): per epoch the iterations, img/s by the host clock,
+     the step's and the input's device ms, the wait for data, the
+     multiscale sizes, the L1 switch and peak memory; the evaluations and
+     checkpoints; every loss finite, the no-aug switch at epoch 2; (j3)
+     --resume from latest_ckpt.msgpack with max_epoch 4: start epoch, best
+     AP, parameters, momentum and EMA shadow bit for bit the saved ones, the
+     EMA's update count, then one more epoch; (j4) j1's batches through the
+     whole preprocessing on the card (kernels) and on the CPU (plain): equal
+     bits; the kernels one batch's preprocessing launches (torch.profiler);
+     (j5) j2's run cold, without --cache, for 2 epochs. Phase j runs with
+     the cuDNN and TF32 flags a new process has (benchmark off), as the
+     CLI would, whatever the earlier phases set; a kernel's byte bound
+     counts the input pixels its taps read, its small per-item inputs and
+     its output, the warp's two passes as one function (canvas to warped
+     image; its f32 intermediate is the design's, not the function's).
+
     python3 chip_smoke.py --step TREE
 
 runs phase a and g3's step measurement alone on the cocodet_tpu_torch
 package of TREE (an earlier commit unpacked with ``git archive``, or this
 checkout) and prints it as one ``step: {...}`` JSON line: two commits are
 compared in one call by running both, in turns.
+
+    python3 chip_smoke.py --phase j
+
+runs phase a and phase j alone (its checks and its kernel line, without
+the ``ok`` line): the trainer's numbers without the state of phases b-i.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -1048,21 +1081,34 @@ def check_hard_swish_kernel(device):
     return worst
 
 
-@contextlib.contextmanager
-def cudnn_deterministic():
-    """cuDNN deterministic with no benchmark, TF32 off for convs and
-    matmuls; the flags as they were afterwards."""
+def current_flags():
+    """cuDNN's (deterministic, benchmark, allow_tf32) and the matmuls'
+    allow_tf32."""
     import torch
 
-    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-             torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    return (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+            torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+
+
+@contextlib.contextmanager
+def backend_flags(flags):
+    """``current_flags()`` set to ``flags`` within; as they were afterwards."""
+    import torch
+
+    saved = current_flags()
     try:
+        (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
         yield
     finally:
         (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
-         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = flags
+         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def cudnn_deterministic():
+    """cuDNN deterministic with no benchmark, TF32 off for convs and
+    matmuls; the flags as they were afterwards."""
+    return backend_flags((True, False, False, False))
 
 
 def step_errors(a, b):
@@ -2186,6 +2232,452 @@ def phase_i(device, card):
         phase_harness(device, card, root)
 
 
+# phase j: the training runtime (exp, trainer, CLI) with the device-mosaic
+# input pipeline (csrc/train_aug.cu)
+J_BATCH = 16
+J_TRAIN, J_VAL = 64, 16  # the synthetic set's train and val PNG images (256-512 px)
+J_EXP = os.path.join("cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py")
+TRAIN_AUG_REPLACES = {"mosaic_canvas": "cocodet_tpu/data/device_mosaic.py:160",
+                      "affine_pass": "cocodet_tpu/data/device_mosaic.py:236",
+                      "mixup": "cocodet_tpu/data/device_mosaic.py:287",
+                      "train_aug": "cocodet_tpu/data/device_aug.py:202"}
+TRAIN_AUG_LAUNCHES = {"mosaic_canvas": 1, "affine_pass": 2, "mixup": 1, "train_aug": 1}
+
+
+def j_exp(root):
+    """The port's yolox_m_p6 exp on the synthetic set, device mosaic on."""
+    from cocodet_tpu_torch.exp import get_exp_by_file
+
+    exp = get_exp_by_file(os.path.join(REPO, J_EXP))
+    return exp.merge(["data_dir", root, "device_mosaic", "True"])
+
+
+def j_batches(exp):
+    """Two collated batches of 16 from the exp's device-mosaic dataset (item
+    seeds as the loader's): one with mosaic and mixup on, one after
+    close_mosaic (every item passed through)."""
+    import random
+
+    loader = exp.get_data_loader(batch_size=J_BATCH, cache_img=True, seed=0)
+    ds, collate = loader.dataset, loader.collate_fn
+    n = len(ds)
+    first = collate([ds.fetch((True, i % n), random.Random(loader._item_seed(i)))
+                     for i in range(J_BATCH)])[0]
+    ds.close_mosaic()
+    second = collate([ds.fetch((False, i % n), random.Random(loader._item_seed(100 + i)))
+                      for i in range(J_BATCH)])[0]
+    return first, second
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _span(lo, hi, num, den):
+    """How many source positions the bilinear taps of the positions lo..hi
+    (f32, in order) read, for a resize of ``den`` source positions by
+    num / den (the taps are monotone in the position)."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    if hi < lo:
+        return 0
+    f32 = torch.float32
+    i0, i1, _ = ta.lin_taps(torch.tensor([lo, hi], dtype=f32),
+                            torch.tensor(num, dtype=f32) / torch.tensor(den, dtype=f32), den)
+    return int(i1[1]) - int(i0[0]) + 1
+
+
+def canvas_read_bytes(hw5, nhw5, yc, xc, size):
+    """K1: the tile pixels that the taps of the four rectangles read."""
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    total = 0
+    for hw, nhw, y, x in zip(hw5.tolist(), nhw5.tolist(), yc.tolist(), xc.tolist()):
+        for t, (x1, y1, x2, y2, padw, padh) in enumerate(ta.tile_rects(y, x, nhw[:4], *size)):
+            (h0, w0), (nh, nw) = hw[t], nhw[t]
+            if y2 > y1 and x2 > x1:
+                total += 3 * (_span(y1 - padh, y2 - 1 - padh, nh, h0)
+                              * _span(x1 - padw, x2 - 1 - padw, nw, w0))
+    return total
+
+
+def warp_read_bytes(m6, size):
+    """K2: the canvas pixels that the warp reads, both passes composed: pass
+    2's taps pick the H values each output needs, pass 1's taps the canvas
+    pixels each of those reads (the unrounded H is the two-launch design's,
+    not the function's)."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    ih, iw = size
+    total = 0
+    for m in m6:
+        rows, _ = ta.warp_taps(m, size, 2)  # (iw, ih): the H rows of column x
+        line = torch.arange(iw, device=m.device)[:, None].expand_as(rows)
+        need = torch.zeros((2 * ih, iw), dtype=torch.bool, device=m.device)
+        for r in (rows, rows + 1):
+            ok = (r >= 0) & (r < 2 * ih)
+            need[r[ok], line[ok]] = True
+        cols, _ = ta.warp_taps(m, size, 1)  # (2ih, iw): the canvas column of H[r, x]
+        r, x = need.nonzero(as_tuple=True)
+        read = torch.zeros((2 * ih, 2 * iw), dtype=torch.bool, device=m.device)
+        for c in (cols[r, x], cols[r, x] + 1):
+            ok = (c >= 0) & (c < 2 * iw)
+            read[r[ok], c[ok]] = True
+        total += 3 * int(read.sum())
+    return total
+
+
+def mixup_read_bytes(hw5, nhw5, mrand, size, sh, sw):
+    """K3: the warped mosaic (or the whole tile 0 of a passthrough item,
+    which the mid image copies), and the partner-tile pixels that the two
+    resamples read inside the live crop."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    ih, iw = size
+    f32 = torch.float32
+    total = 0
+    for hw, nhw, mr in zip(hw5.tolist(), nhw5.tolist(), mrand.cpu()):
+        mosaic = bool(mr[0] > 0)
+        total += 3 * (ih * iw if mosaic else sh * sw)
+        if not mr[9] > 0:
+            continue
+        oh, ow = (ih, iw) if mosaic else hw[0]
+        tw2, th2 = int(mr[14]), int(mr[15])
+        yy = torch.arange(sh, dtype=f32) + mr[13]
+        xx = torch.arange(sw, dtype=f32) + mr[12]
+        if mr[11] > 0:
+            xx = torch.tensor(float(tw2 - 1), dtype=f32) - xx
+        ry = yy[(yy < th2) & (torch.arange(sh) < oh)]
+        cx = xx[(xx >= 0) & (xx < tw2) & (torch.arange(sw) < ow)]
+        if not len(ry) or not len(cx):
+            continue
+        (h0, w0), (nh, nw) = hw[4], nhw[4]
+        spans = []
+        for pos, n2, n1, src, stage1 in ((ry, th2, ih, h0, nh), (cx, tw2, iw, w0, nw)):
+            i0, i1, _ = ta.lin_taps(torch.stack([pos.min(), pos.max()]),
+                                    torch.tensor(n2, dtype=f32) / torch.tensor(n1, dtype=f32), n1)
+            spans.append(_span(int(i0[0]), min(int(i1[1]), stage1 - 1), stage1, src))
+        total += 3 * spans[0] * spans[1]
+    return total
+
+
+def aug_read_bytes(hw, nhw):
+    """K4: the mid-image pixels that the letterbox's taps read (a flip
+    mirrors the columns, so the count stays)."""
+    total = 0
+    for (h, w), (nh, nw) in zip(hw.tolist(), nhw.tolist()):
+        total += 3 * _span(0, nh - 1, nh, h) * _span(0, nw - 1, nw, w)
+    return total
+
+
+def train_aug_stages(batch, device, size):
+    """The four kernels' calls on one batch, each with its inputs as the
+    pipeline gives them: {name: ([(kernel call, plain call, args, kwargs)],
+    bytes the function must move)}. A function's bytes: the input pixels
+    its taps read, its small per-item inputs, its output written once;
+    affine_pass's two passes are one function, the canvas to the warped
+    image."""
+    import torch
+
+    from cocodet_tpu_torch.data.device_aug import aug_inputs
+    from cocodet_tpu_torch.data.device_mosaic import mosaic_mixup_batch
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    t = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    ih, iw = size
+    B, _, sh, sw, _ = t["mosaic_tiles"].shape
+    yc, xc = t["mrand"][:, 1].to(torch.int32), t["mrand"][:, 2].to(torch.int32)
+    m = t["mrand"][:, 3:9].contiguous()
+    canvas = ta.mosaic_canvas(t["mosaic_tiles"], t["hw5"], t["nhw5"], yc, xc, size)
+    h = ta.affine_pass(canvas, m, size, 1)
+    warped = ta.affine_pass(h, m, size, 2)
+    mid, hw, boxes, _, nvalid = mosaic_mixup_batch(
+        t["mosaic_tiles"], t["hw5"], t["nhw5"], t["boxes5"], t["classes5"], t["nvalid5"],
+        t["mrand"], size)
+    nhw = torch.where(t["mrand"][:, :1] > 0, torch.tensor([[ih, iw]], dtype=torch.int32,
+                                                          device=device), t["nhw5"][:, 0])
+    a = aug_inputs(hw, boxes, nvalid, t["randoms"], size)
+    small = _nbytes(t["hw5"], t["nhw5"])
+    args = {
+        "mosaic_canvas": ([(t["mosaic_tiles"], t["hw5"], t["nhw5"], yc, xc, size)],
+                          canvas_read_bytes(t["hw5"], t["nhw5"], yc, xc, size)
+                          + small + _nbytes(yc, xc, canvas)),
+        "affine_pass": ([(canvas, m, size, 1), (h, m, size, 2)],
+                        warp_read_bytes(m, size) + _nbytes(m, warped)),
+        "mixup": ([(t["mosaic_tiles"], t["hw5"], t["nhw5"], warped, t["mrand"], size)],
+                  mixup_read_bytes(t["hw5"], t["nhw5"], t["mrand"], size, sh, sw)
+                  + small + _nbytes(t["mrand"], mid)),
+        "train_aug": ([(mid, hw, nhw, a["gains"], a["flip"], a["fallback"], size)],
+                      aug_read_bytes(hw, nhw)
+                      + _nbytes(hw, nhw, a["gains"], a["flip"], a["fallback"])
+                      + B * ih * iw * 3 * 4),
+    }
+    return {name: ([(getattr(ta, name), ta.PLAIN[getattr(ta, name)], a_, {}) for a_ in calls],
+                   nbytes) for name, (calls, nbytes) in args.items()}
+
+
+def phase_j1(device, exp, batches):
+    """j1: K1-K4 against their plain versions on the card, bit for bit, on a
+    mosaic batch and a passthrough batch; kernel and plain times, bounds."""
+    import torch
+
+    size = tuple(exp.input_size)
+    stats = {}
+    for label, batch in zip(("mosaic+mixup", "after close_mosaic"), batches):
+        for name, (calls, _) in train_aug_stages(batch, device, size).items():
+            st = stats.setdefault(name, {"max_abs_err": 0.0, "differ": 0})
+            for kernel, plain, args, kw in calls:
+                got, want = kernel(*args, **kw), plain(*args, **kw)
+                n, err = bit_diff(got.float() if got.dtype == torch.uint8 else got,
+                                  want.float() if want.dtype == torch.uint8 else want)
+                st["differ"] += n
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+            print(f"j1. {name} on the {label} batch: {st['differ']} values differ from the "
+                  f"plain version", flush=True)
+    for name, (calls, nbytes) in train_aug_stages(batches[0], device, size).items():
+        ms = sum(cuda_ms(lambda k=k, a=a, kw=kw: k(*a, **kw), 20) for k, _, a, kw in calls)
+        plain_ms = sum(cuda_ms(lambda p=p, a=a, kw=kw: p(*a, **kw), 2, hold=False)
+                       for _, p, a, kw in calls)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        stats[name].update(ms=round(ms, 4), plain_ms=round(plain_ms, 4), bound_ms=round(bound, 4),
+                           bound_by="bytes", library_ms=None)
+        print(f"j1. {name}: {ms:.4f} ms a step ({TRAIN_AUG_LAUNCHES[name]} launch(es)), "
+              f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB the "
+              f"function must move), {ms / bound:.1f}x it, B={J_BATCH}, {size[0]} px", flush=True)
+    bad = [n for n, st in stats.items() if st["differ"]]
+    if bad:
+        raise AssertionError(f"j1: kernels differ from their plain versions: {bad}")
+    return stats
+
+
+def phase_j4(device, exp, batch):
+    """j4: one collated batch through K1-K4 on the card and through the plain
+    versions on the CPU: the images and labels must be equal bits."""
+    import torch
+
+    from cocodet_tpu_torch.data.device_aug import mosaic_preproc_batch
+
+    size = tuple(exp.input_size)
+    kw = dict(max_labels=exp.max_labels_mosaic, flip_prob=exp.flip_prob, hsv_prob=exp.hsv_prob)
+    on_card = mosaic_preproc_batch({k: torch.from_numpy(v).to(device) for k, v in batch.items()},
+                                   size, **kw)
+    on_cpu = mosaic_preproc_batch({k: torch.from_numpy(v) for k, v in batch.items()}, size, **kw)
+    for what, got, want in zip(("images", "labels"), on_card, on_cpu):
+        n, err = bit_diff(got.cpu(), want)
+        print(f"j4. {what} {tuple(got.shape)}: card (kernels) against CPU (plain): {n} values "
+              f"differ (max {err})", flush=True)
+        if n:
+            raise AssertionError(f"j4: the {what} differ between the card and the CPU")
+    return on_card
+
+
+def j_preproc_kernels(device, exp, batch):
+    """The CUDA kernels one batch's preprocessing launches (torch.profiler):
+    K1-K4's five and the label math's."""
+    import torch
+
+    from cocodet_tpu_torch.data.device_aug import mosaic_preproc_batch
+
+    size = tuple(exp.input_size)
+    kw = dict(max_labels=exp.max_labels_mosaic, flip_prob=exp.flip_prob, hsv_prob=exp.hsv_prob)
+    on_card = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+    n, copies, busy = step_kernel_count(lambda b, _: mosaic_preproc_batch(b, size, **kw),
+                                        on_card, None)
+    own = sum(TRAIN_AUG_LAUNCHES.values())
+    if n is None:
+        print("j4. kernels of one batch's preprocessing: not measured (the profiler recorded "
+              "no device activity)", flush=True)
+    else:
+        print(f"j4. kernels of one batch's preprocessing (torch.profiler): {n}, of them {own} "
+              f"of csrc/train_aug.cu and {n - own} of the label math; {copies} copies or "
+              f"fills; device busy {busy:.3f} ms", flush=True)
+
+
+def j_argv(root, out_dir, max_epoch, cache=True):
+    """The CLI line of phase j: the port's phase-1 exp at B=16, device mosaic,
+    3 epochs (one warm-up, the last without aug). The exp's multiscale step of
+    32 draws sizes the 4-level model cannot take (672, 736, 800: not
+    multiples of its stride 64, in JAX as in the port; ROADMAP Queue 3), so
+    the buckets span the same 640-832 at the stride-64 granularity of the
+    reference's CustomP6Exp."""
+    flags = ["-f", os.path.join(REPO, J_EXP), "-b", str(J_BATCH)] + (["--cache"] if cache else [])
+    return flags + ["data_dir", root, "device_mosaic", "True", "max_epoch", str(max_epoch),
+                    "warmup_epochs", "1", "no_aug_epochs", "1", "print_interval", "2",
+                    "output_dir", out_dir, "multiscale_range", "(-2, 1)",
+                    "multiscale_step", "64"]
+
+
+def j_counts():
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    return ({fn.__name__: fn.launches for fn in ta.WRAPPERS}
+            | {f"bn_act.{fn.__name__}": fn.launches for fn in bnk.WRAPPERS}
+            | {"overlap_matrix": nk.overlap_matrix.launches,
+               "greedy_keep": nk.greedy_keep.launches, "hard_swish": hs.hard_swish.launches})
+
+
+def j_reset():
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    for mod in (ta, bnk, hs, nk):
+        mod.reset_launch_counts()
+
+
+def same_bits(a, b):
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return a.dtype == b.dtype and a.shape == b.shape and a.tobytes() == b.tobytes()
+
+
+def _ms(v, fmt=".2f"):
+    return "not measured" if v is None else f"{v:{fmt}}"
+
+
+def j_report(trainer, label):
+    for st in trainer.epoch_stats:
+        print(f"{label} epoch {st['epoch']}: {st['iterations']} iterations, "
+              f"{st['img_per_s']:.2f} img/s trained by the host clock (data included, "
+              f"{st['seconds']:.2f} s), step {_ms(st['step_ms'])} device ms, data wait "
+              f"{st['data_wait_ms']:.2f} ms a step, input kernels and label math "
+              f"{_ms(st['input_ms'], '.3f')} device ms a step, sizes {st['size_sequence']}, L1 "
+              f"{st['use_l1']}, peak {st['peak_mem_mb'] / 1024:.2f} GiB, non-finite losses "
+              f"{st['nonfinite_losses']}", flush=True)
+    for ev in trainer.eval_stats:
+        print(f"{label} evaluation after epoch {ev['epoch']}: AP50 {ev['AP50']:.4f}, AP "
+              f"{ev['AP']:.4f}, {ev['seconds']:.2f} s ({J_VAL} val images)", flush=True)
+    for ck in trainer.ckpt_stats:
+        print(f"{label} checkpoint {ck['name']}: {ck['bytes'] / 2 ** 20:.1f} MiB written in "
+              f"{ck['seconds']:.2f} s", flush=True)
+    bad = sum(st["nonfinite_losses"] for st in trainer.epoch_stats)
+    if bad:
+        raise AssertionError(f"{label}: {bad} non-finite loss values")
+
+
+def phase_j2(device, root, out_dir):
+    """j2: the CLI's main path in process, counts zeroed just before."""
+    from cocodet_tpu_torch import entry
+
+    j_reset()
+    t0 = time.perf_counter()
+    trainer = entry.train(j_argv(root, out_dir, 3), device=device)
+    seconds = time.perf_counter() - t0
+    counts = j_counts()
+    j_report(trainer, "j2.")
+    stats = trainer.epoch_stats
+    switch = [st["epoch"] for st in stats if st["use_l1"]]
+    print(f"j2. {len(stats)} epochs in {seconds:.2f} s; the no-aug switch and L1 from epoch "
+          f"{switch[0] if switch else None}; launches {counts}", flush=True)
+    if switch != [2, 3] or len(trainer.eval_stats) != 2:
+        raise AssertionError(f"j2: no-aug epochs {switch}, {len(trainer.eval_stats)} "
+                             "evaluations (want epochs 2 and 3, two evaluations)")
+    iters = sum(st["iterations"] for st in stats)
+    want = {"mosaic_canvas": iters, "affine_pass": 2 * iters, "mixup": iters, "train_aug": iters}
+    zero = [k for k, v in counts.items() if v == 0 and not k.endswith("finish")]
+    if zero or any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"j2: launches {counts}; want > 0 each and {want}")
+    return trainer, counts
+
+
+def phase_j3(device, root, out_dir, first):
+    """j3: --resume from latest_ckpt.msgpack with max_epoch 4: the restored
+    state equal to the saved one, bit for bit; then one more epoch."""
+    import numpy as np
+
+    from cocodet_tpu_torch.core.trainer import Trainer
+    from cocodet_tpu_torch.tools.train import build
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint
+    from cocodet_tpu_torch.utils.convert import (ema_variables, export_variables,
+                                                 flatten_tree, optimizer_state_dict)
+
+    path = os.path.join(first.file_name, "latest_ckpt.msgpack")
+    saved = load_checkpoint(path)
+    exp, args = build(["--resume", "--device", str(device)] + j_argv(root, out_dir, 4))
+    trainer = Trainer(exp, args, device=device)
+    trainer.before_train()
+    got = {"raw_model": export_variables(trainer.model), "model": ema_variables(trainer.state.ema),
+           "opt_state": optimizer_state_dict(trainer.optimizer, trainer.model)}
+    differ = {}
+    for key, tree in got.items():
+        want = flatten_tree(saved[key])
+        have = flatten_tree(tree)
+        differ[key] = sum(1 for k in want if k not in have or not same_bits(want[k], have[k]))
+        differ[key] += len(set(have) - set(want))
+    updates = trainer.state.ema.updates
+    print(f"j3. resumed from {os.path.basename(path)}: start_epoch {trainer.start_epoch}, best_ap "
+          f"{trainer.best_ap} (saved {float(saved['best_ap'])}), EMA updates {updates} "
+          f"(3 x {trainer.iters_per_epoch}), leaves differing from the saved ones {differ}",
+          flush=True)
+    if (trainer.start_epoch != 3 or trainer.best_ap != float(saved["best_ap"])
+            or updates != 3 * trainer.iters_per_epoch or any(differ.values())):
+        raise AssertionError("j3: the resumed state is not the saved one")
+    trainer.train_epochs()
+    j_report(trainer, "j3.")
+
+
+def phase_j5(device, root, out_dir):
+    """j5: j2's run cold, without --cache (every tile decoded from its PNG in
+    the loader's threads), for 2 epochs, the first with mosaic and mixup: the
+    wait for data against the step."""
+    from cocodet_tpu_torch import entry
+
+    trainer = entry.train(j_argv(root, out_dir, 2, cache=False) + ["no_aug_epochs", "0"],
+                          device=device)
+    j_report(trainer, "j5. cold:")
+    if [st["use_l1"] for st in trainer.epoch_stats] != [False, True]:
+        raise AssertionError("j5: want one mosaic epoch, then the no-aug epoch")
+
+
+def phase_j(device, card, flags):
+    """j: the training runtime on the synthetic set (see the docstring),
+    with the backend ``flags`` (``current_flags()``) that the CLI's process
+    starts with, whatever earlier phases set."""
+    import tempfile
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp, backend_flags(flags):
+        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=J_TRAIN, n_val=J_VAL,
+                                   size_range=(256, 512), seed=0, variant="default")
+        exp = j_exp(root)
+        batches = j_batches(exp)
+        stats = phase_j1(device, exp, batches)
+        trainer, counts = phase_j2(device, root, os.path.join(tmp, "out"))
+        for name in stats:
+            stats[name]["launches"] = counts[name]
+        phase_j3(device, root, os.path.join(tmp, "out"), trainer)
+        del trainer
+        for batch in batches:
+            phase_j4(device, exp, batch)
+        j_preproc_kernels(device, exp, batches[0])
+        phase_j5(device, root, os.path.join(tmp, "cold"))
+    print(f"j. phase j: {time.perf_counter() - t_start:.1f} s ({card}; cuDNN deterministic, "
+          f"benchmark, TF32, matmul TF32: {flags})", flush=True)
+    return stats
+
+
+def train_aug_kernels(aug_stats):
+    """The kernels line's entries of K1-K4."""
+    return [{"name": name, "route": "cuda", "source": "cocodet_tpu_torch/csrc/train_aug.cu",
+             "replaces": TRAIN_AUG_REPLACES[name],
+             **{k: st[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")}}
+            for name, st in aug_stats.items()]
+
+
 def main():
     try:
         import torch
@@ -2196,11 +2688,12 @@ def main():
         print("chip_smoke: FAIL: no CUDA device (torch.cuda.is_available() is False)",
               file=sys.stderr)
         return 2
+    flags = current_flags()  # before any phase sets them
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args[0] != "--step"):
-        print("usage: python3 chip_smoke.py [--step TREE]", file=sys.stderr)
+    if args and (len(args) != 2 or args not in (["--step", args[1]], ["--phase", "j"])):
+        print("usage: python3 chip_smoke.py [--step TREE | --phase j]", file=sys.stderr)
         return 2
-    tree = os.path.abspath(args[1]) if args else REPO
+    tree = os.path.abspath(args[1]) if args[:1] == ["--step"] else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
         print(f"chip_smoke: FAIL: no cocodet_tpu_torch package in {tree}", file=sys.stderr)
         return 2
@@ -2212,10 +2705,14 @@ def main():
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}", flush=True)
 
     build_s = phase_build()
-    if args:
+    if args[:1] == ["--step"]:
         # --step TREE: g3's step measurement alone, of TREE's package
         res, _ = measure_train_step(device, card)
         print("step: " + json.dumps({"tree": tree, **res}), flush=True)
+        return 0
+    if args:
+        # --phase j
+        print(json.dumps({"kernels": train_aug_kernels(phase_j(device, card, flags))}))
         return 0
     worst = phase_kernels(device)
     variables = serving_variables(seed=0)
@@ -2236,6 +2733,8 @@ def main():
     torch.cuda.empty_cache()
     bn_stats["bn_act_finish"]["launches"] = phase_dp(device, card)
     phase_i(device, card)
+    torch.cuda.empty_cache()
+    aug_stats = phase_j(device, card, flags)
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}
@@ -2260,6 +2759,7 @@ def main():
         kernels.append({"name": name, "route": "cuda",
                         "source": "cocodet_tpu_torch/csrc/bn_act.cu",
                         "replaces": "cocodet_tpu/models/blocks.py:403", **st})
+    kernels += train_aug_kernels(aug_stats)
     print(f"build_s={build_s:.2f} total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -17,13 +17,15 @@ given a ``parallel.Mesh``, data-parallel over the mesh's ranks.
 a data x space mesh. ``build_evaluator``/``evaluate``: the COCO evaluator
 at the competition exp's point over a COCO-layout directory (the harness,
 ``python -m cocodet_tpu_torch.harness``, serves an image folder).
+``train``: the training CLI (``tools/train.py``) in process: an exp, its
+device-mosaic loader, the epoch loop with evaluation and checkpoints.
 """
 
 from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Callable, List, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -237,3 +239,13 @@ def dryrun_multichip(n_devices: int, device: Union[str, torch.device] = "cuda",
         mesh = "" if name == "1-D" else f"2-D ({n_devices // 2} data x 2 space) mesh "
         print(f"dryrun_multichip({n_devices}): {mesh}ok, loss={losses[0]:.4f}", flush=True)
     return results
+
+
+def train(argv: Sequence[str], device: Union[str, torch.device] = "cuda"):
+    """``python -m cocodet_tpu_torch.tools.train <argv>`` in process, on
+    ``device`` (the card unless the CPU is asked for); returns the Trainer,
+    whose ``epoch_stats``, ``eval_stats`` and ``ckpt_stats`` hold what the run
+    measured."""
+    from .tools.train import main
+
+    return main(["--device", str(device), *argv])

@@ -14,16 +14,20 @@ detections) go to one JSON file, optionally after a ``--challenge`` header;
 ``--profile`` prints the seconds of each phase and the batch shapes; with an
 ``annotation`` file, the harness scores itself.
 
-Weights: checkpoint loading (msgpack trees, ``.pth`` state dicts) is not
-ported. With no ``ckpt``, or a ``ckpt`` path that does not exist, the
-harness draws weights from numpy seed 0 (``utils/convert.py::
-random_variables``) and says so, as the JAX harness does with its own
-random init; ``run(variables=...)`` takes a fused flax-layout tree
-instead. A ``ckpt`` that exists raises: random weights are never served
-under a checkpoint's name. ``quant: "w8a8"`` with an existing
-``slim_spec`` serves ``entry.build_headline``; ``stem6``, ``split_cat``,
-w8a8 without a slim spec, soft-NMS and the multi-chip serving modes raise.
-Runs on the card unless ``--device cpu`` is given.
+Weights: a ``ckpt`` msgpack file (the JAX package's fused deployment
+trees, ``{"model": {"params": ...}}`` or the bare tree) is read with the
+port's own reader (``utils/checkpoint.py``) and laid over the init leaf by
+leaf (``load_matched``, harness/main.py:96-104). The init, and the weights
+with no ``ckpt`` or a ``ckpt`` path that does not exist, are drawn from
+numpy seed 0 (``utils/convert.py::random_variables``; the JAX harness
+draws its own random init and warns as the port does);
+``run(variables=...)`` takes a fused flax-layout tree instead. A checkpoint
+that matches no leaf of the model raises: random weights are never served
+under a checkpoint's name. ``.pth`` state dicts, w8a8 checkpoints (their
+``quant`` collection) and ``stem6`` raise. ``quant: "w8a8"`` with an
+existing ``slim_spec`` and no checkpoint serves ``entry.build_headline``;
+``split_cat``, w8a8 without a slim spec, soft-NMS and the multi-chip
+serving modes raise. Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -44,14 +48,14 @@ from .entry import Predictor, build_headline, cast_parameters
 from .evaluators.coco_metric import COCOMeanAP
 from .models.yolox import MODEL_SPECS, YOLOX, build_model
 from .ops.postprocess import PostprocessConfig, postprocess
-from .utils.convert import random_variables
+from .utils.checkpoint import load_checkpoint, load_matched
+from .utils.convert import flatten_tree, random_variables
 from .utils.metric import Timer
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME_MAP = {"yolox": "yolox", "yolox-dw": "yolox-dw", "yolox-m-p6": "yolox-p6",
             "yolox-m-p6-pr": "yolox-p6", "yolox-p6": "yolox-p6", "yolox-p6-v2": "yolox-p6v2"}
-CKPT_TODO = ("checkpoint loading (msgpack trees, .pth state dicts) is not ported "
-             "(ROADMAP Queue 1 item 2)")
+CKPT_TODO = "is not ported (ROADMAP Queue 1 item 2)"
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -73,6 +77,24 @@ def postprocess_config(cfg: Mapping[str, Any]) -> PostprocessConfig:
     )
 
 
+def _shapes(name: str, depth: float, width: float, spec: Optional[str]) -> torch.nn.Module:
+    """The fused model on the meta device: the init's leaves and shapes."""
+    slim = load_slim_spec(spec) if spec else None
+    with torch.device("meta"):
+        return YOLOX(MODEL_SPECS[name], depth=depth, width=width, fused=True, slim=slim)
+
+
+def load_ckpt_variables(path: str, init: Mapping[str, Any]) -> Dict[str, Any]:
+    """harness/main.py:96-104: the checkpoint's ``model`` tree (or the file's
+    tree) laid over ``init``'s params with ``load_matched``."""
+    loaded = load_checkpoint(path)
+    tree = loaded.get("model", loaded)
+    params = tree.get("params", tree)
+    if not set(flatten_tree(params)) & set(flatten_tree(init["params"])):
+        raise ValueError(f"{path}: the checkpoint matches no parameter of the model")
+    return {**init, "params": load_matched(init["params"], params)}
+
+
 def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
                                 device: Union[str, torch.device] = "cuda") -> Predictor:
     """The model of harness/main.py:36-130 by type string, served at the
@@ -91,12 +113,20 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
     dtype = torch.bfloat16 if cfg.get("half", True) else torch.float32
     spec = cfg.get("slim_spec")
     spec = spec if spec and os.path.exists(spec) else None
+    quant = cfg.get("quant")
     ckpt = cfg.get("ckpt")
     if ckpt and os.path.exists(ckpt):
-        raise NotImplementedError(f"{ckpt}: {CKPT_TODO}")
-    if variables is None:
+        if ckpt.endswith(".pth"):
+            raise NotImplementedError(f"{ckpt}: loading a .pth state dict {CKPT_TODO}")
+        if quant:
+            raise NotImplementedError(f"{ckpt}: loading a {quant} checkpoint (its quant "
+                                      f"collection) {CKPT_TODO}")
+        if variables is None:
+            variables = random_variables(_shapes(name, depth, width, spec), 0)
+        variables = load_ckpt_variables(ckpt, variables)
+        print(f"loaded checkpoint {ckpt}")
+    elif variables is None:
         print("WARNING: no checkpoint — random weights (dummy-quality output)")
-    quant = cfg.get("quant")
     if quant == "w8a8" and spec is not None and name == "yolox-p6":
         predictor = build_headline(spec, depth, width, dtype, device, variables)
         predictor = Predictor(predictor.model, postprocess_config(cfg))
@@ -106,10 +136,7 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
     else:
         slim = load_slim_spec(spec) if spec else None
         if variables is None:
-            with torch.device("meta"):
-                shapes = YOLOX(MODEL_SPECS[name], depth=depth, width=width, fused=True,
-                               slim=slim)
-            variables = random_variables(shapes, 0)
+            variables = random_variables(_shapes(name, depth, width, spec), 0)
         model = build_model(name, depth=depth, width=width, fused=True, slim=slim,
                             device=device, variables=variables)
         predictor = Predictor(cast_parameters(model, dtype), postprocess_config(cfg))

@@ -23,6 +23,10 @@ which the runtime does not read; they are skipped. A ``"calib"`` conv's
 ``act_absmax`` buffer is state, not a variable: ``jax_layout`` lists it
 under ``quant_stats``, as flax does, and ``load_variables`` leaves it alone.
 
+``optimizer_state_dict``/``load_optimizer_state`` map the SGD's momentum
+buffers to optax's trace and back, ``ema_variables``/``load_ema`` the EMA
+shadow to flax ``{params, batch_stats}``, for checkpoints JAX reads.
+
 Loading reference-layout (torch YOLOX) state dicts is not ported yet.
 """
 
@@ -191,13 +195,11 @@ def random_variables(model: nn.Module, seed: int,
     return unflatten_tree(flat)
 
 
-def export_variables(model: nn.Module) -> Dict[str, Any]:
-    """The inverse of ``load_variables``: the model's parameters and
-    buffers as a flax-layout tree of numpy arrays (``{"params": ...,
-    "batch_stats": ...}``; kernels HWIO), so a port model's state compares
-    leaf by leaf with a flax variable tree."""
+def export_tensors(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """``{state-dict name: tensor}`` -> a flax-layout tree of numpy copies
+    (kernels HWIO)."""
     flat: Dict[Path, np.ndarray] = {}
-    for name, t in _torch_entries(model).items():
+    for name, t in named.items():
         path, _ = jax_path(name, t)
         arr = t.detach().cpu()
         arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
@@ -205,3 +207,71 @@ def export_variables(model: nn.Module) -> Dict[str, Any]:
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         flat[path] = np.array(arr, order="C")  # a copy: the model trains on in place
     return unflatten_tree(flat)
+
+
+def export_variables(model: nn.Module) -> Dict[str, Any]:
+    """The inverse of ``load_variables``: the model's parameters and
+    buffers as a flax-layout tree of numpy arrays (``{"params": ...,
+    "batch_stats": ...}``; kernels HWIO), so a port model's state compares
+    leaf by leaf with a flax variable tree."""
+    return export_tensors(_torch_entries(model))
+
+
+def load_tensors(named: Mapping[str, torch.Tensor], tree: Mapping[str, Any]) -> None:
+    """The inverse of ``export_tensors``: copy a flax-layout tree into the
+    named tensors in place (their dtype and device kept). Raises on a
+    missing or unused leaf and on a shape mismatch."""
+    arrays = convert_variables(tree)
+    missing = sorted(set(named) - set(arrays))
+    unused = sorted(set(arrays) - set(named))
+    if missing or unused:
+        raise KeyError(f"tree does not match: missing {missing[:8]} ({len(missing)}), "
+                       f"unused {unused[:8]} ({len(unused)})")
+    with torch.no_grad():
+        for name, t in named.items():
+            if tuple(arrays[name].shape) != tuple(t.shape):
+                raise ValueError(f"{name}: shape {arrays[name].shape} in the tree, "
+                                 f"{tuple(t.shape)} here")
+            t.copy_(torch.tensor(arrays[name]))
+
+
+# --------------------------------------------------------------------------
+# the optimizer and the EMA
+# --------------------------------------------------------------------------
+
+
+def optimizer_state_dict(optimizer, model: nn.Module) -> Dict[str, Any]:
+    """The port's SGD (``core/train_state.py::SGD``) as the state dict of
+    optax's ``chain(add_decayed_weights(wd, mask), sgd(schedule, momentum,
+    nesterov=True))`` (flax ``to_state_dict``): ``{"0": {"inner_state": {}},
+    "1": {"0": {"trace": params}, "1": {"count": int32}}}``. optax's trace
+    and torch's ``momentum_buffer`` both hold ``g + momentum * buf``; a
+    parameter that has taken no step has a zero trace."""
+    buffers = {}
+    for name, p in model.named_parameters():
+        buf = optimizer.state.get(p, {}).get("momentum_buffer")
+        buffers[name] = torch.zeros_like(p) if buf is None else buf
+    trace = export_tensors(buffers)["params"]
+    return {"0": {"inner_state": {}},
+            "1": {"0": {"trace": trace}, "1": {"count": np.asarray(optimizer.count, np.int32)}}}
+
+
+def load_optimizer_state(optimizer, model: nn.Module, state: Mapping[str, Any]) -> None:
+    """Set the SGD's momentum buffers and step count from optax's state dict
+    (``optimizer_state_dict``'s layout, as a JAX checkpoint holds it)."""
+    named = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in model.named_parameters()}
+    load_tensors(named, {"params": state["1"]["0"]["trace"]})
+    for name, p in model.named_parameters():
+        optimizer.state[p]["momentum_buffer"] = named[name].to(p.dtype)
+    optimizer.count = int(np.asarray(state["1"]["1"]["count"]))
+
+
+def ema_variables(ema) -> Dict[str, Any]:
+    """The EMA shadow (``utils/ema.py::ModelEMA``) as flax ``{params,
+    batch_stats}``, JAX's ``EMAState.shadow``."""
+    return export_tensors(ema.shadow)
+
+
+def load_ema(ema, variables: Mapping[str, Any]) -> None:
+    """Set the EMA shadow from flax ``{params, batch_stats}``."""
+    load_tensors(ema.shadow, variables)

@@ -92,3 +92,16 @@ class Timer:
         self.meters.update({name: dt})
         self._t = time.perf_counter()
         return dt
+
+
+def device_mem_usage_mb(device=None) -> float:
+    """Peak device memory in MB since the last ``reset_peak_memory_stats``
+    (``torch.cuda.max_memory_allocated``); 0 on the CPU."""
+    import torch
+
+    device = torch.device(device) if device is not None else None
+    if device is not None and device.type != "cuda":
+        return 0.0
+    if device is None and not torch.cuda.is_available():
+        return 0.0
+    return torch.cuda.max_memory_allocated(device) / 2 ** 20

@@ -90,21 +90,25 @@ def test_entry_full_width_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (48, the evaluation family's
-    among them), and chip_smoke.py, loads no jax, flax, cocodet_tpu, cv2
-    or PIL."""
+    """Importing every module of the port (64, the evaluation family's and
+    the training runtime's among them), and chip_smoke.py, loads no jax,
+    flax, cocodet_tpu, cv2, PIL or msgpack (the port writes and reads
+    checkpoints with its own codec)."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import cocodet_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(
             cocodet_tpu_torch.__path__, "cocodet_tpu_torch.")]
-        assert len(names) >= 48, names
+        assert len(names) >= 64, names
+        assert {"cocodet_tpu_torch.core.trainer", "cocodet_tpu_torch.tools.train",
+                "cocodet_tpu_torch.exps.p6.yolox_m_p6", "cocodet_tpu_torch.utils.msgpack",
+                "cocodet_tpu_torch.ops.cuda.train_aug"} <= set(names), names
         for name in names:
             importlib.import_module(name)
         import chip_smoke
         bad = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib", "flax", "cocodet_tpu", "cv2",
-                                                 "PIL"))
+                                                 "PIL", "msgpack"))
         assert not bad, bad
         print("ok", len(names))
     """)

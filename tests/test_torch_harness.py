@@ -104,9 +104,23 @@ def test_run_matches_jax(folder, tmp_path):
     assert got == harness.run(_config(folder, conf_threshold=0.5), str(tmp_path / "seed.json"),
                               challenge=True, device="cpu")
     assert got == json.loads((tmp_path / "port.json").read_text())
+    g = _by_image(got[1:])
+    assert "extra_a.png" in g and 99 in g
+    assert all(r["segmentation"] == [] for r in got[1:])
+    dummies = _assert_records_match(got, want)
+    assert 0 < dummies < len(got) - 1  # some images have detections, some a dummy
+    assert report["images"] == 7 and report["stats"] is not None
+    assert sorted(report["phases"]) == ["convert", "forward+nms", "h2d", "json", "setup",
+                                        "warmup"]
+    assert sorted(set(report["shapes"])) == [(2, 128, 128, 3)]
+
+
+def _assert_records_match(got, want):
+    """The records of test_run_matches_jax's comparison, at its tolerances;
+    returns the number of dummy records."""
     assert got[0]["parameters"] == want[0]["parameters"]
     g, w = _by_image(got[1:]), _by_image(want[1:])
-    assert list(g) == list(w) and "extra_a.png" in g and 99 in g
+    assert list(g) == list(w)
     dummies = 0
     for img, wr in w.items():
         gr = g[img]
@@ -120,20 +134,48 @@ def test_run_matches_jax(folder, tmp_path):
         close = (np.abs(gb[:, None] - wb[None]) <= tol[None]).all(-1) & same_cat
         assert close.any(1).all() and close.any(0).all(), img
         dummies += sum(r["score"] == 0.0 for r in wr)
-        assert all(r["segmentation"] == [] for r in gr)
-    assert 0 < dummies < len(got) - 1  # some images have detections, some a dummy
-    assert report["images"] == 7 and report["stats"] is not None
-    assert sorted(report["phases"]) == ["convert", "forward+nms", "h2d", "json", "setup",
-                                        "warmup"]
-    assert sorted(set(report["shapes"])) == [(2, 128, 128, 3)]
+    return dummies
+
+
+def test_checkpoint_matches_jax(folder, tmp_path):
+    """A fused deployment tree written by JAX's ``save_checkpoint`` (numpy
+    seed 1 weights): the port's harness reads it with its own reader and
+    gives the records JAX's harness gives from the same file, at
+    test_run_matches_jax's tolerances; the records differ from the seed-0
+    weights served without a checkpoint."""
+    from cocodet_tpu.utils.checkpoint import save_checkpoint
+
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, fused=True)
+    variables = random_variables(shapes, 1)
+    ckpt = save_checkpoint({"model": variables}, False, str(tmp_path), "deploy")
+    cfg = _config(folder, conf_threshold=0.5)
+    cfg.update(ckpt=ckpt, annotation=None)
+    want = _jax_harness().run(cfg, str(tmp_path / "jax.json"), challenge=True)
+    got = harness.run(cfg, str(tmp_path / "port.json"), challenge=True, device="cpu")
+    dummies = _assert_records_match(got, want)
+    assert 0 < dummies < len(got) - 1
+    cfg["ckpt"] = None
+    assert harness.run(cfg, str(tmp_path / "seed.json"), challenge=True, device="cpu") != got
 
 
 def test_checkpoint_on_disk_raises(folder, tmp_path):
-    ckpt = tmp_path / "weights.msgpack"
-    ckpt.write_bytes(b"\x80")
+    """What the port cannot load raises: a .pth state dict, a w8a8
+    checkpoint, a tree that matches no parameter (never random weights
+    under a checkpoint's name)."""
     cfg = _config(folder)
-    cfg["ckpt"] = str(ckpt)
-    with pytest.raises(NotImplementedError, match="checkpoint loading"):
+    pth = tmp_path / "weights.pth"
+    pth.write_bytes(b"\x80")
+    cfg["ckpt"] = str(pth)
+    with pytest.raises(NotImplementedError, match=r"\.pth"):
+        harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
+    empty = tmp_path / "weights.msgpack"
+    empty.write_bytes(b"\x80")  # msgpack's empty map
+    cfg["ckpt"] = str(empty)
+    with pytest.raises(ValueError, match="matches no parameter"):
+        harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
+    cfg["quant"] = "w8a8"
+    with pytest.raises(NotImplementedError, match="w8a8 checkpoint"):
         harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
 
 
