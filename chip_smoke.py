@@ -121,8 +121,16 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      of csrc/train_aug.cu (canvas, the warp's two passes, mixup, HSV + flip
      + letterbox) against their plain versions on the card, bit for bit, on
      a collated batch of 16 at 768 px with mosaic and mixup on and on one
-     after close_mosaic; each timed beside its plain version and its byte
-     bound; (j2) the main path of the slice: the training CLI's main() in
+     after close_mosaic, then (j1_cases) all four on both batches of an exp
+     at each multiscale size 640-832, and K1 and K4 on the edge cases of
+     their block tiling (B=1 and 3, mosaic centres on and flush with the
+     canvas edges, whole blocks of background, one-pixel-wide sources,
+     extents off the block grid, flip and fallback items together, the
+     largest tiles, downscales whose stages are walked in bands), printing
+     the values that differ and the bands a block walks; each timed on the
+     first batch beside its plain version and its byte bound, K4 also with
+     no HSV jitter, and K1 and K4 at 0.9 of the extents (off their copy
+     path); (j2) the main path of the slice: the training CLI's main() in
      process (entry.train) with the port's yolox_m_p6 exp at full width,
      B=16, device_mosaic True, --cache, 3 epochs (one warm-up, the last
      without aug), the launch counts zeroed just before and read just after
@@ -154,6 +162,11 @@ compared in one call by running both, in turns.
 
 runs phase a and phase j alone (its checks and its kernel line, without
 the ``ok`` line): the trainer's numbers without the state of phases b-i.
+
+    python3 chip_smoke.py --phase j1
+
+runs phase a and j1 alone (K1-K4's checks on every case, their times and
+bounds, as one ``j1: {...}`` JSON line, without the ``ok`` line).
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -2422,25 +2435,141 @@ def train_aug_stages(batch, device, size):
                    nbytes) for name, (calls, nbytes) in args.items()}
 
 
-def phase_j1(device, exp, batches):
-    """j1: K1-K4 against their plain versions on the card, bit for bit, on a
-    mosaic batch and a passthrough batch; kernel and plain times, bounds."""
+def j1_hold(kernel, args):
+    """One call of a K1-K4 wrapper and of its plain version on the same
+    inputs on the card: (values that differ, max |difference|)."""
     import torch
+
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    got, want = kernel(*args), ta.PLAIN[kernel](*args)
+    return bit_diff(got.float() if got.dtype == torch.uint8 else got,
+                    want.float() if want.dtype == torch.uint8 else want)
+
+
+J1_SIZES = (640, 704, 768, 832)  # phase j's multiscale sizes (stride 64)
+
+
+def j1_cases(device, exp, batches, root):
+    """The cases that K1 and K4's block tiling must hold besides j1's two
+    batches: [(case, kernel, args)]. The whole pipeline (K1-K4) at each
+    multiscale size, from an exp of that input size; then K1 and K4 on B=1
+    and B=3, mosaic centres flush with each canvas edge (and on it),
+    rectangles that leave whole blocks of background, a 1/16 downscale
+    (its stages walked in bands), extents that are not multiples of the
+    block, flip and fallback items in one batch, tiles as large as the
+    input (scale 1, the smallest the pipeline draws), sources one pixel wide
+    or high, and a 1/8 downscale."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    cases = []
+    for s in J1_SIZES:
+        ex = j_exp(root)
+        ex.input_size = (s, s)
+        for label, batch in zip(("mosaic", "passthrough"), j_batches(ex)):
+            for name, (calls, _) in train_aug_stages(batch, device, (s, s)).items():
+                cases += [(f"{s} px, {label} batch", getattr(ta, name), a) for _, _, a, _ in calls]
+    size = tuple(exp.input_size)
+    ih, iw = size
+    mosaic, passthrough = (train_aug_stages(b, device, size) for b in batches)
+    k1 = mosaic["mosaic_canvas"][0][0][2]  # (tiles, hw5, nhw5, yc, xc, size)
+    k4 = passthrough["train_aug"][0][0][2]  # (mid, hw, nhw, gains, flip, fallback, size)
+    k4_mosaic = mosaic["train_aug"][0][0][2]
+    for n in (1, 3):
+        cases += [(f"B={n}", ta.mosaic_canvas,
+                   tuple(a[:n].contiguous() if torch.is_tensor(a) else a for a in k1)),
+                  (f"B={n}", ta.train_aug,
+                   tuple(a[:n].contiguous() if torch.is_tensor(a) else a for a in k4))]
+    tiles, hw5, nhw5, yc, xc, _ = k1
+    B = tiles.shape[0]
+    i32 = dict(dtype=torch.int32, device=device)
+    centres = [(0, 0), (2 * ih, 2 * iw), (0, 2 * iw), (2 * ih, 0), (ih // 2, iw // 2),
+               (3 * ih // 2, 3 * iw // 2), (ih // 2, 3 * iw // 2), (3 * ih // 2, iw // 2)]
+    cy = torch.tensor([centres[i % len(centres)][0] for i in range(B)], **i32)
+    cx = torch.tensor([centres[i % len(centres)][1] for i in range(B)], **i32)
+    cases.append(("centres flush with the canvas edges", ta.mosaic_canvas,
+                  (tiles, hw5, nhw5, cy, cx, size)))
+    small = nhw5.clone()
+    small[:, :4] = torch.tensor([ih // 5 + 3, iw // 7 + 5], **i32)
+    cases.append(("rectangles leaving whole blocks of background", ta.mosaic_canvas,
+                  (tiles, hw5, small, torch.full_like(yc, ih), torch.full_like(xc, iw), size)))
+    tiny = nhw5.clone()
+    tiny[:, :4] = ih // 16 + 1
+    cases.append(("a 1/16 downscale", ta.mosaic_canvas, (tiles, hw5, tiny, yc, xc, size)))
+    thin = hw5.clone()
+    thin[:, 0::2, 1] = 1  # tiles 0, 2 and 4 one pixel wide, 1 and 3 one pixel high
+    thin[:, 1::2, 0] = 1
+    cases.append(("one-pixel-wide and -high tiles", ta.mosaic_canvas,
+                  (tiles, thin, nhw5, yc, xc, size)))
+    mid, hw, nhw, gains, flip, fallback, _ = k4
+    idx = torch.arange(B, device=device)
+    ragged = torch.stack([ih - 17 - 32 * (idx % 3), iw - 45 - 64 * (idx % 2)], 1).to(torch.int32)
+    cases.append(("extents not multiples of the block", ta.train_aug,
+                  (mid, hw, torch.minimum(ragged, nhw).contiguous(), gains, flip, fallback,
+                   size)))
+    mixed_flip, mixed_fb = (idx % 2).to(torch.int32), ((idx // 2) % 2).to(torch.int32)
+    for label, (m, h, e, g, _, _, _) in (("passthrough", k4), ("mosaic", k4_mosaic)):
+        cases.append((f"flip and fallback items in one {label} batch", ta.train_aug,
+                      (m, h, e, g, mixed_flip, mixed_fb, size)))
+    sh, sw = mid.shape[1:3]
+    full = torch.tensor([[sh, sw]], **i32).expand(B, 2).contiguous()
+    cases.append(("tiles as large as the input", ta.train_aug,
+                  (mid, full, torch.tensor([[ih, iw]], **i32).expand(B, 2).contiguous(), gains,
+                   mixed_flip, mixed_fb, size)))
+    narrow = torch.stack([torch.where(idx % 2 == 0, sh, 1), torch.where(idx % 2 == 0, 1, sw)],
+                         1).to(torch.int32)
+    cases.append(("one-pixel-wide and -high sources", ta.train_aug,
+                  (mid, narrow, nhw, gains, mixed_flip, mixed_fb, size)))
+    cases.append(("a 1/8 downscale", ta.train_aug,
+                  (mid, full, torch.tensor([[sh // 8, sw // 8]], **i32).expand(B, 2).contiguous(),
+                   gains, mixed_flip, mixed_fb, (sh // 8, sw // 8))))
+    print(f"j1. the passthrough batch's smallest letterbox scale: "
+          f"{float((nhw.float() / hw.float()).min()):.4f}", flush=True)
+    return cases
+
+
+def j1_bands(kernel, args):
+    """The most bands a block of the call walks (ops/cuda/train_aug.py)."""
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    cpu = [a.cpu() if hasattr(a, "cpu") else a for a in args]
+    if kernel is ta.mosaic_canvas:
+        return ta.mosaic_canvas_bands(*cpu[1:5], cpu[5], cpu[0].shape[3])
+    return ta.train_aug_bands(cpu[1], cpu[2], cpu[4], cpu[5], cpu[6], cpu[0].shape[2])
+
+
+def phase_j1(device, exp, batches, root):
+    """j1: K1-K4 against their plain versions on the card, bit for bit, on a
+    mosaic batch and a passthrough batch and on ``j1_cases``; kernel and
+    plain times, bounds."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
 
     size = tuple(exp.input_size)
     stats = {}
     for label, batch in zip(("mosaic+mixup", "after close_mosaic"), batches):
         for name, (calls, _) in train_aug_stages(batch, device, size).items():
             st = stats.setdefault(name, {"max_abs_err": 0.0, "differ": 0})
-            for kernel, plain, args, kw in calls:
-                got, want = kernel(*args, **kw), plain(*args, **kw)
-                n, err = bit_diff(got.float() if got.dtype == torch.uint8 else got,
-                                  want.float() if want.dtype == torch.uint8 else want)
+            for kernel, _, args, _ in calls:
+                n, err = j1_hold(kernel, args)
                 st["differ"] += n
                 st["max_abs_err"] = max(st["max_abs_err"], err)
             print(f"j1. {name} on the {label} batch: {st['differ']} values differ from the "
                   f"plain version", flush=True)
-    for name, (calls, nbytes) in train_aug_stages(batches[0], device, size).items():
+    for case, kernel, args in j1_cases(device, exp, batches, root):
+        n, err = j1_hold(kernel, args)
+        st = stats[kernel.__name__]
+        st["differ"] += n
+        st["max_abs_err"] = max(st["max_abs_err"], err)
+        bands = (f" (at most {j1_bands(kernel, args)} band(s) a block)"
+                 if kernel in (ta.mosaic_canvas, ta.train_aug) else "")
+        print(f"j1. {case}: {kernel.__name__} {n} values differ from the plain version{bands}",
+              flush=True)
+    timed = train_aug_stages(batches[0], device, size)
+    for name, (calls, nbytes) in timed.items():
         ms = sum(cuda_ms(lambda k=k, a=a, kw=kw: k(*a, **kw), 20) for k, _, a, kw in calls)
         plain_ms = sum(cuda_ms(lambda p=p, a=a, kw=kw: p(*a, **kw), 2, hold=False)
                        for _, p, a, kw in calls)
@@ -2450,6 +2579,20 @@ def phase_j1(device, exp, batches):
         print(f"j1. {name}: {ms:.4f} ms a step ({TRAIN_AUG_LAUNCHES[name]} launch(es)), "
               f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB the "
               f"function must move), {ms / bound:.1f}x it, B={J_BATCH}, {size[0]} px", flush=True)
+    # K4's share of its HSV jitter: the same batch with every item a fallback;
+    # and both off the copy path: the pipeline's tiles are resized when they
+    # load, so its resamples are unscaled (every weight 0); at 0.9 of the
+    # extents every tap is blended
+    img, hw, nhw, gains, flip, fallback, _ = timed["train_aug"][0][0][2]
+    clean = (img, hw, nhw, gains, flip, torch.ones_like(fallback), size)
+    scaled = (img, hw, (nhw * 0.9).to(torch.int32), gains, flip, fallback, size)
+    tiles, hw5, nhw5, yc, xc, _ = timed["mosaic_canvas"][0][0][2]
+    scaled_canvas = (tiles, hw5, (nhw5 * 0.9).to(torch.int32), yc, xc, size)
+    print(f"j1. train_aug with every item a fallback (no HSV jitter): "
+          f"{cuda_ms(lambda: ta.train_aug(*clean), 20):.4f} ms; at 0.9 of the extents (every "
+          f"tap blended): train_aug {cuda_ms(lambda: ta.train_aug(*scaled), 20):.4f} ms, "
+          f"mosaic_canvas {cuda_ms(lambda: ta.mosaic_canvas(*scaled_canvas), 20):.4f} ms",
+          flush=True)
     bad = [n for n, st in stats.items() if st["differ"]]
     if bad:
         raise AssertionError(f"j1: kernels differ from their plain versions: {bad}")
@@ -2654,7 +2797,7 @@ def phase_j(device, card, flags):
                                    size_range=(256, 512), seed=0, variant="default")
         exp = j_exp(root)
         batches = j_batches(exp)
-        stats = phase_j1(device, exp, batches)
+        stats = phase_j1(device, exp, batches, root)
         trainer, counts = phase_j2(device, root, os.path.join(tmp, "out"))
         for name in stats:
             stats[name]["launches"] = counts[name]
@@ -2666,6 +2809,22 @@ def phase_j(device, card, flags):
         phase_j5(device, root, os.path.join(tmp, "cold"))
     print(f"j. phase j: {time.perf_counter() - t_start:.1f} s ({card}; cuDNN deterministic, "
           f"benchmark, TF32, matmul TF32: {flags})", flush=True)
+    return stats
+
+
+def phase_j1_alone(device, card, flags):
+    """j1 alone, on phase j's synthetic set: K1-K4's checks, times and bounds."""
+    import tempfile
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_j1_") as tmp, backend_flags(flags):
+        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=J_TRAIN, n_val=J_VAL,
+                                   size_range=(256, 512), seed=0, variant="default")
+        exp = j_exp(root)
+        stats = phase_j1(device, exp, j_batches(exp), root)
+    print(f"j1. phase j1: {time.perf_counter() - t_start:.1f} s ({card})", flush=True)
     return stats
 
 
@@ -2690,8 +2849,10 @@ def main():
         return 2
     flags = current_flags()  # before any phase sets them
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args not in (["--step", args[1]], ["--phase", "j"])):
-        print("usage: python3 chip_smoke.py [--step TREE | --phase j]", file=sys.stderr)
+    if args and (len(args) != 2 or args not in (["--step", args[1]], ["--phase", "j"],
+                                                 ["--phase", "j1"])):
+        print("usage: python3 chip_smoke.py [--step TREE | --phase j | --phase j1]",
+              file=sys.stderr)
         return 2
     tree = os.path.abspath(args[1]) if args[:1] == ["--step"] else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
@@ -2709,6 +2870,9 @@ def main():
         # --step TREE: g3's step measurement alone, of TREE's package
         res, _ = measure_train_step(device, card)
         print("step: " + json.dumps({"tree": tree, **res}), flush=True)
+        return 0
+    if args == ["--phase", "j1"]:
+        print("j1: " + json.dumps(phase_j1_alone(device, card, flags)))
         return 0
     if args:
         # --phase j

@@ -289,6 +289,113 @@ def train_aug_plain(img: torch.Tensor, hw: torch.Tensor, nhw: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# the block plan of K1 and K4
+# --------------------------------------------------------------------------
+
+# csrc/train_aug.cu: a block of K1 or K4 owns a (rows, columns) tile of its
+# output; K1's stage holds source rows (bytes), K4's the source rows (bytes)
+# and their jittered pixels (one word each), each at least two whole rows.
+CANVAS_TILE = (64, 64)
+AUG_TILE = (32, 64)
+CANVAS_STAGE_BYTES = 16384
+AUG_RAW_BYTES = 12288
+AUG_STAGE_PX = 3072
+
+
+def canvas_stage_bytes(sw: int) -> int:
+    return max(CANVAS_STAGE_BYTES, (6 * sw + 15) & ~15)
+
+
+def aug_raw_bytes(sw: int) -> int:
+    return max(AUG_RAW_BYTES, (6 * sw + 15) & ~15)
+
+
+def aug_stage_px(sw: int) -> int:
+    return (2 * sw + 3) & ~3 if 2 * sw > AUG_STAGE_PX else AUG_STAGE_PX
+
+
+def _row_bytes(c0: int, c1: int, sw: int) -> Tuple[int, int]:
+    """The staged byte range of source columns c0..c1 of a row: (first byte,
+    bytes), aligned to 16 bytes for cp.async where a row of ``sw`` pixels is
+    a multiple of 16 bytes."""
+    if sw * 3 % 16:
+        return c0 * 3, (c1 - c0 + 1) * 3
+    a0 = c0 * 3 & ~15
+    return a0, ((c1 * 3 + 3 + 15) & ~15) - a0
+
+
+def bands(i0: Sequence[int], i1: Sequence[int], cap: int) -> List[Tuple[int, int]]:
+    """The bands of output rows a block walks, as the kernels' ``band_end``
+    cuts them: each band [ra, rb) as long as its rows' taps, from i0[ra] to
+    i1[rb - 1] (monotone), read at most ``cap`` source rows."""
+    out, ra, n = [], 0, len(i0)
+    while ra < n:
+        lo, hi = ra + 1, n
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            if i1[mid - 1] - i0[ra] < cap:
+                lo = mid
+            else:
+                hi = mid - 1
+        out.append((ra, lo))
+        ra = lo
+    return out
+
+
+def _tile_spans(live: int, tile: int):
+    """The live [start, stop) of each block along an axis whose first
+    ``live`` positions are live."""
+    return [(a, min(a + tile, live)) for a in range(0, live, tile)]
+
+
+def train_aug_bands(hw: torch.Tensor, nhw: torch.Tensor, flip: torch.Tensor,
+                    fallback: torch.Tensor, out_size: Tuple[int, int], sw: int) -> int:
+    """K4: the most bands any block of the batch walks (1 when every block's
+    source rectangle fits its stages at once)."""
+    ih, iw = out_size
+    most = 0
+    for (h, w), (nh, nw), fl, fb in zip(hw.tolist(), nhw.tolist(), flip.tolist(),
+                                        fallback.tolist()):
+        y0, y1, _ = lin_taps(torch.arange(min(nh, ih), dtype=F32), _c(nh, "cpu") / _c(h, "cpu"), h)
+        x0, x1, _ = lin_taps(torch.arange(min(nw, iw), dtype=F32), _c(nw, "cpu") / _c(w, "cpu"), w)
+        y0, y1, x0, x1 = y0.tolist(), y1.tolist(), x0.tolist(), x1.tolist()
+        for ca, cb in _tile_spans(min(nw, iw), AUG_TILE[1]):
+            t0, t1 = x0[ca], x1[cb - 1]
+            cols = ((min(max(w - 1 - t1, 0), sw - 1), min(max(w - 1 - t0, 0), sw - 1))
+                    if fl and not fb else (t0, t1))
+            cap = min(aug_raw_bytes(sw) // _row_bytes(*cols, sw)[1],
+                      aug_stage_px(sw) // (t1 - t0 + 1))
+            for ra, rb in _tile_spans(min(nh, ih), AUG_TILE[0]):
+                most = max(most, len(bands(y0[ra:rb], y1[ra:rb], cap)))
+    return most
+
+
+def mosaic_canvas_bands(hw5: torch.Tensor, nhw5: torch.Tensor, yc: torch.Tensor,
+                        xc: torch.Tensor, out_size: Tuple[int, int], sw: int) -> int:
+    """K1: the most bands any block walks for one tile's rectangle."""
+    ih, iw = out_size
+    rows, cols = CANVAS_TILE
+    most = 0
+    for hw, nhw, y, x in zip(hw5.tolist(), nhw5.tolist(), yc.tolist(), xc.tolist()):
+        for t, (x1, y1, x2, y2, padw, padh) in enumerate(tile_rects(y, x, nhw[:4], ih, iw)):
+            if y2 <= y1 or x2 <= x1:
+                continue
+            (h0, w0), (nh, nw) = hw[t], nhw[t]
+            v0, v1, _ = lin_taps(torch.arange(2 * ih, dtype=F32) - _c(padh, "cpu"),
+                                 _c(nh, "cpu") / _c(h0, "cpu"), h0)
+            u0, u1, _ = lin_taps(torch.arange(2 * iw, dtype=F32) - _c(padw, "cpu"),
+                                 _c(nw, "cpu") / _c(w0, "cpu"), w0)
+            v0, v1, u0, u1 = v0.tolist(), v1.tolist(), u0.tolist(), u1.tolist()
+            for bx in range(x1 // cols, (x2 - 1) // cols + 1):
+                ca, cb = max(x1, bx * cols), min(x2, (bx + 1) * cols)
+                cap = canvas_stage_bytes(sw) // _row_bytes(u0[ca], u1[cb - 1], sw)[1]
+                for by in range(y1 // rows, (y2 - 1) // rows + 1):
+                    ra, rb = max(y1, by * rows), min(y2, (by + 1) * rows)
+                    most = max(most, len(bands(v0[ra:rb], v1[ra:rb], cap)))
+    return most
+
+
+# --------------------------------------------------------------------------
 # the kernels
 # --------------------------------------------------------------------------
 

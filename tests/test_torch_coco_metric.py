@@ -21,6 +21,15 @@ from cocodet_tpu.layers import fast_coco_eval as jfce
 from cocodet_tpu_torch.evaluators import coco_metric as tm
 from cocodet_tpu_torch.evaluators import fast_coco_eval as tfce
 from test_coco_metric import _random_scene
+from torch_port_utils import private_native_builds
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX package's native letterbox and COCO matcher, built for this process before any JAX
+    reference runs (tests/torch_port_utils.py::private_native_builds)."""
+    with private_native_builds(tmp_path_factory.mktemp("jax_native"), coco_eval=True) as paths:
+        yield paths
 
 
 def _fuzzed(seed):

@@ -235,6 +235,121 @@ def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     assert all(fn.launches == 0 for fn in ta.WRAPPERS)  # the CPU runs the plain versions
 
 
+def _greedy_bands(i0, i1, cap):
+    """Bands by a linear walk: extend a band while its rows read at most
+    ``cap`` source rows."""
+    out, ra = [], 0
+    while ra < len(i0):
+        rb = ra + 1
+        while rb < len(i0) and i1[rb] - i0[ra] + 1 <= cap:
+            rb += 1
+        out.append((ra, rb))
+        ra = rb
+    return out
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_bands_are_the_greedy_walk(seed):
+    """``ta.bands`` (the kernels' ``band_end``, a binary search) cuts a
+    block's rows as a linear walk does; every band fits, none can grow."""
+    rs = np.random.RandomState(seed)
+    for _ in range(50):
+        n = rs.randint(1, 65)
+        i0 = np.cumsum(rs.randint(0, 12, n))
+        i1 = i0 + rs.randint(0, 2, n)
+        i1 = np.maximum.accumulate(i1)
+        cap = rs.randint(2, 40)
+        got = ta.bands(i0.tolist(), i1.tolist(), cap)
+        assert got == _greedy_bands(i0.tolist(), i1.tolist(), cap)
+        for ra, rb in got:
+            assert i1[rb - 1] - i0[ra] + 1 <= cap
+            assert rb == n or i1[rb] - i0[ra] + 1 > cap
+
+
+def _tap(o, num, den):
+    """One position's plain taps (lo, hi)."""
+    i0, i1, _ = ta.lin_taps(torch.tensor([float(o)]), torch.tensor(float(num)) /
+                            torch.tensor(float(den)), den)
+    return int(i0[0]), int(i1[0])
+
+
+def _brute_aug_bands(hw, nhw, flip, fallback, size, sw):
+    """K4's bands, block by block and pixel by pixel from the plain taps."""
+    ih, iw = size
+    rows, cols = ta.AUG_TILE
+    most = 0
+    for (h, w), (nh, nw), fl, fb in zip(hw, nhw, flip, fallback):
+        for r0 in range(0, min(nh, ih), rows):
+            for c0 in range(0, min(nw, iw), cols):
+                taps = [_tap(c, nw, w) for c in range(c0, min(c0 + cols, nw, iw))]
+                t0, t1 = min(t[0] for t in taps), max(t[1] for t in taps)
+                img_cols = [min(max(w - 1 - t, 0), sw - 1) if fl and not fb else t
+                            for t in range(t0, t1 + 1)]
+                lo, hi = 3 * min(img_cols), 3 * max(img_cols) + 3
+                if sw * 3 % 16 == 0:
+                    lo, hi = lo // 16 * 16, -(-hi // 16) * 16
+                cap = min(ta.aug_raw_bytes(sw) // (hi - lo), ta.aug_stage_px(sw) // (t1 - t0 + 1))
+                ys = [_tap(r, nh, h) for r in range(r0, min(r0 + rows, nh, ih))]
+                most = max(most, len(_greedy_bands([y[0] for y in ys], [y[1] for y in ys], cap)))
+    return most
+
+
+def _brute_canvas_bands(hw5, nhw5, yc, xc, size, sw):
+    """K1's bands, tile by tile and block by block from the plain taps."""
+    ih, iw = size
+    rows, cols = ta.CANVAS_TILE
+    most = 0
+    for hw, nhw, y, x in zip(hw5, nhw5, yc, xc):
+        for t, (x1, y1, x2, y2, padw, padh) in enumerate(ta.tile_rects(y, x, nhw[:4], ih, iw)):
+            (h0, w0), (nh, nw) = hw[t], nhw[t]
+            for v0 in range(0, 2 * ih, rows):
+                for u0 in range(0, 2 * iw, cols):
+                    vr = range(max(y1, v0), min(y2, v0 + rows))
+                    ur = range(max(x1, u0), min(x2, u0 + cols))
+                    if not len(vr) or not len(ur):
+                        continue
+                    us = [_tap(u - padw, nw, w0) for u in ur]
+                    lo, hi = 3 * min(u[0] for u in us), 3 * max(u[1] for u in us) + 3
+                    if sw * 3 % 16 == 0:
+                        lo, hi = lo // 16 * 16, -(-hi // 16) * 16
+                    vs = [_tap(v - padh, nh, h0) for v in vr]
+                    cap = ta.canvas_stage_bytes(sw) // (hi - lo)
+                    most = max(most, len(_greedy_bands([v[0] for v in vs], [v[1] for v in vs],
+                                                       cap)))
+    return most
+
+
+@pytest.mark.parametrize("sw", [96, 100])
+def test_block_bands_match_a_brute_force_walk(sw):
+    """``train_aug_bands`` and ``mosaic_canvas_bands``, which chip_smoke.py
+    prints beside K4's and K1's card checks, against a walk over the plain
+    taps of every block: upscales (one band), downscales (several), flipped
+    and fallback items, rows of 16-byte chunks (sw 96) and not (sw 100)."""
+    rs = np.random.RandomState(sw)
+    size = (40, 72)
+    hw = [[sw, sw], [60, sw], [sw, 33], [17, 25]]
+    nhw = [[5, 7], [40, 72], [12, 40], [40, 60]]
+    flip, fb = [1, 0, 1, 1], [0, 0, 0, 1]
+    got = ta.train_aug_bands(*(torch.tensor(a, dtype=torch.int32) for a in (hw, nhw, flip, fb)),
+                             size, sw)
+    assert got == _brute_aug_bands(hw, nhw, flip, fb, size, sw) and got > 1
+    hw5 = rs.randint(20, sw + 1, (3, 5, 2)).tolist()
+    nhw5 = [[[rs.randint(2, 60), rs.randint(2, 60)] for _ in range(5)] for _ in range(3)]
+    yc, xc = [40, 0, 80], [72, 144, 30]
+    got = ta.mosaic_canvas_bands(*(torch.tensor(a, dtype=torch.int32)
+                                   for a in (hw5, nhw5, yc, xc)), size, sw)
+    assert got == _brute_canvas_bands(hw5, nhw5, yc, xc, size, sw)
+
+
+@pytest.mark.parametrize("sw", [1, 5, 16, 100, 768, 2731, 5000])
+def test_stages_hold_two_whole_source_rows(sw):
+    """The kernels' invariant: whatever the scale, one output row (which
+    reads two source rows) fits each stage."""
+    row = ta._row_bytes(0, sw - 1, sw)[1]
+    assert ta.canvas_stage_bytes(sw) >= 2 * row and ta.aug_raw_bytes(sw) >= 2 * row
+    assert ta.aug_stage_px(sw) >= 2 * sw and ta.aug_stage_px(sw) % 4 == 0
+
+
 def test_jitted_letterbox_is_the_fma_contracted_blend():
     """Why the jitted programs differ from the op-by-op ones (and so from the
     port): jitted on XLA:CPU, the letterbox's blend ``a * (1 - w) + b * w``

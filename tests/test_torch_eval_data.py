@@ -27,6 +27,15 @@ from cocodet_tpu.data.transforms import ValTransform as JaxVal
 from cocodet_tpu_torch.data import coco, folder, synthetic
 from cocodet_tpu_torch.data.image_io import write_image
 from cocodet_tpu_torch.data.transforms import ValTransform
+from torch_port_utils import private_native_builds
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX package's native letterbox, built for this process before any JAX
+    reference runs (tests/torch_port_utils.py::private_native_builds)."""
+    with private_native_builds(tmp_path_factory.mktemp("jax_native")) as paths:
+        yield paths
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,15 @@ from cocodet_tpu_torch.evaluators.coco_evaluator import COCOEvaluator
 from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX
 from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
 from cocodet_tpu_torch.utils.convert import random_variables
+from torch_port_utils import private_native_builds
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX package's native letterbox and COCO matcher, built for this process before any JAX
+    reference runs (tests/torch_port_utils.py::private_native_builds)."""
+    with private_native_builds(tmp_path_factory.mktemp("jax_native"), coco_eval=True) as paths:
+        yield paths
 
 SIZE = 128
 STRIDES = (8, 16, 32, 64)

@@ -32,6 +32,15 @@ from cocodet_tpu_torch.data.image_io import write_image
 from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
 from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX
 from cocodet_tpu_torch.utils.convert import random_variables
+from torch_port_utils import private_native_builds
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX package's native letterbox, built for this process before any JAX
+    reference runs (tests/torch_port_utils.py::private_native_builds)."""
+    with private_native_builds(tmp_path_factory.mktemp("jax_native")) as paths:
+        yield paths
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SIZE = 128

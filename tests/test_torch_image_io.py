@@ -11,6 +11,7 @@ the pixels drawn here differ, where tests/test_fast_preproc.py holds the
 JAX native letterbox to cv2 within mean |d| < 0.6 and 99th percentile 2).
 """
 
+import os
 import struct
 import zlib
 
@@ -22,6 +23,15 @@ from cocodet_tpu.data.transforms import letterbox as jax_letterbox
 from cocodet_tpu.layers import fast_preproc
 from cocodet_tpu_torch.data import image_io, transforms
 from cocodet_tpu_torch.ops import host_build
+from torch_port_utils import private_native_builds
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """The JAX package's native letterbox, built for this process before any JAX
+    reference runs (tests/torch_port_utils.py::private_native_builds)."""
+    with private_native_builds(tmp_path_factory.mktemp("jax_native")) as paths:
+        yield paths
 
 
 def _filter_rows(raw: np.ndarray, kind: int, bpp: int) -> np.ndarray:
@@ -227,6 +237,26 @@ def test_val_transform_legacy():
         assert got.dtype == want.dtype
         np.testing.assert_array_equal(got, want)
         np.testing.assert_array_equal(t, tw)
+
+
+def test_jax_letterbox_is_the_private_native_build(jax_native, monkeypatch):
+    """The module's fixture: JAX's letterbox loads the native library built
+    for this process, outside the JAX package's tree, takes its native path,
+    and equals the port's letterbox and the library's, bit for bit."""
+    path = jax_native["_preproc.so"]
+    package = os.path.dirname(os.path.dirname(os.path.abspath(fast_preproc.__file__)))
+    assert os.path.isfile(path) and fast_preproc._lib._name == path
+    assert not os.path.abspath(path).startswith(package + os.sep)
+    calls = []
+    native = fast_preproc.letterbox
+    monkeypatch.setattr(fast_preproc, "letterbox",
+                        lambda *a, **kw: calls.append(a[1]) or native(*a, **kw))
+    img = np.random.RandomState(2).randint(0, 256, (300, 500, 3)).astype(np.uint8)
+    want, r_want = jax_letterbox(img, (416, 352), use_native=True)
+    assert calls == [(416, 352)]
+    for got, r in (native(img, (416, 352)), transforms.letterbox(img, (416, 352))):
+        assert r == r_want and got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want)
 
 
 def test_failed_build_or_probe_raises(tmp_path, monkeypatch):

@@ -6,13 +6,50 @@ JAX function and its port; arrays cross between the frameworks as numpy.
 
 from __future__ import annotations
 
+import contextlib
+import os
+
 import numpy as np
+import pytest
 import torch
 
 import jax
 from flax.traverse_util import flatten_dict
 
 from cocodet_tpu_torch.utils.convert import jax_layout, random_variables
+
+
+@contextlib.contextmanager
+def private_native_builds(tmp_dir, coco_eval: bool = False):
+    """Point the JAX package's native letterbox (``cocodet_tpu/layers/
+    fast_preproc``) and, with ``coco_eval``, its native COCO matcher
+    (``layers/fast_coco_eval``) at libraries of this process's own, built
+    into ``tmp_dir``, and assert that they load. Yields {name: path}.
+
+    The JAX package builds each library in place, into its source
+    directory, and gives up on it for the rest of the process after one
+    failed load. Two test processes that build it at once can leave one of
+    them with a half-written library, and the JAX reference then takes its
+    cv2 path (the letterbox) or its Python matcher without a word. A private
+    build takes the race away, and a reference that cannot build fails here,
+    naming the library. Only module state of the test process changes; it
+    is restored on exit."""
+    from cocodet_tpu.layers import fast_coco_eval, fast_preproc
+
+    mods = {"_preproc.so": fast_preproc} | ({"_cocoeval.so": fast_coco_eval} if coco_eval else {})
+    paths = {name: os.path.join(str(tmp_dir), name) for name in mods}
+    with pytest.MonkeyPatch.context() as mp:
+        for name, mod in mods.items():
+            mp.setattr(mod, "_SO", paths[name])
+            mp.setattr(mod, "_lib", None)
+            if hasattr(mod, "_tried"):
+                mp.setattr(mod, "_tried", False)
+        assert fast_preproc.available(), \
+            f"the JAX native letterbox did not build or load at {paths['_preproc.so']}"
+        if coco_eval:
+            assert fast_coco_eval._load() is not None, \
+                f"the JAX native COCO matcher did not build or load at {paths['_cocoeval.so']}"
+        yield paths
 
 
 def nchw(a: np.ndarray, dtype=torch.float32) -> torch.Tensor:
