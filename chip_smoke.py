@@ -118,23 +118,28 @@ Phases, each of which must pass (the script exits non-zero otherwise):
   j. the training runtime (exp, trainer, CLI) with the device-mosaic input
      pipeline, on the port's synthetic train set (64 train and 16 val PNG
      images, 256-512 px, in a temporary directory): (j1) the four kernels
-     of csrc/train_aug.cu (canvas, the warp's two passes, mixup, HSV + flip
+     of csrc/train_aug.cu (canvas, the warp in one pass, mixup, HSV + flip
      + letterbox) against their plain versions on the card, bit for bit, on
      a collated batch of 16 at 768 px with mosaic and mixup on and on one
      after close_mosaic, then (j1_cases) all four on both batches of an exp
-     at each multiscale size 640-832, and K1 and K4 on the edge cases of
-     their block tiling (B=1 and 3, mosaic centres on and flush with the
-     canvas edges, whole blocks of background, one-pixel-wide sources,
-     extents off the block grid, flip and fallback items together, the
-     largest tiles, downscales whose stages are walked in bands), printing
-     the values that differ and the bands a block walks; each timed on the
-     first batch beside its plain version and its byte bound, K4 also with
-     no HSV jitter, and K1 and K4 at 0.9 of the extents (off their copy
-     path); (j2) the main path of the slice: the training CLI's main() in
-     process (entry.train) with the port's yolox_m_p6 exp at full width,
+     at each multiscale size 640-832, K1 and K4 on the edge cases of their
+     block tiling (B=1 and 3, mosaic centres on and flush with the canvas
+     edges, whole blocks of background, one-pixel-wide sources, extents off
+     the block grid, flip and fallback items together, the largest tiles,
+     downscales whose stages are walked in bands), K2 on B=1 and 3,
+     matrices at the draw's extremes, past its two guards, all on the
+     border and off the block grid, and K3 with mixup off, passthrough
+     origins, flipped partners, crops at each edge, tw2 and th2 either side
+     of the input size, a partner walked in bands and extents off the block
+     grid, printing the values that differ and the bands a block walks;
+     each timed on the first batch beside its plain version and its byte
+     bound, K2 also at scale 0.1 and 2.0, K4 also with no HSV jitter, and
+     K1, K3 and K4 at 0.9 of the extents (off their copy path); (j2) the
+     main path of the slice: the training CLI's main() in process
+     (entry.train) with the port's yolox_m_p6 exp at full width,
      B=16, device_mosaic True, --cache, 3 epochs (one warm-up, the last
      without aug), the launch counts zeroed just before and read just after
-     (K1-K4 once a step, the pair twice; the BN+act pair, the NMS pair and
+     (K1-K4 once a step each; the BN+act pair, the NMS pair and
      hard-swish > 0): per epoch the iterations, img/s by the host clock,
      the step's and the input's device ms, the wait for data, the
      multiscale sizes, the L1 switch and peak memory; the evaluations and
@@ -148,8 +153,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the cuDNN and TF32 flags a new process has (benchmark off), as the
      CLI would, whatever the earlier phases set; a kernel's byte bound
      counts the input pixels its taps read, its small per-item inputs and
-     its output, the warp's two passes as one function (canvas to warped
-     image; its f32 intermediate is the design's, not the function's).
+     its output (the warp: the canvas pixels its two passes read, composed,
+     and the warped image).
 
     python3 chip_smoke.py --step TREE
 
@@ -2251,10 +2256,10 @@ J_BATCH = 16
 J_TRAIN, J_VAL = 64, 16  # the synthetic set's train and val PNG images (256-512 px)
 J_EXP = os.path.join("cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py")
 TRAIN_AUG_REPLACES = {"mosaic_canvas": "cocodet_tpu/data/device_mosaic.py:160",
-                      "affine_pass": "cocodet_tpu/data/device_mosaic.py:236",
+                      "affine_warp": "cocodet_tpu/data/device_mosaic.py:236",
                       "mixup": "cocodet_tpu/data/device_mosaic.py:287",
                       "train_aug": "cocodet_tpu/data/device_aug.py:202"}
-TRAIN_AUG_LAUNCHES = {"mosaic_canvas": 1, "affine_pass": 2, "mixup": 1, "train_aug": 1}
+TRAIN_AUG_LAUNCHES = {"mosaic_canvas": 1, "affine_warp": 1, "mixup": 1, "train_aug": 1}
 
 
 def j_exp(root):
@@ -2319,8 +2324,8 @@ def canvas_read_bytes(hw5, nhw5, yc, xc, size):
 def warp_read_bytes(m6, size):
     """K2: the canvas pixels that the warp reads, both passes composed: pass
     2's taps pick the H values each output needs, pass 1's taps the canvas
-    pixels each of those reads (the unrounded H is the two-launch design's,
-    not the function's)."""
+    pixels each of those reads (H, pass 1's unrounded map, is no input or
+    output of the function)."""
     import torch
 
     from cocodet_tpu_torch.ops.cuda import train_aug as ta
@@ -2393,9 +2398,7 @@ def train_aug_stages(batch, device, size):
     """The four kernels' calls on one batch, each with its inputs as the
     pipeline gives them: {name: ([(kernel call, plain call, args, kwargs)],
     bytes the function must move)}. A function's bytes: the input pixels
-    its taps read, its small per-item inputs, its output written once;
-    affine_pass's two passes are one function, the canvas to the warped
-    image."""
+    its taps read, its small per-item inputs, its output written once."""
     import torch
 
     from cocodet_tpu_torch.data.device_aug import aug_inputs
@@ -2408,8 +2411,7 @@ def train_aug_stages(batch, device, size):
     yc, xc = t["mrand"][:, 1].to(torch.int32), t["mrand"][:, 2].to(torch.int32)
     m = t["mrand"][:, 3:9].contiguous()
     canvas = ta.mosaic_canvas(t["mosaic_tiles"], t["hw5"], t["nhw5"], yc, xc, size)
-    h = ta.affine_pass(canvas, m, size, 1)
-    warped = ta.affine_pass(h, m, size, 2)
+    warped = ta.affine_warp(canvas, m, size)
     mid, hw, boxes, _, nvalid = mosaic_mixup_batch(
         t["mosaic_tiles"], t["hw5"], t["nhw5"], t["boxes5"], t["classes5"], t["nvalid5"],
         t["mrand"], size)
@@ -2421,8 +2423,7 @@ def train_aug_stages(batch, device, size):
         "mosaic_canvas": ([(t["mosaic_tiles"], t["hw5"], t["nhw5"], yc, xc, size)],
                           canvas_read_bytes(t["hw5"], t["nhw5"], yc, xc, size)
                           + small + _nbytes(yc, xc, canvas)),
-        "affine_pass": ([(canvas, m, size, 1), (h, m, size, 2)],
-                        warp_read_bytes(m, size) + _nbytes(m, warped)),
+        "affine_warp": ([(canvas, m, size)], warp_read_bytes(m, size) + _nbytes(m, warped)),
         "mixup": ([(t["mosaic_tiles"], t["hw5"], t["nhw5"], warped, t["mrand"], size)],
                   mixup_read_bytes(t["hw5"], t["nhw5"], t["mrand"], size, sh, sw)
                   + small + _nbytes(t["mrand"], mid)),
@@ -2447,19 +2448,85 @@ def j1_hold(kernel, args):
                     want.float() if want.dtype == torch.uint8 else want)
 
 
+def warp_matrix(scale, degrees, shear_x, shear_y, tx, ty, size):
+    """get_affine_params's f64 matrix for given draws (angle, scale, the two
+    shears in degrees, the translations as fractions of the size), as the
+    flat [m00 m01 m02 m10 m11 m12]."""
+    import math
+
+    ih, iw = size
+    rad = math.radians(degrees)
+    alpha, beta = scale * math.cos(rad), scale * math.sin(rad)
+    sx, sy = math.tan(math.radians(shear_x)), math.tan(math.radians(shear_y))
+    return [alpha + sy * -beta, beta + sy * alpha, tx * iw,
+            -beta + sx * alpha, alpha + sx * beta, ty * ih]
+
+
+def warp_extremes(B, size, device, scale=None):
+    """(B, 6) f32 matrices at the draw's extremes (device_mosaic's draw in
+    yolox_m_p6: scale 0.1-2.0, +-10 degrees, shear +-2, translation +-0.1),
+    item i taking the i-th combination; ``scale`` fixes the scale."""
+    import torch
+
+    rows = []
+    for i in range(B):
+        bit = [(i >> k) & 1 for k in range(5)]
+        s = scale if scale is not None else (0.1, 2.0)[bit[0]]
+        sign = [(-1.0, 1.0)[v] for v in bit[1:]]
+        rows.append(warp_matrix(s, 10.0 * sign[0], 2.0 * sign[1], -2.0 * sign[1], 0.1 * sign[2],
+                                0.1 * sign[3], size))
+    return torch.tensor(rows, dtype=torch.float64).to(torch.float32).to(device)
+
+
+def mixup_variant(mrand, hw5, size, mosaic=None, mix=None, jit=None, flip=None, edge=None):
+    """j1's mixup draws with some of them set, the rest derived as fetch
+    derives them (tw2, th2 = int(iw * jit), int(ih * jit) in f64; x_off and
+    y_off within the padded partner: "low" 0, "high" the most, else kept
+    where they still fit)."""
+    mr = mrand.clone().cpu()
+    ih, iw = size
+    for b in range(mr.shape[0]):
+        if mosaic is not None:
+            mr[b, 0] = float(mosaic)
+        if mix is not None:
+            mr[b, 9] = float(mix)
+        j = jit if jit is not None else float(mr[b, 10]) if mr[b, 10] > 0 else 1.0
+        mr[b, 10] = j
+        if flip is not None:
+            mr[b, 11] = float(flip)
+        tw2, th2 = int(iw * j), int(ih * j)
+        mr[b, 14], mr[b, 15] = tw2, th2
+        oh, ow = (ih, iw) if mr[b, 0] > 0 else tuple(hw5[b, 0].tolist())
+        room_x, room_y = max(tw2, ow) - ow, max(th2, oh) - oh
+        if edge == "low":
+            mr[b, 12], mr[b, 13] = 0, 0
+        elif edge == "high":
+            mr[b, 12], mr[b, 13] = room_x, room_y
+        else:
+            mr[b, 12], mr[b, 13] = min(float(mr[b, 12]), room_x), min(float(mr[b, 13]), room_y)
+    return mr.to(mrand.device)
+
+
 J1_SIZES = (640, 704, 768, 832)  # phase j's multiscale sizes (stride 64)
 
 
 def j1_cases(device, exp, batches, root):
-    """The cases that K1 and K4's block tiling must hold besides j1's two
+    """The cases that the block tiling of K1-K4 must hold besides j1's two
     batches: [(case, kernel, args)]. The whole pipeline (K1-K4) at each
     multiscale size, from an exp of that input size; then K1 and K4 on B=1
     and B=3, mosaic centres flush with each canvas edge (and on it),
-    rectangles that leave whole blocks of background, a 1/16 downscale
-    (its stages walked in bands), extents that are not multiples of the
-    block, flip and fallback items in one batch, tiles as large as the
-    input (scale 1, the smallest the pipeline draws), sources one pixel wide
-    or high, and a 1/8 downscale."""
+    rectangles that leave whole blocks of background, a 1/16 downscale (its
+    stages walked in bands), extents that are not multiples of the block,
+    flip and fallback items in one batch, tiles as large as the input
+    (scale 1, the smallest the pipeline draws), sources one pixel wide or
+    high, and a 1/8 downscale; K2 on B=1 and B=3, matrices at the
+    draw's extremes (scale 0.1 and 2.0, +-10 degrees, shear +-2,
+    translation +-0.1), past the safe_m00 and the safe_det guards, a
+    translation that leaves the whole output on the border, and extents off
+    the block grid; K3 with mixup off, a passthrough origin, a flipped
+    partner, crops at each edge, tw2 and th2 below and above iw and ih, a
+    partner downscaled until tile 4 is walked in bands, and extents off the
+    block grid."""
     import torch
 
     from cocodet_tpu_torch.ops.cuda import train_aug as ta
@@ -2527,6 +2594,60 @@ def j1_cases(device, exp, batches, root):
                    gains, mixed_flip, mixed_fb, (sh // 8, sw // 8))))
     print(f"j1. the passthrough batch's smallest letterbox scale: "
           f"{float((nhw.float() / hw.float()).min()):.4f}", flush=True)
+
+    # K2: the warp
+    canvas, m, _ = mosaic["affine_warp"][0][0][2]
+    guards = m.clone()
+    guards[0] = torch.tensor([1e-4, 0.0, 0.0, 0.0, 1e-4, 0.0])    # safe_m00 and safe_det
+    guards[1] = torch.tensor([1e-4, 0.02, 3.0, 0.03, 0.9, -2.0])   # safe_m00
+    guards[2] = torch.tensor([0.5, 0.5, 10.0, 0.5, 0.5, 10.0])     # det 0: safe_det
+    guards[3] = torch.tensor([0.3, 0.0, 5.0, 0.0, -0.2, 0.0])      # safe_det (det -0.06: kept)
+    border = m.clone()
+    border[:, 2] += 4 * iw  # every output pixel's canvas column lies past the canvas
+    ch, cw = ih - 17, iw - 45  # (751, 723) at 768 px: off the block grid, rows not of 16 bytes
+    k2 = [("B=1", (canvas[:1].contiguous(), m[:1].contiguous(), size)),
+          ("B=3", (canvas[:3].contiguous(), m[:3].contiguous(), size)),
+          ("matrices at the draw's extremes", (canvas, warp_extremes(B, size, device), size)),
+          ("past the safe_m00 and safe_det guards", (canvas, guards, size)),
+          ("a translation off the canvas (all 114)", (canvas, border, size)),
+          ("extents not multiples of the block",
+           (canvas[:, :2 * ch, :2 * cw].contiguous(), warp_extremes(B, (ch, cw), device),
+            (ch, cw)))]
+    cases += [(label, ta.affine_warp, args) for label, args in k2]
+
+    # K3: the mixup
+    tiles, hw5, nhw5, warped, mrand, _ = mosaic["mixup"][0][0][2]
+    hw5c = hw5.cpu()
+    k3 = [("mixup off", mixup_variant(mrand, hw5c, size, mix=0)),
+          ("a passthrough origin", mixup_variant(mrand, hw5c, size, mosaic=0, mix=1)),
+          ("a flipped partner", mixup_variant(mrand, hw5c, size, mix=1, flip=1)),
+          ("tw2, th2 above iw, ih, crop at the low edges",
+           mixup_variant(mrand, hw5c, size, mix=1, jit=1.5, edge="low")),
+          ("tw2, th2 above iw, ih, crop at the high edges",
+           mixup_variant(mrand, hw5c, size, mix=1, jit=1.5, edge="high")),
+          ("tw2, th2 above iw, ih, flipped, crop at the high edges",
+           mixup_variant(mrand, hw5c, size, mix=1, jit=1.37, flip=1, edge="high")),
+          ("tw2, th2 below iw, ih", mixup_variant(mrand, hw5c, size, mix=1, jit=0.5)),
+          ("tw2, th2 below iw, ih, passthrough origins, flipped",
+           mixup_variant(mrand, hw5c, size, mosaic=0, mix=1, jit=0.61, flip=1, edge="high"))]
+    cases += [(label, ta.mixup, (tiles, hw5, nhw5, warped, mr, size)) for label, mr in k3]
+    big = hw5.clone()
+    big[:, 4] = torch.tensor([tiles.shape[2], tiles.shape[3]], **i32)
+    far = nhw5.clone()
+    far[:, 4] = torch.tensor([ih // 16 + 1, iw // 16 + 1], **i32)
+    cases.append(("a partner downscaled 1/16 (tile 4 walked in bands)", ta.mixup,
+                  (tiles, big, far, warped, mixup_variant(mrand, hw5c, size, mix=1), size)))
+    sh3, sw3, oh3, ow3 = tiles.shape[2] - 17, tiles.shape[3] - 45, ih - 40, iw - 75
+    cut_hw = torch.minimum(hw5, torch.tensor([sh3, sw3], **i32)).contiguous()
+    cut_nhw = nhw5.clone()
+    for b in range(B):
+        h4, w4 = cut_hw[b, 4].tolist()
+        s4 = min(oh3 / h4, ow3 / w4)
+        cut_nhw[b, 4] = torch.tensor([int(h4 * s4), int(w4 * s4)])
+    cases.append(("extents not multiples of the block", ta.mixup,
+                  (tiles[:, :, :sh3, :sw3].contiguous(), cut_hw, cut_nhw,
+                   warped[:, :oh3, :ow3].contiguous(),
+                   mixup_variant(mrand, cut_hw.cpu(), (oh3, ow3), mix=1), (oh3, ow3))))
     return cases
 
 
@@ -2543,7 +2664,7 @@ def j1_bands(kernel, args):
 def phase_j1(device, exp, batches, root):
     """j1: K1-K4 against their plain versions on the card, bit for bit, on a
     mosaic batch and a passthrough batch and on ``j1_cases``; kernel and
-    plain times, bounds."""
+    plain times, bounds; K2 also at each scale extreme."""
     import torch
 
     from cocodet_tpu_torch.ops.cuda import train_aug as ta
@@ -2579,6 +2700,25 @@ def phase_j1(device, exp, batches, root):
         print(f"j1. {name}: {ms:.4f} ms a step ({TRAIN_AUG_LAUNCHES[name]} launch(es)), "
               f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB the "
               f"function must move), {ms / bound:.1f}x it, B={J_BATCH}, {size[0]} px", flush=True)
+    # K2 at each scale extreme of the draw
+    canvas, _, _ = timed["affine_warp"][0][0][2]
+    B = canvas.shape[0]
+    for scale in (0.1, 2.0):
+        mats = warp_extremes(B, size, device, scale=scale)
+        bound = 1e3 * (warp_read_bytes(mats, size) + _nbytes(mats) + B * size[0] * size[1] * 3) \
+            / HBM_BYTES_PER_S
+        ms = cuda_ms(lambda: ta.affine_warp(canvas, mats, size), 20)
+        print(f"j1. affine_warp at scale {scale} (+-10 degrees, shear +-2, translation +-0.1): "
+              f"{ms:.4f} ms, bound {bound:.4f} ms, {ms / bound:.1f}x it", flush=True)
+    # K3: how many of the batch's partners are unscaled at stage 1 (nh = h0
+    # and nw = w0: the copy path, every stage-1 weight 0), and mixed
+    tiles, hw5, nhw5, warped, mrand, _ = timed["mixup"][0][0][2]
+    mixed = mrand[:, 9] > 0
+    unscaled = mixed & (hw5[:, 4] == nhw5[:, 4]).all(1)
+    print(f"j1. mixup: {int(mixed.sum())} of {B} items mixed; {int(unscaled.sum())} of them with "
+          f"the partner unscaled at stage 1 (its copy path); stage-1 scales "
+          f"{[round(v, 4) for v in (nhw5[:, 4].float() / hw5[:, 4].float()).flatten().tolist()]}",
+          flush=True)
     # K4's share of its HSV jitter: the same batch with every item a fallback;
     # and both off the copy path: the pipeline's tiles are resized when they
     # load, so its resamples are unscaled (every weight 0); at 0.9 of the
@@ -2586,13 +2726,14 @@ def phase_j1(device, exp, batches, root):
     img, hw, nhw, gains, flip, fallback, _ = timed["train_aug"][0][0][2]
     clean = (img, hw, nhw, gains, flip, torch.ones_like(fallback), size)
     scaled = (img, hw, (nhw * 0.9).to(torch.int32), gains, flip, fallback, size)
-    tiles, hw5, nhw5, yc, xc, _ = timed["mosaic_canvas"][0][0][2]
-    scaled_canvas = (tiles, hw5, (nhw5 * 0.9).to(torch.int32), yc, xc, size)
+    tiles1, hw5_1, nhw5_1, yc, xc, _ = timed["mosaic_canvas"][0][0][2]
+    scaled_canvas = (tiles1, hw5_1, (nhw5_1 * 0.9).to(torch.int32), yc, xc, size)
+    scaled_mix = (tiles, hw5, (nhw5 * 0.9).to(torch.int32), warped, mrand, size)
     print(f"j1. train_aug with every item a fallback (no HSV jitter): "
           f"{cuda_ms(lambda: ta.train_aug(*clean), 20):.4f} ms; at 0.9 of the extents (every "
           f"tap blended): train_aug {cuda_ms(lambda: ta.train_aug(*scaled), 20):.4f} ms, "
-          f"mosaic_canvas {cuda_ms(lambda: ta.mosaic_canvas(*scaled_canvas), 20):.4f} ms",
-          flush=True)
+          f"mosaic_canvas {cuda_ms(lambda: ta.mosaic_canvas(*scaled_canvas), 20):.4f} ms, "
+          f"mixup (its stage 1) {cuda_ms(lambda: ta.mixup(*scaled_mix), 20):.4f} ms", flush=True)
     bad = [n for n, st in stats.items() if st["differ"]]
     if bad:
         raise AssertionError(f"j1: kernels differ from their plain versions: {bad}")
@@ -2622,24 +2763,39 @@ def phase_j4(device, exp, batch):
 
 def j_preproc_kernels(device, exp, batch):
     """The CUDA kernels one batch's preprocessing launches (torch.profiler):
-    K1-K4's five and the label math's."""
+    K1-K4 found by their names, beside the wrappers' launch counts of the
+    same call, and the label math's; the device busy ms of each."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from cocodet_tpu_torch.data.device_aug import mosaic_preproc_batch
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
 
     size = tuple(exp.input_size)
     kw = dict(max_labels=exp.max_labels_mosaic, flip_prob=exp.flip_prob, hsv_prob=exp.hsv_prob)
     on_card = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
-    n, copies, busy = step_kernel_count(lambda b, _: mosaic_preproc_batch(b, size, **kw),
-                                        on_card, None)
-    own = sum(TRAIN_AUG_LAUNCHES.values())
-    if n is None:
+    ta.reset_launch_counts()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        mosaic_preproc_batch(on_card, size, **kw)
+        torch.cuda.synchronize()
+    launched = sum(fn.launches for fn in ta.WRAPPERS)
+    dev = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
         print("j4. kernels of one batch's preprocessing: not measured (the profiler recorded "
               "no device activity)", flush=True)
-    else:
-        print(f"j4. kernels of one batch's preprocessing (torch.profiler): {n}, of them {own} "
-              f"of csrc/train_aug.cu and {n - own} of the label math; {copies} copies or "
-              f"fills; device busy {busy:.3f} ms", flush=True)
+        return
+    own = [e for e in dev if any(f"{fn.__name__}_kernel" in e.name for fn in ta.WRAPPERS)]
+    copies = [e for e in dev if e.name.startswith(("Memcpy", "Memset"))]
+
+    def busy(events):
+        return sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+    print(f"j4. kernels of one batch's preprocessing (torch.profiler): {len(dev) - len(copies)}; "
+          f"of csrc/train_aug.cu {len(own)} recorded by name, {launched} launched by the "
+          f"wrappers; {len(dev) - len(copies) - len(own)} others (the label math); "
+          f"{len(copies)} copies or fills; device busy {busy(dev):.3f} ms, of it K1-K4 "
+          f"{busy(own):.3f} ms", flush=True)
 
 
 def j_argv(root, out_dir, max_epoch, cache=True):
@@ -2727,7 +2883,7 @@ def phase_j2(device, root, out_dir):
         raise AssertionError(f"j2: no-aug epochs {switch}, {len(trainer.eval_stats)} "
                              "evaluations (want epochs 2 and 3, two evaluations)")
     iters = sum(st["iterations"] for st in stats)
-    want = {"mosaic_canvas": iters, "affine_pass": 2 * iters, "mixup": iters, "train_aug": iters}
+    want = {"mosaic_canvas": iters, "affine_warp": iters, "mixup": iters, "train_aug": iters}
     zero = [k for k, v in counts.items() if v == 0 and not k.endswith("finish")]
     if zero or any(counts[k] != v for k, v in want.items()):
         raise AssertionError(f"j2: launches {counts}; want > 0 each and {want}")

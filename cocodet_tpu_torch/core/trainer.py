@@ -88,7 +88,7 @@ class Trainer:
                                       f"is not ported {TODO}")
         if getattr(exp, "use_mask", False):
             raise NotImplementedError("masked models (use_mask) are not ported "
-                                      "(ROADMAP Queue 1 item 4)")
+                                      "(ROADMAP Queue 1 item 2)")
         # a size the deepest stride does not divide breaks the PAFPN's concat
         # of the upsampled map, in JAX as here: refuse it before the first step
         stride = max(exp.strides)
@@ -133,7 +133,7 @@ class Trainer:
         ckpt_model = (self._init_tree or {}).get("model", self._init_tree)
         if (ckpt_model or {}).get("masks"):
             raise NotImplementedError(f"{init_ckpt}: init checkpoints with pruning masks are "
-                                      "not ported (ROADMAP Queue 1 item 4)")
+                                      "not ported (ROADMAP Queue 1 item 2)")
         self.model = exp.get_model(device=self.device)
         self.train_loader = exp.get_data_loader(
             batch_size=batch_size, is_distributed=False,

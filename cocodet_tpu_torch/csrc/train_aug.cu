@@ -14,16 +14,16 @@
 // What they replace (XLA programs of the JAX package, not Pallas kernels):
 //   mosaic_canvas_kernel  cocodet_tpu/data/device_mosaic.py::compose_canvas
 //                         (:160; _tile_rects :108, _sample_tile_to_canvas :132)
-//   affine_pass_kernel    device_mosaic.py::affine_warp (:236) with
-//                         _shift_scale_pass (:195), launched once per pass
+//   affine_warp_kernel    device_mosaic.py::affine_warp (:236), both of its
+//                         _shift_scale_pass (:195) passes in one
 //   mixup_kernel          device_mosaic.py::_mixup_partner (:287) and the
 //                         origin select and blend of _mosaic_one (:396-422)
 //   train_aug_kernel      cocodet_tpu/data/device_aug.py::_train_aug_one (:202)
 //                         with hsv_jitter (:100) and letterbox_resize_one (:137)
 // The JAX programs run per item under vmap and lax.map chunks; here the whole
-// batch is one launch of each kernel (two of affine_pass_kernel). K2 and K3
-// run one thread a pixel, all three channels in the thread; K1 and K4 run one
-// block an output tile (below).
+// batch is one launch of each kernel, and a block owns a tile of its output in
+// one item: 64 x 64 pixels (K1) or 32 x 64 (K2-K4), on a 2-D grid times the
+// items, with 32-bit index math within an item.
 //
 // Rounding as JAX's: jnp.round is half to even (rintf), the mixup blend is
 // floor, the HSV gains are truncated before they arrive; jnp.remainder takes
@@ -33,28 +33,35 @@
 // Bound on the H100: bytes. Each function reads its inputs and writes its
 // output once at a few tens of operations a pixel. At B=16, 768 px: the
 // canvas reads the tiles' rectangles (72 MB of uint8) and writes a 2x canvas
-// (113 MB); the warp's first pass reads the canvas and writes an f32
-// half-width map, which the second pass reads in place, by columns (no
-// transpose copy), writing uint8; the mixup reads the warped mosaic, tile 0
-// and the partner, and writes the uint8 mid image; the last kernel reads it
-// and writes the f32 images the step takes (113 MB). Intermediates that hold
-// integers are stored as uint8 (exact), so the only f32 intermediate is the
-// warp's unrounded first pass.
+// (113 MB); the warp reads the canvas pixels its taps reach and writes the
+// uint8 warped image; the mixup reads the warped mosaic, tile 0 and the
+// partner, and writes the uint8 mid image; the last kernel reads it and
+// writes the f32 images the step takes (113 MB). Every intermediate holds
+// integers and is stored as uint8 (exact); the warp's unrounded first pass
+// never leaves registers.
 //
-// K1 and K4 move the most bytes of the four, and one thread a pixel spent
-// its instructions, not the bytes, on them: per pixel 64-bit index division,
-// four IEEE divisions for the taps (K1 also the rectangles and the where
-// chain), twelve byte gathers, three strided stores, and in K4 the HSV round
-// trip (four divisions, three remainders) at each of four taps, so every
-// source pixel was jittered about four times. So a block owns a tile of its
-// output in one item, 64 x 64 pixels (K1) or 32 x 64 (K4), on a 2-D grid
-// with 32-bit index math within an item:
-//   - its prologue computes the taps of the tile's rows and columns once,
-//     into shared memory, while cp.async copies in the source rows they span
-//     (16-byte chunks of the aligned byte range);
+// One thread a pixel spent its instructions, not the bytes: per pixel 64-bit
+// index division, IEEE divisions for the taps (four in K1 and K4, the warp's
+// matrix terms in each pass, twenty in K3), byte gathers, strided stores,
+// K4's HSV round trip at each of four taps, K3's partner stage 1 at each of
+// four, and the warp's 453 MB f32 intermediate. So in each kernel:
+//   - a block's prologue computes the taps of the tile's rows and columns
+//     once, into shared memory (K2: the split positions and offsets, and the
+//     offset of each canvas row the tile reaches; K3: stage 2's taps and
+//     stage 1's of the S1 rectangle they reach), while cp.async copies in the
+//     source rows they span (16-byte chunks of the aligned byte range);
 //   - K1: a block outside every rectangle writes 114 with 16-byte stores and
 //     reads nothing; otherwise, tile by tile, it resamples from shared
 //     memory into an output tile there, written as 16-byte vectors;
+//   - K2: an output pixel takes its two pass-1 values from four canvas taps
+//     in registers, in the passes' f32 order; each thread walks a column's
+//     rows in order and keeps the two pass-1 rows it last computed, so at
+//     scale >= 1 neighbouring output rows share them; a block that reads no
+//     canvas row writes 114;
+//   - K3: the partner's stage 1 is computed once a block, as bytes in shared
+//     memory, and stage 2 reads four of them a pixel; the origin is blended
+//     in 16-byte vectors (__vhaddu4); a block without mixup copies its
+//     origin, one that misses the partner blends with 114;
 //   - K4: it jitters each source pixel once, in shared memory, into a word
 //     of three bytes (the values are integers in [0, 255]; the flipped
 //     column of a flipped item, the clean pixel of a fallback item), then
@@ -62,7 +69,8 @@
 //     per-warp buffer as coalesced 16-byte vectors;
 //   - a tap whose two weights are 0 is the blend's exact value, its first
 //     tap, taken without the arithmetic: the pipeline resizes its tiles when
-//     it loads them, so on its path every resample is unscaled;
+//     it loads them, so on its path K1's and K4's resamples and most of K3's
+//     stage 1 are unscaled;
 //   - bytes become f32 and rounded f32 becomes bytes by adding 2^23 (exact,
 //     and rintf's rounding), on the FMA pipe, not the conversion unit; the
 //     HSV remainders take exact short paths (fmod_pos), one division picks
@@ -72,14 +80,14 @@
 // which one output row needs at most, so every scale takes the same path.
 // What still bounds them on this card (PERF.md): K4's HSV arithmetic, about
 // half its time (four IEEE divisions and three remainders a source pixel, in
-// JAX's order); for both, the per-block steps between barriers.
+// JAX's order); K2's dependent chain a pixel (table, tap, table, tap, canvas
+// bytes; latency-bound: 6 blocks an SM measured faster than 4); for all, the
+// per-block steps between barriers.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);  // jnp.clip: minimum(maximum(x, lo), hi)
@@ -177,6 +185,7 @@ __device__ __forceinline__ float div_i(int a, int b) {
 // once (a band needs at most two source rows, and each stage holds at least
 // two whole source rows).
 constexpr int kCanvasRows = 64, kAugRows = 32, kTileCols = 64;
+constexpr int kOutPitch = kTileCols * 3;  // bytes of an output tile row in shared memory
 constexpr int kTileThreads = 256;
 // registers capped at 48: 5 blocks an SM, not 4 (measured faster, PERF.md)
 constexpr int kTileBlocksPerSM = 5;
@@ -253,7 +262,6 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
   Tap* coltap = rowtap + kCanvasRows;          // kTileCols
   uint8_t* tile_out = reinterpret_cast<uint8_t*>(coltap + kTileCols);  // kCanvasRows x kOutPitch
   uint8_t* stage = tile_out + kCanvasRows * kTileCols * 3;             // stage_bytes
-  constexpr int kOutPitch = kTileCols * 3;
 
   const int tid = threadIdx.x;
   const int b = blockIdx.z;
@@ -388,77 +396,232 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
 }
 
 // ---------------------------------------------------------------------------
-// K2: one pass of the Catmull-Smith two-pass affine warp
+// K2: the affine warp, both passes in one
 // ---------------------------------------------------------------------------
 
-// Pass 1 resamples each canvas row r at p(j) = scale1 * j + off1[r] into
-// H (B, 2ih, iw, 3) f32 (unrounded); pass 2 resamples each column x of H at
-// p(y) = d * y + off2[x] into (B, ih, iw, 3) uint8 = round(clip(., 0, 255)).
-// The per-line offsets and the matrix guards are affine_warp's f32
-// expressions; a tap outside [0, C - 1] reads the border 114. In range
-// JAX's doubled-row roll reads img[r, i0], so the tap is indexed directly.
-template <int kPass>
-__global__ void affine_pass_kernel(const void* __restrict__ in_, void* __restrict__ out_,
-                                   const float* __restrict__ m6, int B, int ih, int iw) {
-  const int rows = kPass == 1 ? 2 * ih : ih;  // output rows
-  const int cols = iw;                         // output columns
-  const int C = kPass == 1 ? 2 * iw : 2 * ih;  // positions along a line
-  const int64_t total = static_cast<int64_t>(B) * rows * cols;
-  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; idx < total;
-       idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int x = static_cast<int>(idx % cols);
-    const int y = static_cast<int>((idx / cols) % rows);
-    const int b = static_cast<int>(idx / (static_cast<int64_t>(cols) * rows));
-    const float* m = m6 + b * 6;
-    const float m00 = m[0], m01 = m[1], m02 = m[2], m10 = m[3], m11 = m[4], m12 = m[5];
-    const float safe_m00 = fabsf(m00) < 1e-3f ? 1e-3f : m00;
-    float scale, off;
-    int line, j;
-    if (kPass == 1) {
-      line = y;
-      j = x;
-      scale = __fdiv_rn(1.f, safe_m00);
-      off = __fdiv_rn(__fsub_rn(-m02, __fmul_rn(m01, static_cast<float>(y))), safe_m00);
-    } else {
-      line = x;
-      j = y;
-      const float det = __fsub_rn(__fmul_rn(m00, m11), __fmul_rn(m01, m10));
-      const float safe_det = fabsf(det) < 1e-6f ? 1e-6f : det;
-      const float c = __fdiv_rn(-m10, safe_det);
-      const float d = __fdiv_rn(m00, safe_det);
-      scale = d;
-      off = __fsub_rn(__fmul_rn(c, __fsub_rn(static_cast<float>(x), m02)), __fmul_rn(d, m12));
+// A block owns a kWarpRows x kTileCols tile of the warped image of one item.
+// affine_warp's pass 2 blends, for output (y, x), the first pass's map H at
+// rows p0 and p0 + 1 of column x (114 outside [0, 2ih - 1]); H[p, x] is pass
+// 1's blend of canvas row p at its two taps (114 outside [0, 2iw - 1]). So
+// each output pixel computes its two H values in registers from four canvas
+// taps, with the f32 operations of the two passes in their order, and no H
+// is stored. The split positions and offsets (floor and fraction) are tables
+// in shared memory: d * y a row, off2[x] and x / m00 a column, off1[p] a
+// canvas row that the tile reaches (one IEEE division each, not two a
+// pixel).
+//
+// The taps are monotone: with the fraction fq of q exact, floor(q) + carry,
+// carry = (fq + fo >= 1) rounded, never falls as q grows (nor as the offset
+// grows), and d * y, off2[x], x / m00 and off1[p] are each monotone in their
+// argument. So the canvas rows a tile reaches are found at its corners.
+constexpr int kWarpRows = 32;
+// registers capped at 40: 6 blocks an SM, not 4 (latency-bound; measured faster, PERF.md)
+constexpr int kWarpBlocksPerSM = 6;
+
+// A value as _shift_scale_pass splits it: its floor as an int32 and v - floor(v) (exact)
+struct Split {
+  int i;
+  float f;
+};
+
+__device__ __forceinline__ Split split(float v) {
+  const float fl = floorf(v);
+  return {static_cast<int>(fl), __fsub_rn(v, fl)};
+}
+
+// The lower tap of position q on a line with offset o, and its weight:
+// carry = (fq + fo >= 1), w = fq + fo - carry, i0 = floor(o) + floor(q) + carry
+struct LineTap {
+  int i0;
+  float w;
+};
+
+__device__ __forceinline__ LineTap line_tap(Split q, Split o) {
+  const float s = __fadd_rn(q.f, o.f);
+  const int carry = s >= 1.f;
+  return {o.i + q.i + carry, __fsub_rn(s, carry ? 1.f : 0.f)};
+}
+
+// affine_warp's f32 terms of one item's forward matrix m
+struct WarpTerms {
+  float inv_m00, safe_m00, c, d, m01, m02, m12;
+};
+
+__device__ __forceinline__ WarpTerms warp_terms(const float* m) {
+  const float m00 = m[0], m01 = m[1], m02 = m[2], m10 = m[3], m11 = m[4], m12 = m[5];
+  const float det = __fsub_rn(__fmul_rn(m00, m11), __fmul_rn(m01, m10));
+  const float safe_det = fabsf(det) < 1e-6f ? 1e-6f : det;
+  const float safe_m00 = fabsf(m00) < 1e-3f ? 1e-3f : m00;
+  return {__fdiv_rn(1.f, safe_m00), safe_m00, __fdiv_rn(-m10, safe_det),
+          __fdiv_rn(m00, safe_det), m01, m02, m12};
+}
+
+// pass 1's offset of canvas row p, pass 2's of column x, and their positions
+__device__ __forceinline__ Split off1(const WarpTerms& t, int p) {
+  return split(__fdiv_rn(__fsub_rn(-t.m02, __fmul_rn(t.m01, static_cast<float>(p))), t.safe_m00));
+}
+__device__ __forceinline__ Split off2(const WarpTerms& t, int x) {
+  return split(__fsub_rn(__fmul_rn(t.c, __fsub_rn(static_cast<float>(x), t.m02)),
+                         __fmul_rn(t.d, t.m12)));
+}
+__device__ __forceinline__ Split pos1(const WarpTerms& t, int x) {
+  return split(__fmul_rn(t.inv_m00, static_cast<float>(x)));
+}
+__device__ __forceinline__ Split pos2(const WarpTerms& t, int y) {
+  return split(__fmul_rn(t.d, static_cast<float>(y)));
+}
+
+// H at canvas row p of this thread's column (cq: its position x / m00):
+// pass 1's blend of the row at its two taps, 114 off the canvas. `src` is
+// the item's canvas; only rows plo..phi are read, whose offsets are
+// line[p - plo].
+__device__ __forceinline__ void h_value(const uint8_t* src, const Split* line, int plo, Split cq,
+                                        int R, int C, int p, float h[3]) {
+  if (p < 0 || p > R - 1) {
+    h[0] = h[1] = h[2] = 114.f;
+    return;
+  }
+  const LineTap u = line_tap(cq, line[p - plo]);
+  const uint8_t* row = src + (p * C + u.i0) * 3;
+  const float mw = __fsub_rn(1.f, u.w);
+  if (u.i0 >= 0 && u.i0 < C - 1) {  // both taps on the canvas
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      h[ch] = __fadd_rn(__fmul_rn(u8f(row[ch]), mw), __fmul_rn(u8f(row[3 + ch]), u.w));
+    return;
+  }
+  const bool lo_in = u.i0 >= 0 && u.i0 <= C - 1;
+  const bool hi_in = u.i0 + 1 >= 0 && u.i0 + 1 <= C - 1;
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    const float lo = lo_in ? u8f(row[ch]) : 114.f;
+    const float hi = hi_in ? u8f(row[3 + ch]) : 114.f;
+    h[ch] = __fadd_rn(__fmul_rn(lo, mw), __fmul_rn(hi, u.w));
+  }
+}
+
+// The tile's rows, column `col`, into tile_out. A quarter of the threads (a
+// warp per 32 columns) walks a quarter of the rows, in order, so an output
+// row that reads the H rows of the row before it, or the second of them,
+// takes them from registers: pass 1's values are computed once for each H
+// row a column reads (at scale >= 1 two output rows or more share an H row).
+__device__ __forceinline__ void warp_rows(const uint8_t* src, const Split* rowq,
+                                          const Split* line, int plo, Split co, Split cq, int R,
+                                          int C, int col, int nrows, uint8_t* tile_out) {
+  const int n = (nrows + 3) >> 2;
+  const int g = threadIdx.x / kTileCols;
+  const int r_end = min((g + 1) * n, nrows);
+  float h0[3], h1[3];  // H at rows hp and hp + 1
+  int hp = 0;
+  bool have = false;
+  for (int r = g * n; r < r_end; ++r) {
+    const LineTap v = line_tap(rowq[r], co);
+    if (!have || v.i0 != hp) {
+      if (have && v.i0 == hp + 1) {
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) h0[ch] = h1[ch];
+      } else {
+        h_value(src, line, plo, cq, R, C, v.i0, h0);
+      }
+      h_value(src, line, plo, cq, R, C, v.i0 + 1, h1);
+      hp = v.i0;
+      have = true;
     }
-    const float q = __fmul_rn(scale, static_cast<float>(j));
-    const float qf = floorf(q);
-    const float fq = __fsub_rn(q, qf);
-    const float of = floorf(off);
-    const float fo = __fsub_rn(off, of);
-    const float s = __fadd_rn(fq, fo);
-    const int carry = s >= 1.f;
-    const float w = __fsub_rn(s, static_cast<float>(carry));
-    const int i0 = static_cast<int>(of) + static_cast<int>(qf) + carry;
-    const bool lo_in = i0 >= 0 && i0 <= C - 1;
-    const bool hi_in = i0 + 1 >= 0 && i0 + 1 <= C - 1;
-    const float mw = __fsub_rn(1.f, w);
-    if (kPass == 1) {
-      const uint8_t* row = static_cast<const uint8_t*>(in_) +
-                           (static_cast<int64_t>(b) * (2 * ih) + line) * C * 3;
-      float* o = static_cast<float*>(out_) + idx * 3;
-      for (int c = 0; c < 3; ++c) {
-        const float lo = lo_in ? static_cast<float>(row[i0 * 3 + c]) : 114.f;
-        const float hi = hi_in ? static_cast<float>(row[(i0 + 1) * 3 + c]) : 114.f;
-        o[c] = __fadd_rn(__fmul_rn(lo, mw), __fmul_rn(hi, w));
+    const float mw = __fsub_rn(1.f, v.w);
+    uint8_t* o = tile_out + r * kOutPitch + col * 3;
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch)
+      o[ch] = static_cast<uint8_t>(
+          round_byte(__fadd_rn(__fmul_rn(h0[ch], mw), __fmul_rn(h1[ch], v.w))));
+  }
+}
+
+// canvas (B, 2ih, 2iw, 3) uint8, m6 (B, 6) f32 -> out (B, ih, iw, 3) uint8 =
+// round(clip(., 0, 255)) of affine_warp. Four threads compute the item's
+// terms (1 / safe_m00, c, d, safe_m00) once. A block whose tile reads no canvas row
+// writes 114. The taps read the canvas through L1: staging a tile's canvas
+// rectangle by cp.async instead (in bands where it overflowed) measured
+// slower at every scale, since at a downscale the rectangle holds many more
+// pixels than the taps read (PERF.md). The tile is written as 16-byte
+// vectors.
+__global__ void __launch_bounds__(kTileThreads, kWarpBlocksPerSM)
+    affine_warp_kernel(const uint8_t* __restrict__ canvas, const float* __restrict__ m6,
+                       uint8_t* __restrict__ out, int ih, int iw) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  Split* rowq = reinterpret_cast<Split*>(smem);  // kWarpRows: d * y
+  Split* colo = rowq + kWarpRows;                // kTileCols: off2[x]
+  Split* colq = colo + kTileCols;                // kTileCols: x / m00
+  float* terms = reinterpret_cast<float*>(colq + kTileCols);  // 1 / safe_m00, c, d, safe_m00
+  uint8_t* tile_out = reinterpret_cast<uint8_t*>(terms + 4);  // kWarpRows x kOutPitch
+  Split* line = reinterpret_cast<Split*>(tile_out + kWarpRows * kOutPitch);  // at most 2ih
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int R = 2 * ih, C = 2 * iw;
+  const int y0 = blockIdx.y * kWarpRows, x0 = blockIdx.x * kTileCols;
+  const int nrows = min(kWarpRows, ih - y0), ncols = min(kTileCols, iw - x0);
+  const float* m = m6 + 6 * b;
+  if (tid < 4) {
+    const WarpTerms w = warp_terms(m);
+    terms[tid] = tid == 0 ? w.inv_m00 : tid == 1 ? w.c : tid == 2 ? w.d : w.safe_m00;
+  }
+  __syncthreads();
+  const WarpTerms t = {terms[0], terms[3], terms[1], terms[2], m[1], m[2], m[5]};
+  // the canvas rows the tile reaches, from its corners
+  const Split qa = pos2(t, y0), qb = pos2(t, y0 + nrows - 1);
+  const Split oa = off2(t, x0), ob = off2(t, x0 + ncols - 1);
+  const int p00 = line_tap(qa, oa).i0, p01 = line_tap(qa, ob).i0;
+  const int p10 = line_tap(qb, oa).i0, p11 = line_tap(qb, ob).i0;
+  const int plo = max(min(min(p00, p01), min(p10, p11)), 0);
+  const int phi = min(max(max(p00, p01), max(p10, p11)) + 1, R - 1);
+
+  uint8_t* dst = out + (static_cast<size_t>(b) * ih + y0) * iw * 3 + x0 * 3;
+  const int seg = ncols * 3;  // bytes of one output row of the tile
+  const bool vec_dst = ((iw * 3) & 15) == 0 && (seg & 15) == 0 &&
+                       (reinterpret_cast<uintptr_t>(out) & 15) == 0;
+  if (plo > phi) {
+    // every H row is the border: 114 * (1 - w) + 114 * w rounds to 114
+    const uint4 fill = make_uint4(0x72727272u, 0x72727272u, 0x72727272u, 0x72727272u);
+    if (vec_dst) {
+      const int per = seg >> 4;
+      for (int i = tid; i < nrows * per; i += kTileThreads) {
+        const int r = i / per;
+        reinterpret_cast<uint4*>(dst + r * iw * 3)[i - r * per] = fill;
       }
     } else {
-      // H (B, 2ih, iw, 3): position p of line x is H[b, p, x]
-      const float* Hb = static_cast<const float*>(in_) + static_cast<int64_t>(b) * C * iw * 3;
-      uint8_t* o = static_cast<uint8_t*>(out_) + idx * 3;
-      for (int c = 0; c < 3; ++c) {
-        const float lo = lo_in ? Hb[(static_cast<int64_t>(i0) * iw + line) * 3 + c] : 114.f;
-        const float hi = hi_in ? Hb[(static_cast<int64_t>(i0 + 1) * iw + line) * 3 + c] : 114.f;
-        o[c] = static_cast<uint8_t>(round_u8(__fadd_rn(__fmul_rn(lo, mw), __fmul_rn(hi, w))));
+      for (int i = tid; i < nrows * seg; i += kTileThreads) {
+        const int r = i / seg;
+        dst[r * iw * 3 + i - r * seg] = 114;
       }
+    }
+    return;
+  }
+
+  for (int r = tid; r < nrows; r += kTileThreads) rowq[r] = pos2(t, y0 + r);
+  for (int x = tid; x < ncols; x += kTileThreads) {
+    colo[x] = off2(t, x0 + x);
+    colq[x] = pos1(t, x0 + x);
+  }
+  for (int p = plo + tid; p <= phi; p += kTileThreads) line[p - plo] = off1(t, p);
+  __syncthreads();
+
+  const int col = tid % kTileCols;
+  if (col < ncols) {
+    warp_rows(canvas + static_cast<size_t>(b) * R * C * 3, rowq, line, plo, colo[col], colq[col],
+              R, C, col, nrows, tile_out);
+  }
+  __syncthreads();
+  if (vec_dst) {
+    const int per = seg >> 4;
+    for (int i = tid; i < nrows * per; i += kTileThreads) {
+      const int r = i / per, k = i - r * per;
+      reinterpret_cast<uint4*>(dst + r * iw * 3)[k] =
+          reinterpret_cast<const uint4*>(tile_out + r * kOutPitch)[k];
+    }
+  } else {
+    for (int i = tid; i < nrows * seg; i += kTileThreads) {
+      const int r = i / seg, k = i - r * seg;
+      dst[r * iw * 3 + k] = tile_out[r * kOutPitch + k];
     }
   }
 }
@@ -467,83 +630,286 @@ __global__ void affine_pass_kernel(const void* __restrict__ in_, void* __restric
 // K3: the mixup partner, the origin select and the blend
 // ---------------------------------------------------------------------------
 
-// The partner's first stage, one pixel of round(letterbox(tile 4)) at (y, x)
-// of the (ih, iw) buffer: 114 outside its (nh, nw) extents.
-__device__ __forceinline__ void partner_stage1(const uint8_t* tile, int sw, int h0, int w0,
-                                               int nh, int nw, int y, int x, float out[3]) {
-  if (!(y < nh && x < nw)) {
-    out[0] = out[1] = out[2] = 114.f;
-    return;
+// A block owns a kMixRows x kTileCols tile of the mid image of one item. The
+// partner is two rounded resamples, as in JAX: stage 1, S1 = round(letterbox
+// (tile 4)) on the (ih, iw) grid (114 outside its (nh, nw) extents), then
+// stage 2, S1 resized by (th2 / ih, tw2 / iw), flipped and cropped at (x_off,
+// y_off); the mid pixel is floor((origin + partner) / 2), with the partner
+// 114 outside its live region. A block of an item without mixup copies its
+// origin; a block whose tile misses the live region blends with 114 and reads
+// no partner pixel. Otherwise the block computes the stage-1 bytes of the S1
+// rectangle its stage-2 taps reach once, into shared memory (one word of three
+// bytes a pixel), from tile 4's source rows staged by cp.async (as K4 stages
+// its rows, and with its copy path: most of the pipeline's partners are
+// unscaled at stage 1), and resamples each output pixel's partner from four
+// of those words into a tile of bytes (114 preset). Bands: the S1 rectangle is taken
+// in bands of output rows when it overflows its stage (at least two whole S1
+// rows), and each band's source rows in bands of S1 rows when they overflow
+// theirs (at least two whole source rows, aug_raw_bytes). Last, the origin is
+// read and the mid tile written as 16-byte vectors, the floor average taken
+// four bytes an instruction (__vhaddu4).
+constexpr int kMixRows = 32;
+constexpr int kMixBlocksPerSM = 4;
+constexpr int kMixS1Words = 4096;  // stage-1 pixels, one word each
+constexpr uint32_t kBorderWord = 0x727272u;  // 114 in each of three bytes
+
+// Row y of an item's origin: the warped mosaic placed top-left on 114, or
+// tile 0; its first `valid` bytes are read from `row`, the rest are 114.
+struct OriginRow {
+  const uint8_t* row;
+  int valid;
+};
+
+__device__ __forceinline__ uint4 origin16(OriginRow o, int k) {
+  if (k + 16 <= o.valid) return *reinterpret_cast<const uint4*>(o.row + k);
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t v = k + j < o.valid ? o.row[k + j] : 114u;
+    if ((j & 3) == 0) w[j >> 2] = 0;
+    w[j >> 2] |= v << (8 * (j & 3));
   }
-  const Tap ty = lin_tap(static_cast<float>(y), div_i(nh, h0), h0);
-  const Tap tx = lin_tap(static_cast<float>(x), div_i(nw, w0), w0);
-  const uint8_t* p00 = tile + (static_cast<int64_t>(ty.i0) * sw + tx.i0) * 3;
-  const uint8_t* p10 = tile + (static_cast<int64_t>(ty.i1) * sw + tx.i0) * 3;
-  const uint8_t* p01 = tile + (static_cast<int64_t>(ty.i0) * sw + tx.i1) * 3;
-  const uint8_t* p11 = tile + (static_cast<int64_t>(ty.i1) * sw + tx.i1) * 3;
-  for (int c = 0; c < 3; ++c) out[c] = rintf(bilerp(p00[c], p10[c], p01[c], p11[c], ty.w, tx.w));
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
-// tiles (B, 5, sh, sw, 3) uint8, hw5/nhw5 (B, 5, 2) int32, warped (B, ih, iw, 3)
-// uint8, mrand (B, 16) f32 -> mid (B, sh, sw, 3) uint8: the warped mosaic
-// placed top-left on 114 (or the raw tile 0 of a passthrough item), blended
-// floor(0.5 mid + 0.5 partner) where mrand[9] > 0. The partner's two
-// resamples are fused per output pixel; its first stage is rounded before
-// the second reads it, as in JAX.
-__global__ void mixup_kernel(const uint8_t* __restrict__ tiles, const int* __restrict__ hw5,
-                             const int* __restrict__ nhw5, const uint8_t* __restrict__ warped,
-                             const float* __restrict__ mrand, uint8_t* __restrict__ mid,
-                             int B, int sh, int sw, int ih, int iw) {
-  const int64_t total = static_cast<int64_t>(B) * sh * sw;
-  for (int64_t idx = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; idx < total;
-       idx += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int x = static_cast<int>(idx % sw);
-    const int y = static_cast<int>((idx / sw) % sh);
-    const int b = static_cast<int>(idx / (static_cast<int64_t>(sw) * sh));
-    const float* mr = mrand + b * 16;
-    const int* hw = hw5 + b * 10;
-    const bool use_mosaic = mr[0] > 0.f;
-    float m[3];
-    if (use_mosaic) {
-      if (y < ih && x < iw) {
-        const uint8_t* p = warped + ((static_cast<int64_t>(b) * ih + y) * iw + x) * 3;
-        for (int c = 0; c < 3; ++c) m[c] = p[c];
-      } else {
-        m[0] = m[1] = m[2] = 114.f;
+// floor((a + b) / 2) in each byte
+__device__ __forceinline__ uint4 half_sum16(uint4 a, uint32_t b) {
+  return make_uint4(__vhaddu4(a.x, b), __vhaddu4(a.y, b), __vhaddu4(a.z, b), __vhaddu4(a.w, b));
+}
+
+// tiles (B, 5, sh, sw, 3) uint8, hw5/nhw5 (B, 5, 2) int32, warped (B, ih, iw,
+// 3) uint8, mrand (B, 16) f32 -> mid (B, sh, sw, 3) uint8.
+__global__ void __launch_bounds__(kTileThreads, kMixBlocksPerSM)
+    mixup_kernel(const uint8_t* __restrict__ tiles, const int* __restrict__ hw5,
+                 const int* __restrict__ nhw5, const uint8_t* __restrict__ warped,
+                 const float* __restrict__ mrand, uint8_t* __restrict__ mid, int sh, int sw,
+                 int ih, int iw, int s1_words, int raw_bytes) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  Tap* rowtap2 = reinterpret_cast<Tap*>(smem);  // kMixRows: stage 2, output rows
+  Tap* coltap2 = rowtap2 + kMixRows;            // kTileCols: stage 2, output columns
+  uint8_t* tile_out = reinterpret_cast<uint8_t*>(coltap2 + kTileCols);  // kMixRows x kOutPitch
+  uint32_t* s1 = reinterpret_cast<uint32_t*>(tile_out + kMixRows * kOutPitch);  // s1_words
+  uint8_t* raw = reinterpret_cast<uint8_t*>(s1 + s1_words);                     // raw_bytes
+  Tap* tap1r = reinterpret_cast<Tap*>(raw + raw_bytes);  // stage 1, S1 rows: at most ih
+  Tap* tap1c = tap1r + ih;                               // stage 1, S1 columns: at most iw
+  float* scal = reinterpret_cast<float*>(tap1c + iw);    // the four scales
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.z;
+  const int r0 = blockIdx.y * kMixRows, c0 = blockIdx.x * kTileCols;
+  const int nrows = min(kMixRows, sh - r0), ncols = min(kTileCols, sw - c0);
+  const float* mr = mrand + b * 16;
+  const int* hw = hw5 + b * 10;
+  const bool mosaic = mr[0] > 0.f;
+  const int rowbytes = sw * 3;
+  const uint8_t* tile0 = tiles + static_cast<size_t>(b) * 5 * sh * rowbytes;
+  const uint8_t* warped_b = warped + static_cast<size_t>(b) * ih * iw * 3;
+  auto origin = [&](int y) -> OriginRow {
+    if (!mosaic) return {tile0 + y * rowbytes, rowbytes};
+    if (y < ih) return {warped_b + y * iw * 3, iw * 3};
+    return {nullptr, 0};
+  };
+  uint8_t* dst = mid + (static_cast<size_t>(b) * sh + r0) * rowbytes + c0 * 3;
+  const int seg = ncols * 3, k0 = c0 * 3;
+  // whole rows of 16-byte chunks, in the origin (a warped row ends on a
+  // chunk: iw * 3 is a multiple of 16 too) and in the mid image
+  const bool vec = (rowbytes & 15) == 0 && (reinterpret_cast<uintptr_t>(mid) & 15) == 0 &&
+                   (reinterpret_cast<uintptr_t>(tiles) & 15) == 0 &&
+                   (!mosaic || (((iw * 3) & 15) == 0 &&
+                                (reinterpret_cast<uintptr_t>(warped) & 15) == 0));
+  const int per = seg >> 4;
+
+  if (!(mr[9] > 0.f)) {  // no mixup: the origin
+    if (vec) {
+      for (int i = tid; i < nrows * per; i += kTileThreads) {
+        const int r = i / per, k = i - r * per;
+        reinterpret_cast<uint4*>(dst + r * rowbytes)[k] = origin16(origin(r0 + r), k0 + 16 * k);
       }
     } else {
-      const uint8_t* p = tiles + ((static_cast<int64_t>(b) * 5 * sh + y) * sw + x) * 3;
-      for (int c = 0; c < 3; ++c) m[c] = p[c];
+      for (int i = tid; i < nrows * seg; i += kTileThreads) {
+        const int r = i / seg, k = i - r * seg;
+        const OriginRow o = origin(r0 + r);
+        dst[r * rowbytes + k] = k0 + k < o.valid ? o.row[k0 + k] : 114;
+      }
     }
-    uint8_t* o = mid + idx * 3;
-    if (!(mr[9] > 0.f)) {
-      for (int c = 0; c < 3; ++c) o[c] = static_cast<uint8_t>(m[c]);
-      continue;
+    return;
+  }
+
+  // the live region: rows y with y + y_off < th2 and y < oh (a prefix, as
+  // y + y_off grows with y); columns x with 0 <= xx < tw2 and x < ow, where xx
+  // is x + x_off, or tw2 - 1 - (x + x_off) for a flipped partner (an
+  // interval: xx is monotone in x)
+  const int tw2 = static_cast<int>(mr[14]), th2 = static_cast<int>(mr[15]);
+  const bool flip = mr[11] > 0.f;
+  const float x_off = mr[12], y_off = mr[13];
+  const int oh = mosaic ? ih : hw[0], ow = mosaic ? iw : hw[1];
+  auto yy = [&](int y) { return __fadd_rn(static_cast<float>(y), y_off); };
+  auto xx = [&](int x) {
+    const float v = __fadd_rn(static_cast<float>(x), x_off);
+    return flip ? __fsub_rn(static_cast<float>(tw2 - 1), v) : v;
+  };
+  if (tid < 4) {
+    const int* nhw = nhw5 + b * 10 + 8;
+    scal[tid] = tid == 0 ? div_i(th2, ih) : tid == 1 ? div_i(tw2, iw)
+              : tid == 2 ? div_i(nhw[0], hw[8]) : div_i(nhw[1], hw[9]);
+  }
+  const int nlr = __syncthreads_count(tid < nrows && yy(r0 + tid) < static_cast<float>(th2) &&
+                                      r0 + tid < oh);
+  // the columns before the interval (the predicate false, then true), and
+  // the columns up to its end (true, then false)
+  const int ca = __syncthreads_count(
+      tid < ncols && !(flip ? xx(c0 + tid) < static_cast<float>(tw2) : xx(c0 + tid) >= 0.f));
+  const int cb = max(ca, __syncthreads_count(tid < ncols && c0 + tid < ow &&
+                                             (flip ? xx(c0 + tid) >= 0.f
+                                                   : xx(c0 + tid) < static_cast<float>(tw2))));
+  if (nlr > 0 && ca < cb) {
+    // the partner's bytes into tile_out: 114 outside the live region
+    for (int i = tid; i < kMixRows * kOutPitch / 16; i += kTileThreads)
+      reinterpret_cast<uint4*>(tile_out)[i] =
+          make_uint4(0x72727272u, 0x72727272u, 0x72727272u, 0x72727272u);
+    const float sy2 = scal[0], sx2 = scal[1], sy1 = scal[2], sx1 = scal[3];
+    for (int r = tid; r < nlr; r += kTileThreads) rowtap2[r] = lin_tap(yy(r0 + r), sy2, ih);
+    for (int c = ca + tid; c < cb; c += kTileThreads) coltap2[c] = lin_tap(xx(c0 + c), sx2, iw);
+    __syncthreads();
+    // the S1 rectangle the taps reach (monotone in the row and the column)
+    const int s_lo = rowtap2[0].i0, s_hi = rowtap2[nlr - 1].i1;
+    const int t_lo = min(coltap2[ca].i0, coltap2[cb - 1].i0);
+    const int t_hi = max(coltap2[ca].i1, coltap2[cb - 1].i1);
+    const int h0 = hw[8], w0 = hw[9];
+    const int nh = nhw5[b * 10 + 8], nw = nhw5[b * 10 + 9];
+    const int s_end = min(s_hi, nh - 1), t_end = min(t_hi, nw - 1);  // S1 pixels with a source
+    for (int s = s_lo + tid; s <= s_end; s += kTileThreads)
+      tap1r[s - s_lo] = lin_tap(static_cast<float>(s), sy1, h0);
+    for (int u = t_lo + tid; u <= t_end; u += kTileThreads)
+      tap1c[u - t_lo] = lin_tap(static_cast<float>(u), sx1, w0);
+    __syncthreads();
+
+    const int s1cols = t_hi - t_lo + 1;
+    const int s1cap = s1_words / s1cols;  // S1 rows a band holds, >= 2
+    // tile 4's source columns, aligned to 16 bytes for cp.async
+    const uint8_t* tile4 = tiles + (static_cast<size_t>(b) * 5 + 4) * sh * rowbytes;
+    const bool vec_src = (rowbytes & 15) == 0 && (reinterpret_cast<uintptr_t>(tiles) & 15) == 0;
+    int a0 = 0, pitch = 1, rawcap = 0;
+    if (t_end >= t_lo) {
+      const int sc0 = tap1c[0].i0, sc1 = tap1c[t_end - t_lo].i1;
+      a0 = vec_src ? (sc0 * 3) & ~15 : sc0 * 3;
+      pitch = vec_src ? ((sc1 * 3 + 3 + 15) & ~15) - a0 : (sc1 - sc0 + 1) * 3;
+      rawcap = raw_bytes / pitch;  // >= 2: the stage holds two whole source rows
     }
-    // _mixup_partner's second stage
-    const int oh = use_mosaic ? ih : hw[0], ow = use_mosaic ? iw : hw[1];
-    const int tw2 = static_cast<int>(mr[14]), th2 = static_cast<int>(mr[15]);
-    float yy = __fadd_rn(static_cast<float>(y), mr[13]);
-    float xx = __fadd_rn(static_cast<float>(x), mr[12]);
-    if (mr[11] > 0.f) xx = __fsub_rn(static_cast<float>(tw2 - 1), xx);
-    const bool live = yy < static_cast<float>(th2) && xx >= 0.f &&
-                      xx < static_cast<float>(tw2) && y < oh && x < ow;
-    float cp[3] = {114.f, 114.f, 114.f};
-    if (live) {
-      const Tap ty = lin_tap(yy, div_i(th2, ih), ih);
-      const Tap tx = lin_tap(xx, div_i(tw2, iw), iw);
-      const uint8_t* tile = tiles + (static_cast<int64_t>(b) * 5 + 4) * sh * sw * 3;
-      const int* nhw4 = nhw5 + b * 10 + 8;
-      const int h0 = hw[8], w0 = hw[9];
-      float a00[3], a10[3], a01[3], a11[3];
-      partner_stage1(tile, sw, h0, w0, nhw4[0], nhw4[1], ty.i0, tx.i0, a00);
-      partner_stage1(tile, sw, h0, w0, nhw4[0], nhw4[1], ty.i1, tx.i0, a10);
-      partner_stage1(tile, sw, h0, w0, nhw4[0], nhw4[1], ty.i0, tx.i1, a01);
-      partner_stage1(tile, sw, h0, w0, nhw4[0], nhw4[1], ty.i1, tx.i1, a11);
-      for (int c = 0; c < 3; ++c) cp[c] = rintf(bilerp(a00[c], a10[c], a01[c], a11[c], ty.w, tx.w));
+    // i / s1cols as the high word of i * s1_m: exact for i * s1cols < 2^32
+    // (i < s1_words); s1_m wraps to 0 for s1cols 1
+    const unsigned s1_m = 0xffffffffu / static_cast<unsigned>(s1cols) + 1u;
+    auto s1_row = [&](int i) {
+      return s1_m ? static_cast<int>(__umulhi(static_cast<unsigned>(i), s1_m)) : i;
+    };
+    const int col = tid % kTileCols;
+    const bool col_live = col >= ca && col < cb;
+    const Tap tx = coltap2[col_live ? col : ca];
+    const float mx = __fsub_rn(1.f, tx.w);
+    const int x0w = tx.i0 - t_lo, x1w = tx.i1 - t_lo;
+    for (int ra = 0; ra < nlr;) {
+      const int rb = band_end(rowtap2, ra, nlr, s1cap);
+      const int ua = rowtap2[ra].i0, ub = rowtap2[rb - 1].i1;
+      // S1 rows ua..ub: pixels without a source are 114
+      for (int i = tid; (ub > s_end || t_end < t_lo) && i < (ub - ua + 1) * s1cols;
+           i += kTileThreads) {
+        if (t_end < t_lo || ua + s1_row(i) > s_end)
+          s1[i] = kBorderWord;
+      }
+      if (t_end >= t_lo && ua <= s_end) {
+        const Tap* taps = tap1r + (ua - s_lo);
+        const int n = min(ub, s_end) - ua + 1;
+        for (int ia = 0; ia < n;) {
+          const int ib = band_end(taps, ia, n, rawcap);
+          const int sr0 = taps[ia].i0;
+          stage_rows(raw, tile4 + a0, sr0, taps[ib - 1].i1 - sr0 + 1, pitch, rowbytes, vec_src);
+          cp_async_wait_all();
+          __syncthreads();
+          for (int i = ia * s1cols + tid; i < ib * s1cols; i += kTileThreads) {
+            const int s = s1_row(i);      // the S1 row, from ua
+            const int u = i - s * s1cols;  // the S1 column, from t_lo
+            if (t_lo + u > t_end) {
+              s1[i] = kBorderWord;
+              continue;
+            }
+            const Tap ty = taps[s], tc = tap1c[u];
+            const uint8_t* p0 = raw + (ty.i0 - sr0) * pitch + tc.i0 * 3 - a0;
+            if (ty.w == 0.f && tc.w == 0.f) {
+              // the blend with both weights 0 is its first tap
+              s1[i] = p0[0] | (p0[1] << 8) | (p0[2] << 16);
+              continue;
+            }
+            const uint8_t* p1 = raw + (ty.i1 - sr0) * pitch + tc.i0 * 3 - a0;
+            const int dx = (tc.i1 - tc.i0) * 3;
+            uint32_t w = 0;
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) {
+              const float v = bilerp(u8f(p0[ch]), u8f(p1[ch]), u8f(p0[dx + ch]), u8f(p1[dx + ch]),
+                                     ty.w, tc.w);
+              w |= round_byte(v) << (8 * ch);
+            }
+            s1[i] = w;
+          }
+          __syncthreads();  // the S1 band is written, the source rows are read
+          ia = ib;
+        }
+      } else {
+        __syncthreads();
+      }
+      // stage 2, output rows ra..rb-1: the partner's bytes
+      if (col_live) {
+        for (int r = ra + tid / kTileCols; r < rb; r += kTileThreads / kTileCols) {
+          const Tap ty = rowtap2[r];
+          const uint32_t* w0r = s1 + (ty.i0 - ua) * s1cols;
+          const uint32_t a00 = w0r[x0w];
+          uint8_t* o = tile_out + r * kOutPitch + col * 3;
+          if (ty.w == 0.f && tx.w == 0.f) {
+            o[0] = a00 & 255u, o[1] = (a00 >> 8) & 255u, o[2] = (a00 >> 16) & 255u;
+            continue;
+          }
+          const uint32_t* w1r = s1 + (ty.i1 - ua) * s1cols;
+          const uint32_t a10 = w1r[x0w], a01 = w0r[x1w], a11 = w1r[x1w];
+          const float my = __fsub_rn(1.f, ty.w);
+#pragma unroll
+          for (int ch = 0; ch < 3; ++ch) {
+            // bilerp's rows, then columns, with 1 - w computed once a row or column
+            const float r0 = __fadd_rn(__fmul_rn(word_byte(a00, ch), my),
+                                       __fmul_rn(word_byte(a10, ch), ty.w));
+            const float r1 = __fadd_rn(__fmul_rn(word_byte(a01, ch), my),
+                                       __fmul_rn(word_byte(a11, ch), ty.w));
+            o[ch] = static_cast<uint8_t>(
+                round_byte(__fadd_rn(__fmul_rn(r0, mx), __fmul_rn(r1, tx.w))));
+          }
+        }
+      }
+      ra = rb;
+      if (ra < nlr) __syncthreads();  // the band's S1 rows are read before the next ones
     }
-    for (int c = 0; c < 3; ++c)
-      o[c] = static_cast<uint8_t>(floorf(__fadd_rn(__fmul_rn(0.5f, m[c]), __fmul_rn(0.5f, cp[c]))));
+    __syncthreads();
+  }
+  // floor((origin + partner) / 2); the partner is 114 where the tile misses
+  // its live region
+  const bool live = nlr > 0 && ca < cb;
+  if (vec) {
+    for (int i = tid; i < nrows * per; i += kTileThreads) {
+      const int r = i / per, k = i - r * per;
+      const uint4 o = origin16(origin(r0 + r), k0 + 16 * k);
+      if (!live) {
+        reinterpret_cast<uint4*>(dst + r * rowbytes)[k] = half_sum16(o, 0x72727272u);
+        continue;
+      }
+      const uint4 p = reinterpret_cast<const uint4*>(tile_out + r * kOutPitch)[k];
+      reinterpret_cast<uint4*>(dst + r * rowbytes)[k] =
+          make_uint4(__vhaddu4(o.x, p.x), __vhaddu4(o.y, p.y), __vhaddu4(o.z, p.z),
+                     __vhaddu4(o.w, p.w));
+    }
+  } else {
+    for (int i = tid; i < nrows * seg; i += kTileThreads) {
+      const int r = i / seg, k = i - r * seg;
+      const OriginRow o = origin(r0 + r);
+      const uint32_t p = live ? tile_out[r * kOutPitch + k] : 114u;
+      dst[r * rowbytes + k] = ((k0 + k < o.valid ? o.row[k0 + k] : 114u) + p) >> 1;
+    }
   }
 }
 
@@ -755,11 +1121,6 @@ __global__ void __launch_bounds__(kTileThreads, kTileBlocksPerSM)
     store_group(dst + (r * iw + g4) * 3, v, ncols - g4, vec);
 }
 
-int blocks_for(int64_t n) {
-  const int64_t b = (n + kThreads - 1) / kThreads;
-  return static_cast<int>(b < 132 * 64 ? b : 132 * 64);  // grid-stride past 64 blocks an SM
-}
-
 // Shared memory of a K1 / K4 block at tile width sw: each stage holds at
 // least two whole source rows.
 int canvas_stage_bytes(int sw) {
@@ -771,8 +1132,21 @@ int aug_raw_bytes(int sw) {
   return rows > kAugRawBytes ? rows : kAugRawBytes;
 }
 int aug_stage_px(int sw) { return 2 * sw > kAugStagePx ? (2 * sw + 3) & ~3 : kAugStagePx; }
+// K3: the S1 stage holds at least two whole S1 rows
+int mix_s1_words(int iw) { return 2 * iw > kMixS1Words ? (2 * iw + 3) & ~3 : kMixS1Words; }
 constexpr int kTapBytes = static_cast<int>(sizeof(Tap));
 constexpr int kMaxSmem = 232448;  // a block's shared memory on the H100
+
+// Shared memory of a K2 block (the offsets of at most 2ih canvas rows) and of
+// a K3 block (the stage-1 taps of at most ih rows and iw columns)
+int warp_smem_bytes(int ih) {
+  return static_cast<int>(sizeof(Split)) * (kWarpRows + 2 * kTileCols + 2 * ih) + 16 +
+         kWarpRows * kOutPitch;
+}
+int mix_smem_bytes(int ih, int iw, int s1_words, int raw_bytes) {
+  return kTapBytes * (kMixRows + kTileCols + ih + iw) + kMixRows * kOutPitch + 4 * s1_words +
+         raw_bytes + 16;
+}
 
 // Opts `kernel` in to `bytes` of dynamic shared memory where that is above
 // the default 48 KB; 0, or the CUDA error.
@@ -811,34 +1185,33 @@ int cocodet_mosaic_canvas(const void* tiles, const void* hw5, const void* nhw5, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// pass 1: in = canvas (B, 2ih, 2iw, 3) uint8, out = H (B, 2ih, iw, 3) f32;
-// pass 2: in = H, out = (B, ih, iw, 3) uint8. m6: (B, 6) f32.
-int cocodet_affine_pass(const void* in, void* out, const void* m6, int pass, int B, int ih,
-                        int iw, void* stream) {
-  const int64_t n = static_cast<int64_t>(B) * (pass == 1 ? 2 * ih : ih) * iw;
-  if (n <= 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pass == 1) {
-    affine_pass_kernel<1><<<blocks_for(n), kThreads, 0, s>>>(in, out, static_cast<const float*>(m6),
-                                                           B, ih, iw);
-  } else if (pass == 2) {
-    affine_pass_kernel<2><<<blocks_for(n), kThreads, 0, s>>>(in, out, static_cast<const float*>(m6),
-                                                           B, ih, iw);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// canvas (B, 2ih, 2iw, 3) uint8, m6 (B, 6) f32 -> out (B, ih, iw, 3) uint8
+int cocodet_affine_warp(const void* canvas, const void* m6, void* out, int B, int ih, int iw,
+                        void* stream) {
+  if (static_cast<int64_t>(B) * ih * iw <= 0) return 0;
+  const int smem = warp_smem_bytes(ih);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);  // ih above ~14,000
+  if (const int rc = allow_smem(affine_warp_kernel, smem)) return rc;
+  affine_warp_kernel<<<tile_grid(B, ih, iw, kWarpRows), kTileThreads, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(canvas), static_cast<const float*>(m6),
+      static_cast<uint8_t*>(out), ih, iw);
   return static_cast<int>(cudaGetLastError());
 }
 
 int cocodet_mixup(const void* tiles, const void* hw5, const void* nhw5, const void* warped,
                   const void* mrand, void* mid, int B, int sh, int sw, int ih, int iw,
                   void* stream) {
-  const int64_t n = static_cast<int64_t>(B) * sh * sw;
-  if (n <= 0) return 0;
-  mixup_kernel<<<blocks_for(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (static_cast<int64_t>(B) * sh * sw <= 0) return 0;
+  const int s1 = mix_s1_words(iw), raw = aug_raw_bytes(sw);
+  const int smem = mix_smem_bytes(ih, iw, s1, raw);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);  // sw or iw above ~6,000
+  if (const int rc = allow_smem(mixup_kernel, smem)) return rc;
+  mixup_kernel<<<tile_grid(B, sh, sw, kMixRows), kTileThreads, smem,
+                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(tiles), static_cast<const int*>(hw5),
       static_cast<const int*>(nhw5), static_cast<const uint8_t*>(warped),
-      static_cast<const float*>(mrand), static_cast<uint8_t*>(mid), B, sh, sw, ih, iw);
+      static_cast<const float*>(mrand), static_cast<uint8_t*>(mid), sh, sw, ih, iw, s1, raw);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,8 +11,9 @@ resized extent in f64 and ships them in a dense vector (``mrand``) and
 ``make_mosaic_collate`` packs the items into static uint8 buffers.
 
 On the card, ``mosaic_mixup_batch`` runs the per-pixel work as three CUDA
-kernels (``ops/cuda/train_aug.py``: the canvas, the two passes of the warp,
-the mixup) and the label math as plain tensor ops with no host sync: the
+kernels (``ops/cuda/train_aug.py``: the canvas, the warp with both of its
+passes in one launch, the mixup) and the label math as plain tensor ops with
+no host sync: the
 tile shifts, ``affine_boxes``, ``_mixup_boxes`` and the stable
 front-compaction of ``_mosaic_one``.
 """
@@ -280,7 +281,7 @@ def mosaic_mixup_batch(tiles: torch.Tensor, hw: torch.Tensor, nhw: torch.Tensor,
     xc = mrand[:, 2].to(torch.int32)
     m = mrand[:, 3:9].contiguous()
     canvas = kernels.mosaic_canvas(tiles, hw, nhw, yc, xc, out_size)
-    warped = kernels.affine_pass(kernels.affine_pass(canvas, m, out_size, 1), m, out_size, 2)
+    warped = kernels.affine_warp(canvas, m, out_size)
     img = kernels.mixup(tiles, hw, nhw, warped, mrand, out_size)
 
     # labels: tile boxes -> canvas coordinates -> the affine

@@ -28,7 +28,7 @@ import numpy as np
 from ..ops import host_build
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-JPEG_TODO = ("JPEG decoding is not ported (ROADMAP Queue 1 item 2); the port "
+JPEG_TODO = ("JPEG decoding is not ported (ROADMAP Queue 1 item 1); the port "
              "reads 8-bit PNG")
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # PNG colour type -> samples a pixel
 

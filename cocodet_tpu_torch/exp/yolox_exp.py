@@ -109,7 +109,7 @@ class Exp(BaseExp):
 
         if use_mask:
             raise NotImplementedError("ChannelMask models (use_mask, pruned masks) are not "
-                                      "ported (ROADMAP Queue 1 item 4)")
+                                      "ported (ROADMAP Queue 1 item 2)")
         dtype = DTYPES[self.compute_dtype]
         if variables is None:
             if self.model_name not in MODEL_SPECS:

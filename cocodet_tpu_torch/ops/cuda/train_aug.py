@@ -6,11 +6,13 @@ device_mosaic.py`` and ``device_aug.py``), whose header lists them:
 
 - ``mosaic_canvas`` (K1): four raw tiles resized and pasted on the 2x canvas
   (``compose_canvas``), stored as uint8 (its values are integers);
-- ``affine_pass`` (K2): one pass of the two-pass affine warp
-  (``affine_warp``): pass 1 canvas rows -> an f32 (B, 2ih, iw, 3) map, pass 2
-  its columns -> the warped (B, ih, iw, 3) uint8;
+- ``affine_warp`` (K2): the two-pass affine warp (``affine_warp``) in one
+  launch, the canvas -> the warped (B, ih, iw, 3) uint8; each output pixel
+  computes the two values of pass 1's f32 map it reads in registers, so the
+  map is never stored;
 - ``mixup`` (K3): the mixup partner's two resamples, the origin select and
-  the blend of ``_mosaic_one`` -> the (B, sh, sw, 3) uint8 mid image;
+  the blend of ``_mosaic_one`` -> the (B, sh, sw, 3) uint8 mid image; a
+  block computes the partner's first resample once, in shared memory;
 - ``train_aug`` (K4): HSV jitter, flip and letterbox of ``_train_aug_one``
   -> the (B, ih, iw, 3) f32 images of the train step.
 
@@ -182,19 +184,17 @@ def _shift_scale_pass(img: torch.Tensor, i0: torch.Tensor, w: torch.Tensor) -> t
     return lo * (1.0 - w)[..., None] + hi * w[..., None]
 
 
-def affine_pass_plain(inp: torch.Tensor, m6: torch.Tensor, out_size: Tuple[int, int],
-                      pass_: int) -> torch.Tensor:
-    """One pass of ``affine_warp`` for a batch. Pass 1: canvas (B, 2ih, 2iw, 3)
-    uint8 -> H (B, 2ih, iw, 3) f32, unrounded; pass 2: H -> (B, ih, iw, 3)
-    uint8, round(clip(., 0, 255)) of its column resample."""
+def affine_warp_plain(canvas: torch.Tensor, m6: torch.Tensor,
+                      out_size: Tuple[int, int]) -> torch.Tensor:
+    """``affine_warp`` for a batch, its two passes op by op as JAX runs them:
+    canvas (B, 2ih, 2iw, 3) uint8 -> pass 1's unrounded f32 (2ih, iw, 3) map
+    of each item -> (B, ih, iw, 3) uint8, round(clip(., 0, 255)) of its
+    column resample. ``m6``: (B, 6) f32 forward matrices."""
     out = []
-    for b in range(inp.shape[0]):
-        i0, w = warp_taps(m6[b], out_size, pass_)
-        if pass_ == 1:
-            out.append(_shift_scale_pass(inp[b].to(F32), i0, w))
-        else:
-            res = _shift_scale_pass(inp[b].transpose(0, 1), i0, w).transpose(0, 1)
-            out.append(torch.round(res.clamp(0.0, 255.0)).to(torch.uint8))
+    for b in range(canvas.shape[0]):
+        h = _shift_scale_pass(canvas[b].to(F32), *warp_taps(m6[b], out_size, 1))
+        res = _shift_scale_pass(h.transpose(0, 1), *warp_taps(m6[b], out_size, 2))
+        out.append(torch.round(res.transpose(0, 1).clamp(0.0, 255.0)).to(torch.uint8))
     return torch.stack(out).contiguous()
 
 
@@ -295,6 +295,7 @@ def train_aug_plain(img: torch.Tensor, hw: torch.Tensor, nhw: torch.Tensor,
 # csrc/train_aug.cu: a block of K1 or K4 owns a (rows, columns) tile of its
 # output; K1's stage holds source rows (bytes), K4's the source rows (bytes)
 # and their jittered pixels (one word each), each at least two whole rows.
+# (K2 and K3 own 32 x 64 tiles too; their stages are sized in the source.)
 CANVAS_TILE = (64, 64)
 AUG_TILE = (32, 64)
 CANVAS_STAGE_BYTES = 16384
@@ -405,10 +406,10 @@ def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cocodet_mosaic_canvas.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
-    lib.cocodet_affine_pass.argtypes = [p, p, p, i, i, i, i, p]
+    lib.cocodet_affine_warp.argtypes = [p, p, p, i, i, i, p]
     lib.cocodet_mixup.argtypes = [p, p, p, p, p, p, i, i, i, i, i, p]
     lib.cocodet_train_aug.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, p]
-    for fn in (lib.cocodet_mosaic_canvas, lib.cocodet_affine_pass, lib.cocodet_mixup,
+    for fn in (lib.cocodet_mosaic_canvas, lib.cocodet_affine_warp, lib.cocodet_mixup,
                lib.cocodet_train_aug):
         fn.restype = i
     return lib
@@ -453,27 +454,20 @@ def mosaic_canvas(tiles: torch.Tensor, hw5: torch.Tensor, nhw5: torch.Tensor,
     return canvas
 
 
-def affine_pass(inp: torch.Tensor, m6: torch.Tensor, out_size: Tuple[int, int],
-                pass_: int) -> torch.Tensor:
-    """K2: pass 1 canvas (B, 2ih, 2iw, 3) uint8 -> (B, 2ih, iw, 3) f32; pass 2
-    that map -> (B, ih, iw, 3) uint8. ``m6``: (B, 6) f32 forward matrices."""
-    if inp.device.type == "cpu":
-        return affine_pass_plain(inp, m6, out_size, pass_)
+def affine_warp(canvas: torch.Tensor, m6: torch.Tensor,
+                out_size: Tuple[int, int]) -> torch.Tensor:
+    """K2: canvas (B, 2ih, 2iw, 3) uint8, ``m6`` (B, 6) f32 forward matrices
+    -> the warped (B, ih, iw, 3) uint8, in one launch."""
     ih, iw = out_size
-    B = inp.shape[0]
-    if pass_ == 1:
-        in_dtype, in_shape, out_dtype, out_shape = (torch.uint8, (B, 2 * ih, 2 * iw, 3), F32,
-                                                    (B, 2 * ih, iw, 3))
-    elif pass_ == 2:
-        in_dtype, in_shape, out_dtype, out_shape = (F32, (B, 2 * ih, iw, 3), torch.uint8,
-                                                    (B, ih, iw, 3))
-    else:
-        raise ValueError(f"pass_ is 1 or 2, got {pass_}")
-    _check("affine_pass", inp.device, inp=(inp, in_dtype, in_shape), m6=(m6, F32, (B, 6)))
-    out = torch.empty(out_shape, dtype=out_dtype, device=inp.device)
-    _run("affine_pass", _lib().cocodet_affine_pass,
-         [inp.data_ptr(), out.data_ptr(), m6.data_ptr(), pass_, B, ih, iw], inp.device)
-    affine_pass.launches += 1
+    B = canvas.shape[0]
+    _check("affine_warp", canvas.device, canvas=(canvas, torch.uint8, (B, 2 * ih, 2 * iw, 3)),
+           m6=(m6, F32, (B, 6)))
+    if canvas.device.type == "cpu":
+        return affine_warp_plain(canvas, m6, out_size)
+    out = torch.empty((B, ih, iw, 3), dtype=torch.uint8, device=canvas.device)
+    _run("affine_warp", _lib().cocodet_affine_warp,
+         [canvas.data_ptr(), m6.data_ptr(), out.data_ptr(), B, ih, iw], canvas.device)
+    affine_warp.launches += 1
     return out
 
 
@@ -517,8 +511,8 @@ def train_aug(img: torch.Tensor, hw: torch.Tensor, nhw: torch.Tensor, gains: tor
     return out
 
 
-WRAPPERS = (mosaic_canvas, affine_pass, mixup, train_aug)
-PLAIN = {mosaic_canvas: mosaic_canvas_plain, affine_pass: affine_pass_plain,
+WRAPPERS = (mosaic_canvas, affine_warp, mixup, train_aug)
+PLAIN = {mosaic_canvas: mosaic_canvas_plain, affine_warp: affine_warp_plain,
          mixup: mixup_plain, train_aug: train_aug_plain}
 
 

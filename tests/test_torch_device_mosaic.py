@@ -26,11 +26,13 @@ Tolerances, each stated:
   pixel. Op by op, 0 values differ.
 """
 
+import math
 import random
 import sys
 import os
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -211,27 +213,125 @@ def test_hsv_jitter_plain_equals_jax_op_by_op():
 
 
 def test_affine_warp_plain_equals_jax_op_by_op():
-    """The two passes of the warp (K2's plain version) against affine_warp,
-    with rotation and shear, and a matrix past the safe_m00 guard."""
+    """The warp (K2's plain version) against affine_warp, with rotation and
+    shear, and a matrix past the safe_m00 guard."""
     rs = np.random.RandomState(2)
     canvas = rs.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
     ms = [jdm.get_affine_params(SIZE, 10.0, 0.1, (0.5, 1.5), 2.0, random.Random(s))
           for s in range(2)]
     ms[1][0] = 1e-4  # m00 under the 1e-3 guard
     m = np.stack(ms).astype(np.float32)
-    tm = torch.from_numpy(m)
-    h = ta.affine_pass(torch.from_numpy(canvas), tm, SIZE, 1)
-    got = ta.affine_pass(h, tm, SIZE, 2)
+    got = ta.affine_warp(torch.from_numpy(canvas), torch.from_numpy(m), SIZE)
     for b in range(2):
         with jax.disable_jit():
             want = np.asarray(jdm.affine_warp(canvas[b].astype(np.float32), m[b], SIZE))
         np.testing.assert_array_equal(got[b].numpy().astype(np.float32), want)
 
 
+def _warp_matrix(scale, degrees, shear, tx, ty):
+    """get_affine_params's f64 matrix for fixed draws (shear_x = shear,
+    shear_y = -shear, in degrees; translations as fractions of SIZE)."""
+    rad = math.radians(degrees)
+    alpha, beta = scale * math.cos(rad), scale * math.sin(rad)
+    sx, sy = math.tan(math.radians(shear)), math.tan(math.radians(-shear))
+    return [alpha - sy * beta, beta + sy * alpha, tx * SIZE[1],
+            -beta + sx * alpha, alpha + sx * beta, ty * SIZE[0]]
+
+
+# K2's matrices: the draw's extremes in yolox_m_p6 (scale 0.1-2.0, +-10
+# degrees, shear +-2, translation +-0.1), each guard, the whole output on
+# the border
+WARP_CASES = {
+    "scale_0.1": [_warp_matrix(0.1, 10.0, 2.0, 0.1, -0.1),
+                  _warp_matrix(0.1, -10.0, -2.0, -0.1, 0.1)],
+    "scale_2.0": [_warp_matrix(2.0, -10.0, 2.0, 0.1, 0.1),
+                  _warp_matrix(2.0, 10.0, -2.0, -0.1, -0.1)],
+    "safe_det_guard": [[0.5, 0.5, 10.0, 0.5, 0.5, 10.0], [1e-4, 0.0, 0.0, 0.0, 1e-4, 0.0]],
+    "all_border": [_warp_matrix(1.0, 5.0, 1.0, 3.0, 0.0), _warp_matrix(0.7, 0.0, 0.0, 0.0, -4.0)],
+}
+
+
+@pytest.mark.parametrize("case", sorted(WARP_CASES))
+def test_affine_warp_plain_equals_jax_at_the_extremes(case):
+    """K2's plain version against affine_warp run op by op, bit for bit, on
+    the matrices of WARP_CASES."""
+    rs = np.random.RandomState(len(case))
+    canvas = rs.randint(0, 256, (2, 128, 128, 3)).astype(np.uint8)
+    m = np.asarray(WARP_CASES[case], np.float64).astype(np.float32)
+    got = ta.affine_warp(torch.from_numpy(canvas), torch.from_numpy(m), SIZE).numpy()
+    for b in range(2):
+        with jax.disable_jit():
+            want = np.asarray(jdm.affine_warp(canvas[b].astype(np.float32), m[b], SIZE))
+        np.testing.assert_array_equal(got[b].astype(np.float32), want)
+    if case == "all_border":
+        assert (got == 114).all()
+    else:
+        assert (got != 114).any()
+
+
+def _jax_mixup_one(tiles, hw, nhw, warped, mr, size):
+    """The origin select, _mixup_partner and the floor blend of
+    _mosaic_one (device_mosaic.py:398-422) for one item."""
+    ih, iw = size
+    sh, sw = tiles.shape[1:3]
+    use_mosaic = mr[0] > 0
+    placed = jnp.full((sh, sw, 3), 114.0, jnp.float32)
+    placed = jax.lax.dynamic_update_slice(placed, warped.astype(jnp.float32), (0, 0, 0))
+    mid = jnp.where(use_mosaic, placed, tiles[0].astype(jnp.float32))
+    hw_mid = jnp.where(use_mosaic, jnp.asarray([ih, iw], jnp.int32), hw[0])
+    cp, _, _ = jdm._mixup_partner(tiles[4].astype(jnp.float32), hw[4], (ih, iw), (sh, sw),
+                                  hw_mid, mr[10], mr[11], mr[12], mr[13], mr[14], mr[15],
+                                  nhw=nhw[4])
+    return jnp.where(mr[9] > 0, jnp.floor(0.5 * mid + 0.5 * cp), mid)
+
+
+# K3's draws: (mosaic origin, jit, flip, offsets: "low", "high" or "mid")
+MIXUP_CASES = {
+    "flipped": (1, 1.2, 1, "mid"),
+    "crop_low_edges": (1, 1.4, 0, "low"),
+    "crop_high_edges": (1, 1.4, 0, "high"),
+    "flipped_crop_high_edges": (1, 1.45, 1, "high"),
+    "tw2_above_iw": (1, 1.5, 0, "mid"),
+    "tw2_below_iw": (1, 0.55, 0, "mid"),
+    "passthrough_origin": (0, 0.9, 1, "high"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MIXUP_CASES))
+def test_mixup_plain_equals_jax_op_by_op(case):
+    """K3's plain version against _mixup_partner and _mosaic_one's origin
+    select and blend run op by op, bit for bit: a (72, 80) buffer around a
+    (64, 64) input, a partner downscaled and one upscaled at stage 1."""
+    mosaic, jit, flip, offsets = MIXUP_CASES[case]
+    rs = np.random.RandomState(len(case))
+    ih, iw = SIZE
+    sh, sw = 72, 80
+    tiles = rs.randint(0, 256, (2, 5, sh, sw, 3)).astype(np.uint8)
+    hw = np.asarray([[[60, 70]] * 4 + [[72, 80]], [[45, 50]] * 4 + [[30, 41]]], np.int32)
+    nhw = np.asarray([[[int(h * min(ih / h, iw / w)), int(w * min(ih / h, iw / w))]
+                       for h, w in item] for item in hw], np.int32)
+    warped = rs.randint(0, 256, (2, ih, iw, 3)).astype(np.uint8)
+    mrand = np.zeros((2, 16), np.float32)
+    for b in range(2):
+        tw2, th2 = int(iw * jit), int(ih * jit)
+        oh, ow = (ih, iw) if mosaic else tuple(hw[b, 0])
+        room_x, room_y = max(tw2, ow) - ow, max(th2, oh) - oh
+        x_off, y_off = {"low": (0, 0), "high": (room_x, room_y),
+                        "mid": (room_x // 2, room_y // 3)}[offsets]
+        mrand[b] = [mosaic, 0, 0, 1, 0, 0, 0, 1, 0, 1, jit, flip, x_off, y_off, tw2, th2]
+    got = ta.mixup_plain(*[torch.from_numpy(a) for a in (tiles, hw, nhw, warped, mrand)], SIZE)
+    for b in range(2):
+        with jax.disable_jit():
+            want = _jax_mixup_one(tiles[b], hw[b], nhw[b], warped[b], mrand[b], SIZE)
+        np.testing.assert_array_equal(got[b].numpy().astype(np.float32), np.asarray(want))
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
-    t = torch.zeros((1, 5, 8, 8, 3), dtype=torch.uint8)
+    canvas = torch.zeros((1, 8, 8, 3), dtype=torch.uint8)
     with pytest.raises(ValueError):
-        ta.affine_pass(t[:, 0].float(), torch.zeros((1, 6)), (4, 4), 3)
+        ta.affine_warp(canvas, torch.zeros((1, 5)), (4, 4))
+    with pytest.raises(TypeError):
+        ta.affine_warp(canvas, torch.zeros((1, 6), dtype=torch.float64), (4, 4))
     assert all(fn.launches == 0 for fn in ta.WRAPPERS)  # the CPU runs the plain versions
 
 
