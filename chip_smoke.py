@@ -96,8 +96,9 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the BN+act kernels (each > 0, with the finish kernels that follow the
      all-reduce of the sums; the standalone hard-swish 0), the losses
      (finite, num_fg > 0, equal on both ranks);
-  i. the evaluation family on the port's synthetic val set (128 PNG images,
-     variant "default", 256-512 px, generated into a temporary directory):
+  i. the evaluation family on the port's synthetic val set (128 JPEGs the
+     port's encoder writes, variant "default", 256-512 px, generated into a
+     temporary directory):
      (i1) a crafted model whose head maps decode to each image's ground
      truth through entry.build_evaluator's COCOEvaluator at 768 px, B=16:
      AP50 = 1.0 and AP >= 0.99, and with every box moved AP50 < 0.2; (i2)
@@ -116,8 +117,8 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      of a bucket batch against their plain versions.
 
   j. the training runtime (exp, trainer, CLI) with the device-mosaic input
-     pipeline, on the port's synthetic train set (64 train and 16 val PNG
-     images, 256-512 px, in a temporary directory): (j1) the four kernels
+     pipeline, on the port's synthetic train set (64 train and 16 val
+     JPEGs, 256-512 px, in a temporary directory): (j1) the four kernels
      of csrc/train_aug.cu (canvas, the warp in one pass, mixup, HSV + flip
      + letterbox) against their plain versions on the card, bit for bit, on
      a collated batch of 16 at 768 px with mosaic and mixup on and on one
@@ -149,12 +150,36 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      EMA's update count, then one more epoch; (j4) j1's batches through the
      whole preprocessing on the card (kernels) and on the CPU (plain): equal
      bits; the kernels one batch's preprocessing launches (torch.profiler);
-     (j5) j2's run cold, without --cache, for 2 epochs. Phase j runs with
+     (j5) j2's run cold, without --cache (every tile decoded from its JPEG),
+     for 2 epochs. Phase j runs with
      the cuDNN and TF32 flags a new process has (benchmark off), as the
      CLI would, whatever the earlier phases set; a kernel's byte bound
      counts the input pixels its taps read, its small per-item inputs and
      its output (the warp: the canvas pixels its two passes read, composed,
      and the warped image).
+  k. the shipped phase-1 exp as it ships: the host mosaic path
+     (data/mosaic.py: cv2's decode, resize, warp and HSV as host C++) on a
+     64-train / 16-val JPEG set of 256-512 px that the port's encoder
+     writes: (k1) the JPEG codec (csrc/host/jpeg.cpp) and csrc/host/warp.cpp
+     against their plain versions on the host, bit for bit (the codec on 4
+     of the set's images and a 480x640 one, the warp on a 1536x1536 mosaic
+     canvas to 768x768, HSV both ways on its result), with the decode and
+     encode ms an image (median over the set, and the 480x640 one), the
+     encode-then-decode round trip's error, the warp's and the HSV round
+     trip's ms, and the exp's host loader alone (ms a batch of 16, with
+     mosaic and mixup and after close_mosaic); (k2) tools/train.py's main()
+     in process with cocodet_tpu_torch/exps/p6/yolox_m_p6.py unchanged (no
+     device_mosaic),
+     full width, bf16, B=16, no --cache, 2 epochs of 4 iterations (the
+     last without aug), multiscale over the exp's 640-832 at stride 64, the
+     counts zeroed just before: per epoch img/s by the host clock, the wait
+     for data, the step's device ms, peak memory and the launches of the
+     BN+act pair, the NMS pair and hard-swish (each > 0 over the run); every
+     loss finite; (k3) the BN+act pair held against its plain stages, as in
+     g3, at the BN+act maps of one step at each size k2 trained at, 768 px
+     and the largest bucket (its worst errors join the kernels line's). The
+     host C++ sources are host code, not kernels: k adds no row to the
+     kernels line.
 
     python3 chip_smoke.py --step TREE
 
@@ -172,6 +197,10 @@ the ``ok`` line): the trainer's numbers without the state of phases b-i.
 
 runs phase a and j1 alone (K1-K4's checks on every case, their times and
 bounds, as one ``j1: {...}`` JSON line, without the ``ok`` line).
+
+    python3 chip_smoke.py --phase k
+
+runs phase a and phase k alone (without the kernels and ``ok`` lines).
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -1469,14 +1498,15 @@ def bn_act_case(x, g, act, gen, determinism=False):
     return {"rel": err, "rel_plain": err_p, "bits": bits, **absdiff}
 
 
-def check_bn_act_kernels(device, shapes):
+def check_bn_act_kernels(device, shapes, tag="g3."):
     """The BN+act pair held against its plain stages (bn_act_case) at each
     of ``shapes`` (one step's BN+act maps, channels-last) in bf16 and f32,
     each twice to show the reduce deterministic, and on ragged cases: C not
     a multiple of 8, N*H*W not a multiple of a block, a misaligned view, NCHW
     maps (H*W a multiple of 8 and not), a constant channel, C above one tile
     (f32 and bf16), a cotangent in another layout, the identity epilogue.
-    Returns the worst of bn_act_case's numbers over all cases."""
+    Returns the worst of bn_act_case's numbers over all cases; ``tag``
+    begins the printed line."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(13)
@@ -1531,7 +1561,7 @@ def check_bn_act_kernels(device, shapes):
         if case(x, g, act):
             raise AssertionError(f"bn_act kernels disagree with their plain stages: {label}")
     lines.append(f"{len(ragged)} ragged cases ({'; '.join(r[0] for r in ragged)})")
-    print(f"g3. bn_act kernels vs their plain stages on the card: {', '.join(lines)}: vectors, "
+    print(f"{tag} bn_act kernels vs their plain stages on the card: {', '.join(lines)}: vectors, "
           f"running statistics and both apply stages bit for bit ({worst['bits']} elements "
           f"differ), each reduce equal in two runs; the sums' worst error over the sum of their "
           f"terms' magnitudes: kernel {worst['rel']:.2e} (limit {BN_ACT_SUM_TOL:.0e}), plain "
@@ -2244,7 +2274,7 @@ def phase_i(device, card):
         t0 = time.perf_counter()
         root = make_synthetic_coco(tmp, n_train=0, n_val=EVAL_IMAGES, size_range=(256, 512),
                                    seed=0, variant="default")
-        print(f"i. synthetic val set: {EVAL_IMAGES} PNG images (variant default, 256-512 px) "
+        print(f"i. synthetic val set: {EVAL_IMAGES} JPEGs (variant default, 256-512 px) "
               f"in {time.perf_counter() - t0:.2f} s", flush=True)
         phase_eval(device, card, root)
         phase_harness(device, card, root)
@@ -2253,7 +2283,7 @@ def phase_i(device, card):
 # phase j: the training runtime (exp, trainer, CLI) with the device-mosaic
 # input pipeline (csrc/train_aug.cu)
 J_BATCH = 16
-J_TRAIN, J_VAL = 64, 16  # the synthetic set's train and val PNG images (256-512 px)
+J_TRAIN, J_VAL = 64, 16  # the synthetic set's train and val JPEGs (256-512 px)
 J_EXP = os.path.join("cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py")
 TRAIN_AUG_REPLACES = {"mosaic_canvas": "cocodet_tpu/data/device_mosaic.py:160",
                       "affine_warp": "cocodet_tpu/data/device_mosaic.py:236",
@@ -2927,7 +2957,7 @@ def phase_j3(device, root, out_dir, first):
 
 
 def phase_j5(device, root, out_dir):
-    """j5: j2's run cold, without --cache (every tile decoded from its PNG in
+    """j5: j2's run cold, without --cache (every tile decoded from its JPEG in
     the loader's threads), for 2 epochs, the first with mosaic and mixup: the
     wait for data against the step."""
     from cocodet_tpu_torch import entry
@@ -2984,6 +3014,233 @@ def phase_j1_alone(device, card, flags):
     return stats
 
 
+# phase k: the shipped phase-1 exp as it ships (the host mosaic path on JPEG)
+K_TRAIN, K_VAL = 64, 16  # the synthetic set's train and val JPEGs (256-512 px)
+K_PLAIN_IMAGES = 4  # of the set, decoded and re-encoded by the plain codec too
+
+
+def _median_ms(fn, reps):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def k_image(h, w, seed):
+    """A seeded smooth colour field plus noise (the synthetic set's look)."""
+    import numpy as np
+
+    rs = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = np.stack([np.sin(xx / 9 + p) * 60 + np.cos(yy / 13 - p) * 50 + 128
+                     for p in rs.uniform(0, 6, 3)], -1)
+    return np.clip(base + rs.normal(0, 6, base.shape), 0, 255).astype(np.uint8)
+
+
+def phase_k1(root):
+    """k1: the JPEG codec and warp.cpp against their plain versions on the
+    host, bit for bit, and their times."""
+    import random
+
+    import numpy as np
+
+    from cocodet_tpu_torch.data import image_io, jpeg_plain
+    from cocodet_tpu_torch.data import transforms as T
+
+    split = os.path.join(root, "train2017")
+    files = sorted(os.path.join(split, f) for f in os.listdir(split))
+    datas = []
+    for f in files:
+        with open(f, "rb") as fh:
+            datas.append(fh.read())
+    imgs = [image_io.read_image(f) for f in files]
+    dec_ms = statistics.median(_median_ms(lambda d=d: image_io.decode_jpeg(d), 3) for d in datas)
+    enc_ms = statistics.median(_median_ms(lambda x=x: image_io.encode_jpeg(x), 3) for x in imgs)
+    bad = []
+    t0 = time.perf_counter()
+    for d, x, f in zip(datas[:K_PLAIN_IMAGES], imgs, files):
+        plain, orientation = jpeg_plain.decode(d)
+        if not same_bits(plain, x) or orientation:
+            bad.append(f"decode {os.path.basename(f)}")
+        if image_io.encode_jpeg(x) != jpeg_plain.encode(x):
+            bad.append(f"encode {os.path.basename(f)}")
+    big = k_image(480, 640, 1)
+    data = image_io.encode_jpeg(big)
+    back = image_io.decode_jpeg(data)
+    if data != jpeg_plain.encode(big):
+        bad.append("encode 480x640")
+    if not same_bits(back, jpeg_plain.decode(data)[0]):
+        bad.append("decode 480x640")
+    plain_s = time.perf_counter() - t0
+    err = np.abs(back.astype(np.int64) - big.astype(np.int64))
+    big_dec = _median_ms(lambda: image_io.decode_jpeg(data), 10)
+    big_enc = _median_ms(lambda: image_io.encode_jpeg(big), 10)
+    print(f"k1. JPEG codec: {len(files)} train images ({sum(map(len, datas)) / 2 ** 20:.2f} MiB) "
+          f"decode {dec_ms:.3f} ms and encode {enc_ms:.3f} ms an image (median, host clock); "
+          f"480x640: decode {big_dec:.3f} ms, encode {big_enc:.3f} ms, {len(data)} bytes; "
+          f"encode-then-decode round trip max |diff| {int(err.max())}, mean "
+          f"{float(err.mean()):.4f}; C++ against the plain codec on {K_PLAIN_IMAGES} images "
+          f"and the 480x640 one ({plain_s:.1f} s): {'equal' if not bad else bad}", flush=True)
+    # warp and HSV: a 1536 x 1536 mosaic canvas to the exp's 768 x 768
+    rng = random.Random(0)
+    canvas = np.full((1536, 1536, 3), 114, np.uint8)
+    for i, (y, x) in enumerate(((0, 0), (0, 768), (768, 0), (768, 768))):
+        tile = T.resize(imgs[i], (768, 768))
+        canvas[y:y + 768, x:x + 768] = tile
+    m, _ = T.get_affine_matrix((768, 768), 10.0, 0.1, (0.1, 2.0), 2.0, rng=rng)
+    warped = T.warp_affine(canvas, m, (768, 768))
+    if not same_bits(warped, T.warp_affine_plain(canvas, m, (768, 768))):
+        bad.append("warp 1536 -> 768")
+    hsv = T.bgr_to_hsv(warped)
+    if not same_bits(hsv, T.bgr_to_hsv_plain(warped)):
+        bad.append("BGR->HSV 768")
+    if not same_bits(T.hsv_to_bgr(hsv), T.hsv_to_bgr_plain(hsv)):
+        bad.append("HSV->BGR 768")
+    warp_ms = _median_ms(lambda: T.warp_affine(canvas, m, (768, 768)), 10)
+    hsv_ms = _median_ms(lambda: T.hsv_to_bgr(T.bgr_to_hsv(warped)), 10)
+    item = warped.copy()
+    aug_ms = _median_ms(lambda: T.augment_hsv(item, rng=rng), 10)
+    print(f"k1. warp.cpp: 1536x1536 canvas -> 768x768 {warp_ms:.3f} ms; BGR->HSV->BGR on "
+          f"768x768 {hsv_ms:.3f} ms (augment_hsv {aug_ms:.3f} ms), host clock; against the "
+          f"plain versions: {'equal' if not bad else bad}", flush=True)
+    if bad:
+        raise AssertionError(f"k1: the host C++ differs from its plain versions: {bad}")
+
+
+def phase_k_loader(root):
+    """k1: the exp's host loader alone (its 4 threads, no step): ms a batch
+    of 16 with mosaic and mixup, and after close_mosaic."""
+    from cocodet_tpu_torch.exp import get_exp_by_file
+
+    exp = get_exp_by_file(os.path.join(REPO, J_EXP)).merge(["data_dir", root])
+    out = {}
+    for label in ("mosaic and mixup", "no aug"):
+        loader = exp.get_data_loader(batch_size=J_BATCH, seed=0)
+        if label == "no aug":
+            loader.close_mosaic()
+        it = iter(loader)
+        next(it)  # the loader's first two batches are queued at once
+        times = []
+        for _ in range(4):
+            t0 = time.perf_counter()
+            imgs, labels, _, _ = next(it)
+            times.append(1e3 * (time.perf_counter() - t0))
+        it.close()
+        out[label] = statistics.median(times)
+    print(f"k1. host loader alone ({exp.data_num_workers} threads, B={J_BATCH}, "
+          f"{exp.input_size[0]} px, {imgs.dtype} {tuple(imgs.shape)}): "
+          + ", ".join(f"{k} {v:.1f} ms a batch" for k, v in out.items())
+          + " (median of 4, host clock)", flush=True)
+
+
+def k_argv(root, out_dir):
+    """The CLI line of phase k: the shipped phase-1 exp with no override of
+    its input path (the host mosaic), full width, bf16, B=16, no --cache; two
+    epochs of K_TRAIN / 16 iterations, the last without aug (the trainer
+    switches at epoch + 1 >= max_epoch - no_aug_epochs); the multiscale
+    buckets span the exp's 640-832 at the stride 64 the 4-level model takes
+    (see j_argv)."""
+    return ["-f", os.path.join(REPO, J_EXP), "-b", str(J_BATCH), "data_dir", root,
+            "max_epoch", "2", "warmup_epochs", "1", "no_aug_epochs", "0", "print_interval", "2",
+            "multiscale_range", "(-2, 1)", "multiscale_step", "64", "output_dir", out_dir]
+
+
+def phase_k2(device, root, out_dir):
+    """k2: tools/train.py's main() in process on the exp as it ships; the
+    counts zeroed just before, read after each epoch's evaluation."""
+    from cocodet_tpu_torch import entry
+    from cocodet_tpu_torch.core.trainer import Trainer
+
+    per_epoch = []
+    after = Trainer.after_epoch
+
+    def counted(self):
+        after(self)
+        per_epoch.append(j_counts())
+
+    j_reset()
+    Trainer.after_epoch = counted
+    try:
+        t0 = time.perf_counter()
+        trainer = entry.train(k_argv(root, out_dir), device=device)
+        seconds = time.perf_counter() - t0
+    finally:
+        Trainer.after_epoch = after
+    exp = trainer.exp
+    print(f"k2. exp {J_EXP} as shipped: device_mosaic {exp.device_mosaic}, device_aug "
+          f"{exp.device_aug}, depth {exp.depth}, width {exp.width}, {exp.compute_dtype}, input "
+          f"{exp.input_size}, multiscale {exp.multiscale_sizes()}, {exp.data_num_workers} "
+          f"loader threads; {len(trainer.epoch_stats)} epochs in {seconds:.2f} s", flush=True)
+    j_report(trainer, "k2.")
+    keys = ("bn_act.reduce", "bn_act.apply", "bn_act.grad_reduce", "bn_act.grad_apply",
+            "overlap_matrix", "greedy_keep", "hard_swish")
+    prev = {k: 0 for k in per_epoch[0]} if per_epoch else {}
+    for i, counts in enumerate(per_epoch):
+        delta = {k: counts[k] - prev[k] for k in keys}
+        prev = counts
+        print(f"k2. epoch {i + 1} launches (its steps and its evaluation): {delta}", flush=True)
+    total = per_epoch[-1] if per_epoch else {}
+    missing = [k for k in keys if total.get(k, 0) == 0]
+    stats = trainer.epoch_stats
+    if exp.device_mosaic or [st["use_l1"] for st in stats] != [False, True] or missing \
+            or any(st["iterations"] != K_TRAIN // J_BATCH for st in stats):
+        raise AssertionError(f"k2: want the host path, 2 epochs of {K_TRAIN // J_BATCH} "
+                             f"iterations (the last without aug) and every kernel launched; "
+                             f"got epochs {[(st['iterations'], st['use_l1']) for st in stats]}, "
+                             f"not launched {missing}")
+    return trainer
+
+
+def phase_k3(device, trainer):
+    """k3: the BN+act pair held against its plain stages
+    (check_bn_act_kernels) at the BN+act maps of one step of k2's model at
+    every size k2 trained at (with the exp's seed, its largest bucket in
+    epoch 1 and 768 px in epoch 2), and at 768 px and the largest bucket in
+    any case. Returns the check's worst numbers."""
+    import torch
+
+    exp = trainer.exp
+    sizes = {tuple(s) for st in trainer.epoch_stats for s in st["size_sequence"]}
+    sizes |= {tuple(exp.input_size), tuple(max(exp.multiscale_sizes()))}
+    shapes = {}
+    for h, w in sorted(sizes):
+        images, labels = (torch.from_numpy(t).to(device)
+                          for t in training_batch(J_BATCH, h, 12, width=w))
+        run = lambda: trainer.train_step(images, labels)  # noqa: E731
+        for key, n in activation_shapes(trainer.model, run).items():
+            shapes[key] = shapes.get(key, 0) + n
+    del images, labels
+    torch.cuda.empty_cache()
+    print(f"k3. BN+act maps of one B={J_BATCH} step at {sorted(sizes)}: {len(shapes)} shapes, "
+          f"{sum(shapes.values())} maps", flush=True)
+    return check_bn_act_kernels(device, shapes, tag="k3.")
+
+
+def phase_k(device, card, flags):
+    """k: the shipped exp as it ships, on a JPEG set the port's encoder
+    writes (see the docstring). Returns k3's worst numbers."""
+    import tempfile
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp, backend_flags(flags):
+        t0 = time.perf_counter()
+        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=K_TRAIN, n_val=K_VAL,
+                                   size_range=(256, 512), seed=1, variant="default")
+        print(f"k. synthetic set: {K_TRAIN} train and {K_VAL} val JPEGs (256-512 px, the port's "
+              f"encoder) in {time.perf_counter() - t0:.2f} s", flush=True)
+        phase_k1(root)
+        phase_k_loader(root)
+        trainer = phase_k2(device, root, os.path.join(tmp, "out"))
+        worst = phase_k3(device, trainer)
+        del trainer
+    print(f"k. phase k: {time.perf_counter() - t_start:.1f} s ({card})", flush=True)
+    return worst
+
+
 def train_aug_kernels(aug_stats):
     """The kernels line's entries of K1-K4."""
     return [{"name": name, "route": "cuda", "source": "cocodet_tpu_torch/csrc/train_aug.cu",
@@ -3006,8 +3263,8 @@ def main():
     flags = current_flags()  # before any phase sets them
     args = sys.argv[1:]
     if args and (len(args) != 2 or args not in (["--step", args[1]], ["--phase", "j"],
-                                                 ["--phase", "j1"])):
-        print("usage: python3 chip_smoke.py [--step TREE | --phase j | --phase j1]",
+                                                 ["--phase", "j1"], ["--phase", "k"])):
+        print("usage: python3 chip_smoke.py [--step TREE | --phase j | --phase j1 | --phase k]",
               file=sys.stderr)
         return 2
     tree = os.path.abspath(args[1]) if args[:1] == ["--step"] else REPO
@@ -3029,6 +3286,9 @@ def main():
         return 0
     if args == ["--phase", "j1"]:
         print("j1: " + json.dumps(phase_j1_alone(device, card, flags)))
+        return 0
+    if args == ["--phase", "k"]:
+        phase_k(device, card, flags)
         return 0
     if args:
         # --phase j
@@ -3055,6 +3315,10 @@ def main():
     phase_i(device, card)
     torch.cuda.empty_cache()
     aug_stats = phase_j(device, card, flags)
+    torch.cuda.empty_cache()
+    k_worst = phase_k(device, card, flags)
+    for name, st in bn_stats.items():
+        st["max_abs_err"] = max(st["max_abs_err"], k_worst[name[len("bn_act_"):]])
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}

@@ -8,8 +8,10 @@ every 10 global iterations, the batch and its labels resized to it, the
 train step of ``core/train_state.py``) and ``after_epoch`` (the latest
 checkpoint, the evaluation of the EMA weights and its checkpoint).
 
-The batch arrives from ``data/samplers.py::DevicePrefetcher`` as the
-device-mosaic buffers and is preprocessed on the card
+The batch arrives from ``data/samplers.py::DevicePrefetcher``: on the host
+mosaic path (the default) as float32 images and padded labels, composed and
+transformed on the loader's threads (``data/mosaic.py``); with
+``device_mosaic`` as raw buffers, preprocessed on the card
 (``data/device_aug.py::apply_device_preproc``: CUDA kernels K1-K4 and the
 label math). Metrics are read back only every ``print_interval``
 iterations; each step's losses are checked for finite values on the card
@@ -19,7 +21,7 @@ input kernels' device ms, the wait for data, the multiscale sizes, peak
 memory) are kept in ``epoch_stats``, each checkpoint's in ``ckpt_stats``.
 
 Checkpoints are JAX's msgpack trees (``utils/checkpoint.py``). Raise, by
-design (ROADMAP Queue 1 item 3): gradient accumulation (``num_accumulate >
+design (ROADMAP Queue 1 item 2): gradient accumulation (``num_accumulate >
 1``), ``remat``, a spatial mesh or more than one rank, masked models.
 """
 
@@ -44,7 +46,7 @@ from ..utils.logger import logger, setup_logger
 from ..utils.metric import MeterBuffer, device_mem_usage_mb
 from .train_state import create_train_state, make_train_step, resize_batch
 
-TODO = "(ROADMAP Queue 1 item 3)"
+TODO = "(ROADMAP Queue 1 item 2)"
 
 
 class Trainer:
@@ -88,7 +90,7 @@ class Trainer:
                                       f"is not ported {TODO}")
         if getattr(exp, "use_mask", False):
             raise NotImplementedError("masked models (use_mask) are not ported "
-                                      "(ROADMAP Queue 1 item 2)")
+                                      "(ROADMAP Queue 1 item 1)")
         # a size the deepest stride does not divide breaks the PAFPN's concat
         # of the upsampled map, in JAX as here: refuse it before the first step
         stride = max(exp.strides)
@@ -133,7 +135,7 @@ class Trainer:
         ckpt_model = (self._init_tree or {}).get("model", self._init_tree)
         if (ckpt_model or {}).get("masks"):
             raise NotImplementedError(f"{init_ckpt}: init checkpoints with pruning masks are "
-                                      "not ported (ROADMAP Queue 1 item 2)")
+                                      "not ported (ROADMAP Queue 1 item 1)")
         self.model = exp.get_model(device=self.device)
         self.train_loader = exp.get_data_loader(
             batch_size=batch_size, is_distributed=False,

@@ -1,8 +1,9 @@
 """COCO dataset layer (cocodet_tpu/data/coco.py:27-161), without cv2: a
 dataset item is (img, padded_labels (N, 5), img_info (h, w), img_id), the
 image resized to the dataset's ``img_size`` with its annotations scaled by
-the same ratio. The image is read by ``image_io.read_image`` (8-bit PNG;
-JPEG raises) and resized by ``transforms.resize``, cv2.resize's arithmetic.
+the same ratio. The image is read by ``image_io.read_image`` (JPEG and
+8-bit PNG, as ``cv2.imread`` reads them) and resized by
+``transforms.resize``, cv2.resize's arithmetic.
 The ratio and the resized size are Python floats and ints, as in the JAX
 package (coco.py:128-136).
 """

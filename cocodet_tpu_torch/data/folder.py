@@ -2,7 +2,7 @@
 submission harness's loader (cocodet_tpu/data/folder.py), without cv2.
 
 Files are sorted by aspect ratio h/w; each is read by
-``image_io.read_image`` (8-bit PNG; JPEG raises), resized to the long side
+``image_io.read_image`` (JPEG and 8-bit PNG), resized to the long side
 by ``transforms.resize`` (cv2.resize's arithmetic), BGR, not normalized;
 a batch is padded with 114 to its largest image rounded up to multiples
 of 64 (the model's largest stride), top-left anchored, so a run sees at

@@ -72,24 +72,32 @@ class YoloBatchSampler:
                 batch = []
 
 
+def collate_items(items):
+    """The default collate (cocodet_tpu/data/samplers.py:180-184): images
+    (B, H, W, 3) and labels (B, G, 5) stacked as float32, with the infos and
+    ids as lists."""
+    imgs = np.stack([np.asarray(it[0], np.float32) for it in items])
+    labels = np.stack([np.asarray(it[1], np.float32) for it in items])
+    return imgs, labels, [it[2] for it in items], [it[3] for it in items]
+
+
 class DetectionLoader:
     """Batch assembler over a dataset with a ``fetch(item, rng)`` (or
-    ``__getitem__``) on thread workers, yielding ``collate_fn(items)``.
-    ``close_mosaic()`` flips the batch sampler's flag and the dataset's own
-    switch (ref dataloading.py:42-114). The JAX loader's process workers are
-    not ported: the device path leaves the host decode and draws only."""
+    ``__getitem__``) on thread workers, yielding ``collate_fn(items)``
+    (``collate_items`` by default). ``close_mosaic()`` flips the batch
+    sampler's flag and the dataset's own switch (ref dataloading.py:42-114).
+    The JAX loader's process workers are not ported: the host C++ of the
+    decode, resize, warp and HSV releases the GIL, so threads run it in
+    parallel."""
 
     def __init__(self, dataset, batch_sampler: YoloBatchSampler, num_workers: int = 2,
                  seed: int = 0, prefetch: int = 2, collate_fn=None):
-        if collate_fn is None:
-            raise NotImplementedError("the host path's float collate is not ported: the loader "
-                                      "takes the device-mosaic collate")
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.num_workers = max(num_workers, 1)
         self.seed = seed
         self.prefetch = prefetch
-        self.collate_fn = collate_fn
+        self.collate_fn = collate_fn or collate_items
         self._counter = 0
 
     def close_mosaic(self):

@@ -8,9 +8,9 @@ annotations/instances_*.json with category ids of the 91-id COCO space.
 
 The draws come from ``np.random.RandomState`` in exactly the JAX package's
 order, and no annotation depends on a pixel, so ``instances_*.json`` equals
-the JAX package's but for ``file_name``: images are written as
-``{i:012d}.png`` by ``image_io.write_image`` where the JAX package writes
-JPEG through cv2. A numpy rasterizer takes the place of cv2's drawing
+the JAX package's exactly: images are written as ``{i:012d}.jpg`` by
+``image_io.write_image``, whose encoder writes cv2.imwrite's bytes. A numpy
+rasterizer takes the place of cv2's drawing
 calls: a filled circle (OpenCV's midpoint algorithm) and an inclusive
 filled rectangle give cv2's pixels; the filled ellipse, the triangle and
 the thick ellipse outline scan-fill OpenCV's polygons and differ from cv2
@@ -365,7 +365,7 @@ def make_synthetic_coco(root: str, n_train: int = 256, n_val: int = 64,
             noise = rs.normal(0, 4, size=img.shape)
             img = np.clip(img.astype(np.float32) + noise,
                           0, 255).astype(np.uint8)
-            name = f"{i:012d}.png"
+            name = f"{i:012d}.jpg"
             write_image(os.path.join(out_dir, name), img)
             images.append({"id": i, "width": w, "height": h,
                            "file_name": name})

@@ -159,7 +159,7 @@ def build_evaluator(data_dir: str, img_size: int = EVAL_SIZE, batch_size: int = 
                     conf_threshold: float = EVAL_CONF, nms_threshold: float = EVAL_NMS,
                     pre_nms_topk: int = EVAL_TOPK, max_det: int = EVAL_MAX_DET) -> COCOEvaluator:
     """A ``COCOEvaluator`` over ``data_dir``'s ``annotations/<json_file>`` and
-    ``<name>/`` images (8-bit PNG; JPEG raises), letterboxed to ``img_size``
+    ``<name>/`` images (JPEG or 8-bit PNG), letterboxed to ``img_size``
     square, at the competition exp's point."""
     dataset = COCODataset(data_dir, json_file=json_file, name=name,
                           img_size=(img_size, img_size), preproc=ValTransform())

@@ -9,9 +9,11 @@ with nesterov momentum and weight decay on the conv kernels only
 (``core/train_state.py::build_optimizer``); the lr schedule
 (``utils/lr_scheduler.py``); the multiscale buckets, drawn from a seeded host
 ``random.Random``; and the ``COCOEvaluator`` at ``test_size``,
-``test_conf`` and ``nms_threshold``. The host mosaic path (``device_mosaic
-False``, or ``device_aug`` alone), ChannelMask models (``use_mask``) and the
-yolov3 model raise ``NotImplementedError``.
+``test_conf`` and ``nms_threshold``. The loader is the host mosaic path by
+default (``data/mosaic.py``, as the JAX package's default exp) and the
+device-mosaic path with ``device_mosaic True``. ``device_aug`` alone,
+ChannelMask models (``use_mask``) and the yolov3 model raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,9 +26,9 @@ import torch
 
 from .base_exp import BaseExp
 
-HOST_MOSAIC_TODO = ("the host mosaic path (MosaicDetection, TrainTransform, random_affine and "
-                    "augment_hsv on cv2) is not ported: set device_mosaic True "
-                    "(ROADMAP Queue 1 item 3)")
+DEVICE_AUG_TODO = ("device_aug without device_mosaic (DeviceAugDataset, make_device_collate) "
+                   "is not ported (ROADMAP Queue 1 item 2): unset device_aug for the host "
+                   "mosaic path, or set device_mosaic True")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -109,7 +111,7 @@ class Exp(BaseExp):
 
         if use_mask:
             raise NotImplementedError("ChannelMask models (use_mask, pruned masks) are not "
-                                      "ported (ROADMAP Queue 1 item 2)")
+                                      "ported (ROADMAP Queue 1 item 1)")
         dtype = DTYPES[self.compute_dtype]
         if variables is None:
             if self.model_name not in MODEL_SPECS:
@@ -132,17 +134,36 @@ class Exp(BaseExp):
     def get_data_loader(self, batch_size: int, is_distributed: bool = False,
                         no_aug: bool = False, cache_img: bool = False, rank: int = 0,
                         world_size: int = 1, seed: int = 0):
-        """The device-mosaic loader (yolox_exp.py:161-230): the host decodes
-        and draws, ``data/device_mosaic.py`` collates raw uint8 tiles."""
-        from ..data.device_mosaic import DeviceMosaicDataset, make_mosaic_collate
+        """The training loader (yolox_exp.py:161-230). By default the host
+        mosaic path: ``MosaicDetection`` with ``TrainTransform`` on the
+        loader's threads, batches of float32 images and padded labels. With
+        ``device_mosaic``: the host decodes and draws, ``data/device_mosaic.py``
+        collates raw uint8 tiles for the card."""
         from ..data.samplers import DetectionLoader, InfiniteSampler, YoloBatchSampler
 
-        if not getattr(self, "device_mosaic", False):
-            raise NotImplementedError(HOST_MOSAIC_TODO)
+        device_mosaic = getattr(self, "device_mosaic", False)
+        if getattr(self, "device_aug", False) and not device_mosaic:
+            raise NotImplementedError(DEVICE_AUG_TODO)
         dataset = self.get_dataset(cache=cache_img)
         item_rng = random.Random(1_000_003 * (seed + 1) + rank)
         sampler = InfiniteSampler(len(dataset), seed=seed, rank=rank, world_size=world_size)
         batch_sampler = YoloBatchSampler(sampler, batch_size, mosaic=not no_aug)
+        if not device_mosaic:
+            from ..data.mosaic import MosaicDetection
+            from ..data.transforms import TrainTransform
+
+            wrapped = MosaicDetection(
+                dataset, mosaic=not no_aug, img_size=self.input_size,
+                preproc=TrainTransform(max_labels=self.max_labels_mosaic,
+                                       flip_prob=self.flip_prob, hsv_prob=self.hsv_prob),
+                degrees=self.degrees, translate=self.translate, mosaic_scale=self.mosaic_scale,
+                mixup_scale=self.mixup_scale, shear=self.shear, enable_mixup=self.enable_mixup,
+                mosaic_prob=self.mosaic_prob, mixup_prob=self.mixup_prob, rng=item_rng)
+            return DetectionLoader(wrapped, batch_sampler, num_workers=self.data_num_workers,
+                                   seed=seed)
+
+        from ..data.device_mosaic import DeviceMosaicDataset, make_mosaic_collate
+
         wrapped = DeviceMosaicDataset(
             dataset, img_size=self.input_size, degrees=self.degrees, translate=self.translate,
             mosaic_scale=self.mosaic_scale, mixup_scale=self.mixup_scale, shear=self.shear,

@@ -1,7 +1,13 @@
 """The training CLI (tools/train.py) on the port:
 
     python -m cocodet_tpu_torch.tools.train -f cocodet_tpu_torch/exps/p6/yolox_m_p6.py \
-        -b 16 --cache data_dir <COCO dir> device_mosaic True
+        -b 16 data_dir <COCO dir> multiscale_step 64 multiscale_range "(-2, 1)"
+
+trains the phase-1 exp on its own input path, the host mosaic on COCO's
+JPEGs (``device_mosaic True`` moves the mosaic, warp and mixup onto the
+card). The two overrides keep the exp's 640-832 multiscale span at stride
+64: its stride of 32 draws 672, 736 and 800, which the 4-level model cannot
+take (the trainer raises on them, as JAX's model fails on them).
 
 The flags of the JAX CLI (experiment by file or registry name, batch size,
 resume, checkpoint, start epoch, cache, fp32, no-aug, seed) and its trailing
@@ -47,7 +53,7 @@ def build(argv: Optional[Sequence[str]] = None):
     overrides, the experiment name, seed and compute dtype set."""
     args = make_parser().parse_args(argv)
     if args.num_hosts > 1:
-        raise NotImplementedError("multi-host training is not ported (ROADMAP Queue 1 item 3)")
+        raise NotImplementedError("multi-host training is not ported (ROADMAP Queue 1 item 2)")
 
     from cocodet_tpu_torch.exp import get_exp
 

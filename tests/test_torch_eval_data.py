@@ -133,11 +133,9 @@ def test_synthetic_annotations_match_jax(tmp_path, variant):
     for split in ("train2017", "val2017"):
         jg, jw = (json.load(open(os.path.join(r, "annotations", f"instances_{split}.json")))
                   for r in (got, want))
-        names = [im.pop("file_name") for im in jg["images"]]
-        for im in jw["images"]:
-            im.pop("file_name")
-        assert jg == jw
-        assert names == [f"{i:012d}.png" for i in range(len(names))]
+        assert jg == jw  # file_name included: the port writes JAX's {i:012d}.jpg
+        names = [im["file_name"] for im in jg["images"]]
+        assert names == [f"{i:012d}.jpg" for i in range(len(names))]
         for name, im in zip(names, jg["images"]):
             img = cv2.imread(os.path.join(got, split, name))
             assert img.shape == (im["height"], im["width"], 3)

@@ -109,8 +109,12 @@ def test_model_and_evaluator_follow_the_exp(tmp_path):
 
 
 def test_host_mosaic_path_raises():
+    """The host mosaic path runs (tests/test_torch_host_mosaic.py); what
+    still raises is device_aug without device_mosaic, before any file is
+    read, and masked models."""
     exp = pexp.get_exp_by_file(PORT_FILE)
-    with pytest.raises(NotImplementedError, match="device_mosaic"):
+    exp.device_aug = True
+    with pytest.raises(NotImplementedError, match="device_aug without device_mosaic"):
         exp.get_data_loader(batch_size=2)
     with pytest.raises(NotImplementedError):
         exp.get_model(device="cpu", use_mask=True)

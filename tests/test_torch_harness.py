@@ -202,10 +202,13 @@ def test_jpeg_input_raises(tmp_path):
 
     d = tmp_path / "imgs"
     d.mkdir()
-    cv2.imwrite(str(d / "000000000001.jpg"), np.zeros((SIZE, SIZE, 3), np.uint8))
+    # the port reads baseline JPEG (the folder fixture's images are JPEG); a
+    # progressive one is refused by name
+    cv2.imwrite(str(d / "000000000001.jpg"), np.zeros((SIZE, SIZE, 3), np.uint8),
+                [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
     cfg = _config(str(tmp_path))
     cfg["data_dir"] = str(d)
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    with pytest.raises(NotImplementedError, match="progressive JPEG"):
         harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
 
 

@@ -1,5 +1,6 @@
 """The port's image files and host native code against cv2 and the JAX
-package: cocodet_tpu_torch/data/image_io.py (PNG read and write),
+package: cocodet_tpu_torch/data/image_io.py (PNG read and write; JPEG in
+tests/test_torch_jpeg.py),
 csrc/host/png.cpp (row un-filtering), csrc/host/preproc.cpp (letterbox and
 the uint8 resize) and ops/host_build.py.
 
@@ -176,12 +177,14 @@ def test_colour_types_match_cv2(tmp_path, color):
 
 
 def test_jpeg_raises(tmp_path):
+    """What JPEG support still refuses: a progressive file (cv2 writes one),
+    by name, and a write to an extension other than JPEG's and PNG's."""
     path = str(tmp_path / "x.jpg")
-    cv2.imwrite(path, np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(NotImplementedError, match="JPEG"):
+    cv2.imwrite(path, np.zeros((8, 8, 3), np.uint8), [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with pytest.raises(NotImplementedError, match="progressive JPEG"):
         image_io.read_image(path)
-    with pytest.raises(NotImplementedError, match="PNG"):
-        image_io.write_image(path, np.zeros((8, 8, 3), np.uint8))
+    with pytest.raises(NotImplementedError, match="JPEG and PNG"):
+        image_io.write_image(str(tmp_path / "x.bmp"), np.zeros((8, 8, 3), np.uint8))
 
 
 @pytest.mark.parametrize("bpp", [1, 2, 3, 4])

@@ -99,6 +99,32 @@ def test_prefetcher_on_the_cpu_hands_over_the_batches():
     ref.close()
 
 
+class _Items(_Draws):
+    """Items as the host mosaic path gives them: (image, labels, info, id)."""
+
+    def fetch(self, item, rng):
+        flag, idx = item
+        img = np.full((3, 4, 3), rng.randint(0, 255), np.uint8)
+        labels = np.asarray([[idx, flag, rng.random(), 0.0, 1.0]] * 2)
+        return img, labels, (3, 4), idx
+
+
 def test_loader_takes_the_device_collate_only():
-    with pytest.raises(NotImplementedError):
-        ps.DetectionLoader(_Draws(), ps.YoloBatchSampler(ps.InfiniteSampler(10), 2))
+    """With no collate the loader stacks the host path's float batch as the
+    JAX loader's own collate does (samplers.py:180-184), exactly; items of
+    unequal shapes raise there as in JAX. (Named when the loader took the
+    device collate only; the name is kept for the test's history.)"""
+    sampler = lambda m: m.YoloBatchSampler(m.InfiniteSampler(10, seed=3), 4)  # noqa: E731
+    a = iter(ps.DetectionLoader(_Items(), sampler(ps), seed=5))
+    b = iter(js.DetectionLoader(_Items(), sampler(js), seed=5))
+    for _ in range(3):
+        (ia, la, fa, da), (ib, lb, fb, db) = next(a), next(b)
+        assert ia.dtype == ib.dtype == la.dtype == lb.dtype == np.float32
+        np.testing.assert_array_equal(ia, ib)
+        np.testing.assert_array_equal(la, lb)
+        assert fa == fb and da == db
+    a.close()
+    b.close()
+    with pytest.raises(ValueError):
+        ps.collate_items([(np.zeros((2, 2, 3)), np.zeros((1, 5)), 0, 0),
+                          (np.zeros((3, 2, 3)), np.zeros((1, 5)), 0, 0)])

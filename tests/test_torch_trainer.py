@@ -1,6 +1,6 @@
 """The port's Trainer (cocodet_tpu_torch/core/trainer.py) against JAX's
 (cocodet_tpu/core/trainer.py) on a tiny exp: the phase-1 exp file at depth
-0.33, width 0.125, 128 px (multiscale buckets 128 and 192), 8 synthetic PNG
+0.33, width 0.125, 128 px (multiscale buckets 128 and 192), 8 synthetic JPEG
 images, B=2, 2 epochs, f32, device mosaic, both from one init checkpoint
 (written by the port, read by both).
 
