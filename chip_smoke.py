@@ -180,6 +180,36 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      and the largest bucket (its worst errors join the kernels line's). The
      host C++ sources are host code, not kernels: k adds no row to the
      kernels line.
+  l. the compression chain at full width (YOLOX-M-P6, bf16), each step
+     seeded, its cuts printed first: (l1) the magnitude chain on seeded
+     unfused variables (obj and cls biases at logit(0.1), as phase c):
+     masks at 0.49 over the conv kernels outside the head, injected,
+     merged (BN folded, masks folded) on the host, the kept share, each
+     part's effective and total parameters and the seconds; the merged
+     tree served dense in bf16 at B=16, 640 px (counts zeroed just before:
+     127 hard-swish launches a batch and one of each NMS kernel), and in
+     f32 its detections on the card (TF32 off) and on the CPU the same
+     sets; (l2) the Pruner through its CLI's build on the port's prune exp,
+     64 synthetic train JPEGs at 640 px, B=16, no aug, one epoch of 4
+     iterations with prune_interval 0.5 (two prune events of 64 channels),
+     prune_score_batches 2, l1's variables the init: each event's count,
+     the masks shrinking by it, finite losses, each Pruner step's and score
+     step's device ms, host ms to queue and launches, peak memory, the
+     run's launches (the BN+act pair, hard-swish forward and backward, the
+     NMS pair in the evaluation); then the BN+act pair with ChannelMask
+     gates closed in its vectors held against its plain stages at the
+     step's BN shapes, and the hard-swish backward kernel at the score
+     step's activations, bit for bit, timed beside its plain version and
+     aten.hardswish_backward; (l3) the Tuner through its CLI's build from
+     l2's checkpoint with distillation (the masked init the teacher), 4
+     iterations, its step's numbers; (l4) tools/compress_pipeline.py
+     --slim on l3's checkpoint, then entry.build_headline on the spec it
+     wrote with its slimmed tree, served at B=16 (127 int8 convs a batch),
+     the NMS pair held bit for bit against its plain versions on a served
+     batch's candidates, the int8 conv on every conv at the new widths, and
+     the headline in f32 on the card (TF32 off) against the plain path on
+     the CPU (phase f's limits). Its kernel checks' worst
+     errors join the kernels line's rows.
 
     python3 chip_smoke.py --step TREE
 
@@ -201,6 +231,10 @@ bounds, as one ``j1: {...}`` JSON line, without the ``ok`` line).
     python3 chip_smoke.py --phase k
 
 runs phase a and phase k alone (without the kernels and ``ok`` lines).
+
+    python3 chip_smoke.py --phase l
+
+runs phase a and phase l alone (without the kernels and ``ok`` lines).
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -1414,7 +1448,7 @@ def measure_train_step(device, card):
 BN_ACT_SUM_TOL = 1e-5  # each sum's error over the sum of its terms' magnitudes
 
 
-def bn_act_case(x, g, act, gen, determinism=False):
+def bn_act_case(x, g, act, gen, determinism=False, gate=False):
     """The BN+act kernel pair against its plain stages on the card, on map
     ``x`` with cotangent ``g``: (1) the reduce's sums within BN_ACT_SUM_TOL
     of the f64 sums, each relative to the sum of its terms' magnitudes (the
@@ -1430,7 +1464,10 @@ def bn_act_case(x, g, act, gen, determinism=False):
     kernel's largest absolute difference from its plain version on the same
     inputs: ``reduce`` (its sums, both ways), ``apply`` (y and dx) and
     ``finish`` (the data-parallel finish kernels' vectors and running
-    statistics)."""
+    statistics). With ``gate``, about 30% of the channels carry a closed
+    ChannelMask gate folded into the vectors as the model folds it
+    (models/blocks.py::ChannelMask.fold): weight 0 and bias the gate's
+    offset."""
     import torch
 
     from cocodet_tpu_torch.ops.cuda import bn_act as bnk
@@ -1439,6 +1476,10 @@ def bn_act_case(x, g, act, gen, determinism=False):
     dev = x.device
     weight = torch.rand(c, generator=gen, device=dev) + 0.5
     bias = torch.randn(c, generator=gen, device=dev) * 0.5
+    if gate:
+        scale = (torch.rand(c, generator=gen, device=dev) >= 0.3).float()
+        offset = torch.randn(c, generator=gen, device=dev) * (1 - scale)
+        weight, bias = weight * scale, bias * scale + offset * (1 - scale)
     stats0 = (torch.randn(c, generator=gen, device=dev) * 0.1,
               torch.rand(c, generator=gen, device=dev) + 0.5)
     ra = [t.clone() for t in stats0]
@@ -1498,7 +1539,7 @@ def bn_act_case(x, g, act, gen, determinism=False):
     return {"rel": err, "rel_plain": err_p, "bits": bits, **absdiff}
 
 
-def check_bn_act_kernels(device, shapes, tag="g3."):
+def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=True):
     """The BN+act pair held against its plain stages (bn_act_case) at each
     of ``shapes`` (one step's BN+act maps, channels-last) in bf16 and f32,
     each twice to show the reduce deterministic, and on ragged cases: C not
@@ -1506,7 +1547,9 @@ def check_bn_act_kernels(device, shapes, tag="g3."):
     maps (H*W a multiple of 8 and not), a constant channel, C above one tile
     (f32 and bf16), a cotangent in another layout, the identity epilogue.
     Returns the worst of bn_act_case's numbers over all cases; ``tag``
-    begins the printed line."""
+    begins the printed line. ``gate`` closes ChannelMask gates in the
+    vectors of every case (bn_act_case); ``ragged_cases=False`` holds the
+    step's shapes only."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(13)
@@ -1527,7 +1570,7 @@ def check_bn_act_kernels(device, shapes, tag="g3."):
     worst, lines = {}, []
 
     def case(x, g, act):
-        r = bn_act_case(x, g, act, gen, determinism=True)
+        r = bn_act_case(x, g, act, gen, determinism=True, gate=gate)
         for k, v in r.items():
             worst[k] = worst.get(k, 0) + v if k == "bits" else max(worst.get(k, 0.0), v)
         return r["bits"]
@@ -1556,11 +1599,16 @@ def check_bn_act_kernels(device, shapes, tag="g3."):
     const = draw((4, 32, 6, 6), torch.bfloat16)
     const[:, 3] = 0.5
     ragged.append(("constant channel bf16", const, None, "hard_swish"))
+    if not ragged_cases:
+        ragged = []
     for label, x, g, act in ragged:
         g = draw(tuple(x.shape), x.dtype) if g is None else g
         if case(x, g, act):
             raise AssertionError(f"bn_act kernels disagree with their plain stages: {label}")
-    lines.append(f"{len(ragged)} ragged cases ({'; '.join(r[0] for r in ragged)})")
+    if ragged:
+        lines.append(f"{len(ragged)} ragged cases ({'; '.join(r[0] for r in ragged)})")
+    if gate:
+        lines.append("~30% of each case's channels gated closed")
     print(f"{tag} bn_act kernels vs their plain stages on the card: {', '.join(lines)}: vectors, "
           f"running statistics and both apply stages bit for bit ({worst['bits']} elements "
           f"differ), each reduce equal in two runs; the sums' worst error over the sum of their "
@@ -3241,6 +3289,427 @@ def phase_k(device, card, flags):
     return worst
 
 
+L_TRAIN, L_VAL = 64, 16  # phase l's synthetic set (256-512 px JPEGs)
+L_BATCHES = 4            # l1's served batches of BATCH
+L_PRUNE_EXP = os.path.join("cocodet_tpu_torch", "exps", "prune", "yolox_m_p6_prune.py")
+L_TUNE_EXP = os.path.join("cocodet_tpu_torch", "exps", "tune", "yolox_m_p6_tune_distill.py")
+
+
+def l_counts():
+    """Every launch counter of phase l's kernels."""
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+
+    return ({f"bn_act.{fn.__name__}": fn.launches for fn in bnk.WRAPPERS}
+            | {"hard_swish": hs.hard_swish.launches,
+               "hard_swish_grad": hs.hard_swish_grad.launches,
+               "int8_conv": ic.conv2d_w8a8.launches,
+               "overlap_matrix": nk.overlap_matrix.launches,
+               "greedy_keep": nk.greedy_keep.launches})
+
+
+def l_reset():
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+
+    for mod in (bnk, hs, ic, nk):
+        mod.reset_launch_counts()
+
+
+def l_parts(report):
+    """{part: (effective, total)} of a sparsity report: the CSP backbone,
+    the PAFPN neck and the head."""
+    parts = {}
+    for name, (eff, n) in report.items():
+        part = ("backbone" if name.startswith("backbone/backbone/") else
+                "neck" if name.startswith("backbone/") else "head")
+        e, t = parts.get(part, (0, 0))
+        parts[part] = (e + eff, t + n)
+    return parts
+
+
+def phase_l1(device, card):
+    """l1: the magnitude chain at full width on seeded variables (the obj and
+    cls biases at logit(0.1), as phase c): masks at 0.49, injected, merged,
+    then the merged tree served dense in bf16 at B=16, 640 px, counts zeroed
+    just before and read just after; and its detections, f32 on the card
+    (TF32 off) against f32 on the CPU, under phase f's matching. Returns the
+    unfused variables (l2's init)."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.compress import (count_effective_params, generate_magnitude_masks,
+                                            inject_masks, magnitude_threshold,
+                                            merge_for_deployment, sparsity_report)
+    from cocodet_tpu_torch.entry import Predictor, cast_parameters
+    from cocodet_tpu_torch.models import build_model
+    from cocodet_tpu_torch.utils.convert import flatten_tree
+
+    variables = serving_variables(seed=0)
+    t0 = time.perf_counter()
+    masks = generate_magnitude_masks(variables["params"], prune_ratio=0.49, verbose=False)
+    t1 = time.perf_counter()
+    thresh = magnitude_threshold(variables["params"], 0.49)
+    injected = inject_masks(variables, masks)
+    t2 = time.perf_counter()
+    merged = merge_for_deployment(injected)
+    t3 = time.perf_counter()
+    flat = flatten_tree(masks)
+    kept = sum(int(m.sum()) for m in flat.values())
+    total = sum(m.size for m in flat.values())
+    parts = l_parts(sparsity_report(injected))
+    eff, n = count_effective_params(injected, injected["masks"])
+    eff_m, n_m = count_effective_params(merged)
+    print(f"l1. magnitude masks at 0.49 over {len(flat)} conv kernels outside the head: kept "
+          f"{kept} of {total} ({kept / total:.6f}) above |w| > {thresh!r}; effective / total "
+          f"params " + ", ".join(f"{k} {e} / {t}" for k, (e, t) in sorted(parts.items()))
+          + f", all {eff} / {n}; the merged tree {eff_m} nonzero of {n_m}; seconds: masks "
+          f"{t1 - t0:.3f}, inject {t2 - t1:.3f}, merge {t3 - t2:.3f} (host)", flush=True)
+    if not (0.505 < kept / total < 0.515 and eff < n):
+        raise AssertionError(f"l1: kept share {kept / total}, effective {eff} of {n}")
+
+    model = build_model("yolox-p6", depth=0.67, width=0.75, fused=True, device=device,
+                        variables=merged)
+    served = Predictor(cast_parameters(model, torch.bfloat16))
+    rs = np.random.RandomState(4)
+    batches = [rs.uniform(0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32)
+               for _ in range(L_BATCHES)]
+    served(batches[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    l_reset()
+    t0 = time.perf_counter()
+    results = [served(b) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = l_counts()
+    x = torch.from_numpy(batches[1]).to(device)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: served.model(x), 5)
+    dets = [int(r.valid.sum()) for r in results]
+    print(f"l1. the merged tree served dense (bf16, fused) {L_BATCHES} x {BATCH} at {SIZE} px on "
+          f"{card}: {L_BATCHES * BATCH / wall:.2f} img/s, forward {fwd_ms:.3f} ms a batch, peak "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB, detections {dets}; "
+          f"launches {counts}", flush=True)
+    want = {"hard_swish": CONVS * L_BATCHES, "overlap_matrix": L_BATCHES,
+            "greedy_keep": L_BATCHES}
+    if any(counts[k] != v for k, v in want.items()) or not all(dets):
+        raise AssertionError(f"l1: launches {counts} (want {want}), detections {dets}")
+    del served, model
+    torch.cuda.empty_cache()
+
+    images = torch.from_numpy(np.random.RandomState(2).uniform(
+        0, 255, (2, 256, 256, 3)).astype(np.float32))
+    with cudnn_deterministic():
+        on_card = Predictor(build_model("yolox-p6", depth=0.67, width=0.75, fused=True,
+                                        device=device, variables=merged))
+        on_cpu = Predictor(build_model("yolox-p6", depth=0.67, width=0.75, fused=True,
+                                       device="cpu", variables=merged))
+        got, want_det = on_card(images), on_cpu(images)
+    same = match_detections(type(got)(*(t.cpu() for t in got)), want_det)
+    print(f"l1. the merged tree in f32, card (TF32 off) vs CPU, 2 x 256 px: detections the same "
+          f"sets: {same} ({int(want_det.valid.sum())} of {want_det.valid.numel()})", flush=True)
+    if not same or not int(want_det.valid.sum()):
+        raise AssertionError("l1: the merged tree's detections on the card differ from the CPU's")
+    del on_card
+    torch.cuda.empty_cache()
+    return variables
+
+
+class StepTimer:
+    """Wraps a step: per call the device ms (CUDA events), the host ms to
+    queue it and the launches of each kernel it made."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __call__(self, *args, **kwargs):
+        import torch
+
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        before = l_counts()
+        ev[0].record()
+        t0 = time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        host = (time.perf_counter() - t0) * 1e3
+        ev[1].record()
+        after = l_counts()
+        self.calls.append((ev, host, {k: after[k] - before[k] for k in after if after[k] > before[k]}))
+        return out
+
+    def summary(self):
+        import torch
+
+        torch.cuda.synchronize()
+        dev = [e[0].elapsed_time(e[1]) for e, _, _ in self.calls]
+        return {"calls": len(self.calls), "device_ms": [round(v, 3) for v in dev],
+                "host_ms": [round(h, 3) for _, h, _ in self.calls],
+                "launches": self.calls[-1][2] if self.calls else {}}
+
+
+def l_argv(exp, root, out_dir, extra):
+    return ["-f", os.path.join(REPO, exp), "-b", str(BATCH), "data_dir", root,
+            "output_dir", out_dir, "input_size", f"({SIZE}, {SIZE})",
+            "test_size", f"({SIZE}, {SIZE})", "max_epoch", "1", "no_aug_epochs", "1",
+            "print_interval", "2", *extra]
+
+
+def l_hard_swish_grad(device, shapes):
+    """The hard-swish backward kernel at each of ``shapes`` (the score step's
+    activations, channels-last, x uniform on [-5, 5], a normal cotangent)
+    held bit for bit against its plain version, then timed beside it and
+    beside ATen's hardswish_backward (one PyTorch call), with its bound: x
+    and g read once, dx written once. Returns the worst absolute error."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0}
+    worst, n_maps = 0.0, 0
+    for (shape, dtype), count in shapes.items():
+        x = (torch.rand(shape, generator=gen, device=device) * 10 - 5).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        g = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+        fns = (lambda: hs.hard_swish_grad(x, g), lambda: hs.hard_swish_grad_plain(x, g),
+               lambda: torch.ops.aten.hardswish_backward(g, x))
+        n, err = bit_diff(fns[0](), fns[1]())
+        if n:
+            raise AssertionError(f"hard_swish backward disagrees with its plain version at "
+                                 f"{shape} {dtype}: {n} of {x.numel()} elements")
+        worst = max(worst, err)
+        for key, fn, iters in zip(("ms", "plain_ms", "library_ms"), fns, (10, 3, 10)):
+            tot[key] += count * cuda_ms(fn, iters)
+        tot["bytes"] += count * x.numel() * x.element_size() * 3
+        n_maps += count
+    bound = tot["bytes"] / HBM_BYTES_PER_S * 1e3
+    print(f"l2. hard_swish backward kernel == plain version, bit for bit, at the score step's "
+          f"{len(shapes)} shapes ({n_maps} maps); summed over one step's maps: kernel "
+          f"{tot['ms']:.4f} ms, plain {tot['plain_ms']:.4f} ms, aten.hardswish_backward "
+          f"{tot['library_ms']:.4f} ms, byte bound {bound:.4f} ms", flush=True)
+    return worst
+
+
+def phase_l2(device, root, out_dir, init):
+    """l2: the Pruner as its CLI runs it (tools/prune.py's build, Pruner,
+    train) on the port's prune exp at full width, bf16, B=16, 640 px, one
+    epoch of 4 iterations, prune_interval 0.5 (two prune events),
+    prune_score_batches 2, the init checkpoint l1's variables; steps wrapped
+    by StepTimer, counts zeroed just before. Then the BN+act pair, with
+    gates closed in its vectors, held against its plain stages at the
+    step's BN shapes, and the hard-swish backward at the score step's."""
+    import torch
+
+    from cocodet_tpu_torch.core.pruner import Pruner
+    from cocodet_tpu_torch.tools.train import build
+
+    exp, args = build(l_argv(L_PRUNE_EXP, root, out_dir, [
+        "init_ckpt", init, "prune_score_batches", "2", "prune_interval", "0.5"]))
+    t0 = time.perf_counter()
+    pruner = Pruner(exp, args, device=device)
+    pruner.before_train()
+    pruner.train_step = step = StepTimer(pruner.train_step)
+    pruner.score_step = score = StepTimer(pruner.score_step)
+    torch.cuda.reset_peak_memory_stats(device)
+    l_reset()
+    t1 = time.perf_counter()
+    pruner.train_epochs()
+    t2 = time.perf_counter()
+    counts = l_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    ev = pruner.prune_events
+    st, sc = step.summary(), score.summary()
+    print(f"l2. Pruner (CLI surface, {exp.max_epoch} epoch of {pruner.iters_per_epoch} "
+          f"iterations at B={BATCH} {SIZE} px, {exp.compute_dtype}): {t2 - t0:.2f} s "
+          f"({t1 - t0:.2f} s to "
+          f"before_train's end); prune events {ev}; losses finite: "
+          f"{pruner.epoch_stats[0]['nonfinite_losses'] == 0}; peak {peak:.2f} GiB; launches of "
+          f"the run {counts}", flush=True)
+    print(f"l2. Pruner step: device ms {st['device_ms']}, host ms to queue {st['host_ms']}, "
+          f"launches a step {st['launches']}", flush=True)
+    print(f"l2. score step: device ms {sc['device_ms']}, host ms to queue {sc['host_ms']}, "
+          f"launches a step {sc['launches']}", flush=True)
+    kept = [e["kept"] for e in ev]
+    ok = (len(ev) == 2 and all(0 < e["pruned"] <= exp.prune_channels for e in ev)
+          and kept[0] == ev[0]["total"] - ev[0]["pruned"] and kept[1] == kept[0] - ev[1]["pruned"]
+          and pruner.epoch_stats[0]["nonfinite_losses"] == 0 and sc["calls"] == 4)
+    need = ("bn_act.reduce", "bn_act.apply", "bn_act.grad_reduce", "bn_act.grad_apply",
+            "hard_swish", "hard_swish_grad", "overlap_matrix", "greedy_keep")
+    if not ok or any(counts[k] == 0 for k in need):
+        raise AssertionError(f"l2: events {ev}, launches {counts}")
+
+    images, labels = (torch.from_numpy(t).to(device) for t in training_batch(BATCH, SIZE, 21))
+    for label, fn in (("Pruner step", pruner.train_step.fn), ("score step", pruner.score_step.fn)):
+        kernels, copies, busy_ms = step_kernel_count(fn, images, labels)
+        print(f"l2. {label}, one of B={BATCH} {SIZE} px under torch.profiler: {kernels} CUDA "
+              f"kernels + {copies} copies or fills, the card busy (ms) {_ms(busy_ms, '.3f')}",
+              flush=True)
+    bn_shapes = activation_shapes(pruner.model, lambda: pruner.train_step.fn(images, labels))
+    worst = check_bn_act_kernels(device, bn_shapes, tag="l2.", gate=True, ragged_cases=False)
+    hs_shapes = activation_shapes(pruner.model, lambda: pruner.score_step.fn(images, labels))
+    worst["hard_swish"] = l_hard_swish_grad(device, hs_shapes)
+    ckpt = os.path.join(pruner.file_name, "latest_ckpt.msgpack")
+    del pruner, images, labels
+    torch.cuda.empty_cache()
+    return ckpt, worst, t2 - t0
+
+
+def phase_l3(device, root, out_dir, pruned):
+    """l3: the Tuner as its CLI runs it on the port's tune exp from l2's
+    checkpoint (the masked model, the init weights with their masks the
+    teacher), one epoch of 4 iterations with distillation."""
+    import torch
+
+    from cocodet_tpu_torch.core.tuner import Tuner
+    from cocodet_tpu_torch.tools.train import build
+
+    exp, args = build(l_argv(L_TUNE_EXP, root, out_dir, [
+        "init_ckpt", pruned, "warmup_epochs", "0", "eval_interval", "1"]))
+    t0 = time.perf_counter()
+    tuner = Tuner(exp, args, device=device)
+    tuner.before_train()
+    tuner.distill_step = step = StepTimer(tuner.distill_step)
+    torch.cuda.reset_peak_memory_stats(device)
+    l_reset()
+    tuner.train_epochs()
+    seconds = time.perf_counter() - t0
+    counts = l_counts()
+    st = step.summary()
+    print(f"l3. Tuner (CLI surface, distillation from l2's checkpoint, masked teacher "
+          f"{tuner.teacher_model.use_mask}): {seconds:.2f} s; losses finite: "
+          f"{tuner.epoch_stats[0]['nonfinite_losses'] == 0}; eval {tuner.eval_stats}; peak "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; launches {counts}",
+          flush=True)
+    print(f"l3. Tuner step: device ms {st['device_ms']}, host ms to queue {st['host_ms']}, "
+          f"launches a step {st['launches']}", flush=True)
+    images, labels = (torch.from_numpy(t).to(device) for t in training_batch(BATCH, SIZE, 22))
+    kernels, copies, busy_ms = step_kernel_count(step.fn, images, labels)
+    print(f"l3. Tuner step, one of B={BATCH} {SIZE} px under torch.profiler: {kernels} CUDA "
+          f"kernels + {copies} copies or fills, the card busy (ms) {_ms(busy_ms, '.3f')}",
+          flush=True)
+    del images, labels
+    if not (tuner.use_mask and tuner.epoch_stats[0]["nonfinite_losses"] == 0
+            and st["calls"] == tuner.iters_per_epoch and counts["bn_act.reduce"]
+            and counts["hard_swish"]):
+        raise AssertionError(f"l3: the Tuner's run ({st}, {counts})")
+    ckpt = os.path.join(tuner.file_name, "latest_ckpt.msgpack")
+    del tuner
+    torch.cuda.empty_cache()
+    return ckpt, seconds
+
+
+def phase_l4(device, card, tuned, out_dir):
+    """l4: tools/compress_pipeline.py --slim on l3's checkpoint, then the w8a8
+    headline built from the spec it wrote (entry.build_headline(spec_path=)
+    with its slimmed tree), served at B=16, 640 px, counts zeroed just
+    before; the int8 conv held against its plain version at each of its
+    convs at the new widths, and the headline in f32 on the card against the
+    plain path on the CPU (phase f's limits)."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.compress import load_slim_spec
+    from cocodet_tpu_torch.entry import build_headline, build_w8a8_predictor
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+    from cocodet_tpu_torch.ops.postprocess import _select_topk_fused
+    from cocodet_tpu_torch.tools import compress_pipeline
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    written = compress_pipeline.main(["-c", tuned, "-o", os.path.join(out_dir, "weights"),
+                                      "--slim"])
+    seconds = time.perf_counter() - t0
+    spec_path = written["files"]["slim_spec"]
+    slim = load_slim_spec(spec_path)
+    slimmed = load_checkpoint(written["files"]["slim"])["model"]
+    widths = {k: v for k, v in slim.items() if isinstance(v, int)}
+    print(f"l4. compress_pipeline --slim: {seconds:.2f} s (host; {written['seconds']}); params "
+          f"before merge {written['before_merge']}, merged {written['merged']}, slimmed "
+          f"{written['slim']}; spec widths {widths}", flush=True)
+    headline = build_headline(spec_path, device=device, variables=slimmed)
+    rs = np.random.RandomState(5)
+    batches = [rs.uniform(0, 255, (BATCH, SIZE, SIZE, 3)).astype(np.float32) for _ in range(2)]
+    headline(batches[0])
+    torch.cuda.synchronize()
+    l_reset()
+    t0 = time.perf_counter()
+    results = [headline(b) for b in batches]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = l_counts()
+    x = torch.from_numpy(batches[1]).to(device)
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: headline.model(x), 5)
+    print(f"l4. the headline from the port's spec served 2 x {BATCH} at {SIZE} px on {card}: "
+          f"{2 * BATCH / wall:.2f} img/s, forward {fwd_ms:.3f} ms a batch, detections "
+          f"{[int(r.valid.sum()) for r in results]}; launches {counts}", flush=True)
+    if counts["int8_conv"] != CONVS * 2 or counts["overlap_matrix"] != 2:
+        raise AssertionError(f"l4: launches {counts}")
+    with torch.inference_mode():  # the NMS pair on this headline's served candidates
+        boxes, _, classes, _, valid = _select_topk_fused(headline.model(x), STRIDES,
+                                                         headline.cfg)
+        nms_err = check_kernels(f"l4. NMS kernels on the served candidates, K={valid.shape[1]} "
+                                f"B={BATCH}", class_offset_boxes(boxes, classes, valid)
+                                .contiguous(), valid, headline.cfg.nms_threshold)
+    x2 = torch.from_numpy(np.random.RandomState(3).uniform(
+        0, 255, (2, SIZE, SIZE, 3)).astype(np.float32)).to(device)
+    records, _ = w8a8_conv_inputs(headline.model, x2)
+    worst = 0.0
+    for name, m, x, odt in records:
+        worst = max(worst, check_int8_conv(name, x, m.weight, m.act_scale, m.w_scale,
+                                           m.bias.detach().to(odt), m.stride, odt))
+    print(f"l4. int8 conv == plain version (s32 accumulators and outputs, bit for bit, with no "
+          f"activation and with the fused hard-swish) on all {len(records)} w8a8 convs at the "
+          f"port's spec's widths, B=2 {SIZE} px", flush=True)
+    del records, x2, x
+    images = torch.from_numpy(np.random.RandomState(2).uniform(
+        0, 255, (2, 256, 256, 3)).astype(np.float32))
+    on_card = build_w8a8_predictor(headline.variables, slim, dtype=torch.float32, device=device)
+    on_cpu = build_w8a8_predictor(headline.variables, slim, dtype=torch.float32, device="cpu")
+    with cudnn_deterministic():  # the 12 float prediction convs without TF32, as phase f's
+        res = compare_card_cpu(on_card, on_cpu, images, device)
+    print(f"l4. the headline in f32, card (TF32 off) vs plain path on the CPU, 2 x 256 px: "
+          f"{res['line']}; limits: 0 inputs, 1e-4, same sets", flush=True)
+    if not (res["inputs"] == 0 and res["max"] <= 1e-4 and res["same"]):
+        raise AssertionError("l4: the headline on the card disagrees with the CPU")
+    del headline, on_card
+    torch.cuda.empty_cache()
+    return worst, nms_err, seconds
+
+
+def phase_l(device, card, flags):
+    """l: the compression chain at full width (see the docstring). Returns the
+    worst numbers of its kernel checks, for the kernels line."""
+    import tempfile
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    t_start = time.perf_counter()
+    print("l. cuts: depth 0.67 and width 0.75 kept (YOLOX-M-P6); weights random from numpy "
+          "seed 0 (no trained checkpoint here); the Pruner and Tuner 1 epoch of 4 iterations "
+          f"(not 30 and 50) on {L_TRAIN} synthetic train and {L_VAL} val JPEGs at {SIZE} px "
+          "(not COCO at 768), prune_score_batches 2 (not 8), 2 prune events of 64 channels",
+          flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compress_") as tmp, backend_flags(flags):
+        variables = phase_l1(device, card)
+        init = save_checkpoint({"model": variables}, False, tmp, "dense_init")
+        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=L_TRAIN, n_val=L_VAL,
+                                   size_range=(256, 512), seed=2, variant="default")
+        pruned, worst, prune_s = phase_l2(device, root, os.path.join(tmp, "out"), init)
+        tuned, tune_s = phase_l3(device, root, os.path.join(tmp, "out"), pruned)
+        worst["int8_conv"], nms_err, slim_s = phase_l4(device, card, tuned, tmp)
+        worst.update(nms_err)
+    print(f"l. phase l: {time.perf_counter() - t_start:.1f} s (the CLIs: prune {prune_s:.2f} s, "
+          f"tune {tune_s:.2f} s, compress_pipeline {slim_s:.2f} s) ({card})", flush=True)
+    return worst
+
+
 def train_aug_kernels(aug_stats):
     """The kernels line's entries of K1-K4."""
     return [{"name": name, "route": "cuda", "source": "cocodet_tpu_torch/csrc/train_aug.cu",
@@ -3263,9 +3732,10 @@ def main():
     flags = current_flags()  # before any phase sets them
     args = sys.argv[1:]
     if args and (len(args) != 2 or args not in (["--step", args[1]], ["--phase", "j"],
-                                                 ["--phase", "j1"], ["--phase", "k"])):
-        print("usage: python3 chip_smoke.py [--step TREE | --phase j | --phase j1 | --phase k]",
-              file=sys.stderr)
+                                                 ["--phase", "j1"], ["--phase", "k"],
+                                                 ["--phase", "l"])):
+        print("usage: python3 chip_smoke.py [--step TREE | --phase j | --phase j1 | --phase k "
+              "| --phase l]", file=sys.stderr)
         return 2
     tree = os.path.abspath(args[1]) if args[:1] == ["--step"] else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
@@ -3289,6 +3759,9 @@ def main():
         return 0
     if args == ["--phase", "k"]:
         phase_k(device, card, flags)
+        return 0
+    if args == ["--phase", "l"]:
+        phase_l(device, card, flags)
         return 0
     if args:
         # --phase j
@@ -3317,15 +3790,21 @@ def main():
     aug_stats = phase_j(device, card, flags)
     torch.cuda.empty_cache()
     k_worst = phase_k(device, card, flags)
+    torch.cuda.empty_cache()
+    l_worst = phase_l(device, card, flags)
     for name, st in bn_stats.items():
-        st["max_abs_err"] = max(st["max_abs_err"], k_worst[name[len("bn_act_"):]])
+        st["max_abs_err"] = max(st["max_abs_err"], k_worst[name[len("bn_act_"):]],
+                                l_worst[name[len("bn_act_"):]])
+    hs_stats["max_abs_err"] = max(hs_stats["max_abs_err"], l_worst["hard_swish"])
+    int8_stats["max_abs_err"] = max(int8_stats["max_abs_err"], l_worst["int8_conv"])
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}
     kernels = [{"name": name, "route": "cuda",
                 "source": "cocodet_tpu_torch/csrc/nms_kernels.cu",
                 "replaces": replaces[name], "launches": launches[name],
-                "max_abs_err": max(s["max_abs_err"], worst[name]), "ms": s["ms"],
+                "max_abs_err": max(s["max_abs_err"], worst[name], l_worst[name]),
+                "ms": s["ms"],
                 "plain_ms": s["plain_ms"], "bound_ms": s["bound_ms"],
                 "bound_by": s["bound_by"], "library_ms": None}
                for name, s in stats.items()]

@@ -20,9 +20,14 @@ trained img/s by the host clock with the data included, the step's and the
 input kernels' device ms, the wait for data, the multiscale sizes, peak
 memory) are kept in ``epoch_stats``, each checkpoint's in ``ckpt_stats``.
 
-Checkpoints are JAX's msgpack trees (``utils/checkpoint.py``). Raise, by
-design (ROADMAP Queue 1 item 2): gradient accumulation (``num_accumulate >
-1``), ``remat``, a spatial mesh or more than one rank, masked models.
+Checkpoints are JAX's msgpack trees (``utils/checkpoint.py``). A masked
+model (``exp.use_mask``, or an init checkpoint whose ``model`` carries a
+``masks`` collection, a Pruner's output) is built with its ChannelMask
+gates (trainer.py:74-117); the gates stay fixed, are loaded from the init
+checkpoint (its leaves the model lacks dropped, as ``load_matched`` does)
+and go into the evaluated and saved ``model`` variables (:376-383). Raise,
+by design (ROADMAP Queue 1 item 4): gradient accumulation
+(``num_accumulate > 1``), ``remat``, a spatial mesh or more than one rank.
 """
 
 from __future__ import annotations
@@ -39,14 +44,14 @@ from ..data.device_aug import apply_device_preproc
 from ..data.samplers import DevicePrefetcher
 from ..entry import Predictor
 from ..utils.checkpoint import load_checkpoint, load_matched, save_checkpoint
-from ..utils.convert import (ema_variables, export_variables, load_ema, load_optimizer_state,
-                             load_variables, optimizer_state_dict)
+from ..utils.convert import (ema_variables, export_masks, export_variables, load_ema,
+                             load_optimizer_state, load_variables, optimizer_state_dict)
 from ..utils.ema import ModelEMA
 from ..utils.logger import logger, setup_logger
 from ..utils.metric import MeterBuffer, device_mem_usage_mb
 from .train_state import create_train_state, make_train_step, resize_batch
 
-TODO = "(ROADMAP Queue 1 item 2)"
+TODO = "(ROADMAP Queue 1 item 4)"
 
 
 class Trainer:
@@ -88,9 +93,6 @@ class Trainer:
         if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
             raise NotImplementedError(f"the trainer's data-parallel wiring over several ranks "
                                       f"is not ported {TODO}")
-        if getattr(exp, "use_mask", False):
-            raise NotImplementedError("masked models (use_mask) are not ported "
-                                      "(ROADMAP Queue 1 item 1)")
         # a size the deepest stride does not divide breaks the PAFPN's concat
         # of the upsampled map, in JAX as here: refuse it before the first step
         stride = max(exp.strides)
@@ -133,10 +135,9 @@ class Trainer:
         init_ckpt = getattr(exp, "init_ckpt", None)
         self._init_tree = load_checkpoint(init_ckpt) if init_ckpt else None
         ckpt_model = (self._init_tree or {}).get("model", self._init_tree)
-        if (ckpt_model or {}).get("masks"):
-            raise NotImplementedError(f"{init_ckpt}: init checkpoints with pruning masks are "
-                                      "not ported (ROADMAP Queue 1 item 1)")
-        self.model = exp.get_model(device=self.device)
+        # a pruned init checkpoint builds the ChannelMask model (trainer.py:74-92)
+        self.use_mask = bool(getattr(exp, "use_mask", False) or (ckpt_model or {}).get("masks"))
+        self.model = exp.get_model(device=self.device, use_mask=self.use_mask)
         self.train_loader = exp.get_data_loader(
             batch_size=batch_size, is_distributed=False,
             no_aug=self.start_epoch >= self.max_epoch - exp.no_aug_epochs,
@@ -168,11 +169,25 @@ class Trainer:
                     device_mem_usage_mb(self.device))
 
     def _load_matched_into_model(self, tree: Dict[str, Any]) -> None:
+        """``load_matched`` of the tree's params and BN statistics, and of its
+        masks where both the model and the tree have them (leaves the model
+        lacks, such as a magnitude chain's ``conv_mask``, are dropped)."""
         cur = export_variables(self.model)
-        load_variables(self.model, {
-            "params": load_matched(cur["params"], tree.get("params", tree)),
-            "batch_stats": load_matched(cur.get("batch_stats", {}),
-                                        tree.get("batch_stats", {}))})
+        new = {"params": load_matched(cur["params"], tree.get("params", tree)),
+               "batch_stats": load_matched(cur.get("batch_stats", {}),
+                                           tree.get("batch_stats", {}))}
+        if "masks" in cur:
+            new["masks"] = (load_matched(cur["masks"], tree["masks"]) if tree.get("masks")
+                            else cur["masks"])
+        load_variables(self.model, new)
+
+    def _next_batch(self):
+        """The next (images, labels) on the device, preprocessed on the card
+        on the device-mosaic path."""
+        imgs, labels, _, _ = self.data_iter.next()
+        if isinstance(imgs, dict):
+            imgs, labels = apply_device_preproc(self.exp, tuple(self.input_size), imgs)
+        return imgs, labels
 
     def _load_init_ckpt(self, path: str):
         ckpt = self._init_tree
@@ -278,16 +293,22 @@ class Trainer:
 
     def eval_variables(self) -> Dict[str, Any]:
         """The EMA shadow (or the live weights) as flax ``{params,
-        batch_stats}``."""
-        if self.state.ema is not None:
-            return ema_variables(self.state.ema)
-        return export_variables(self.model)
+        batch_stats}``, with a masked model's ``masks`` (trainer.py:376-383)."""
+        if self.state.ema is None:
+            return export_variables(self.model)
+        out = ema_variables(self.state.ema)
+        masks = export_masks(self.model)
+        if masks:
+            out["masks"] = masks
+        return out
 
     def evaluate_and_save_model(self):
         """The COCO evaluator over the EMA weights: the unfused model in eval
         mode, in ``compute_dtype``, at the exp's test size, conf and NMS."""
         t0 = time.perf_counter()
-        model = self.exp.get_model(device=self.device, variables=self.eval_variables())
+        variables = self.eval_variables()
+        model = self.exp.get_model(device=self.device, variables=variables,
+                                   use_mask="masks" in variables)
         ap, ap50, summary = self.evaluator.evaluate(Predictor(model))
         del model
         self.eval_stats.append({"epoch": self.epoch + 1, "AP": ap, "AP50": ap50,
@@ -301,8 +322,10 @@ class Trainer:
 
     def checkpoint_state(self) -> Dict[str, Any]:
         """The checkpoint tree of trainer.py:395-407."""
+        raw = export_variables(self.model)
+        raw.pop("masks", None)
         return {"start_epoch": self.epoch + 1, "model": self.eval_variables(),
-                "raw_model": export_variables(self.model),
+                "raw_model": raw,
                 "opt_state": optimizer_state_dict(self.optimizer, self.model),
                 "best_ap": self.best_ap}
 

@@ -163,7 +163,7 @@ def _jpeg_raise(rc: int, msg: bytes, where: str):
     if rc == 1:
         raise NotImplementedError(f"{text} is not supported: the port decodes baseline and "
                                   "extended sequential Huffman JPEG, 8-bit, 1 or 3 components "
-                                  "(ROADMAP Queue 1 item 5)")
+                                  "(ROADMAP Queue 1 item 7)")
     raise ValueError(text)
 
 

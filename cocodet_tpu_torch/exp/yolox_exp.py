@@ -11,9 +11,9 @@ with nesterov momentum and weight decay on the conv kernels only
 ``random.Random``; and the ``COCOEvaluator`` at ``test_size``,
 ``test_conf`` and ``nms_threshold``. The loader is the host mosaic path by
 default (``data/mosaic.py``, as the JAX package's default exp) and the
-device-mosaic path with ``device_mosaic True``. ``device_aug`` alone,
-ChannelMask models (``use_mask``) and the yolov3 model raise
-``NotImplementedError``.
+device-mosaic path with ``device_mosaic True``. ``get_model(use_mask=True)``
+builds the ChannelMask model of the Pruner and Tuner. ``device_aug`` alone
+and the yolov3 model raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +27,7 @@ import torch
 from .base_exp import BaseExp
 
 DEVICE_AUG_TODO = ("device_aug without device_mosaic (DeviceAugDataset, make_device_collate) "
-                   "is not ported (ROADMAP Queue 1 item 2): unset device_aug for the host "
+                   "is not ported (ROADMAP Queue 1 item 4): unset device_aug for the host "
                    "mosaic path, or set device_mosaic True")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -105,25 +105,25 @@ class Exp(BaseExp):
         """The model in ``compute_dtype`` (f32 parameters) on ``device``, with
         the flax-layout ``variables``, or weights drawn from numpy ``seed``
         (default ``self.seed`` or 0) with the head's cls and obj biases at the
-        prior 0.01 (``utils/convert.py::random_variables``)."""
+        prior 0.01 (``utils/convert.py::random_variables``). ``use_mask``
+        builds the ChannelMask model (yolox_exp.py:135-144); its random
+        weights equal the unmasked model's, every gate open."""
         from ..models.yolox import MODEL_SPECS, YOLOX, build_model
         from ..utils.convert import random_variables
 
-        if use_mask:
-            raise NotImplementedError("ChannelMask models (use_mask, pruned masks) are not "
-                                      "ported (ROADMAP Queue 1 item 1)")
         dtype = DTYPES[self.compute_dtype]
         if variables is None:
             if self.model_name not in MODEL_SPECS:
                 raise KeyError(f"unknown model {self.model_name!r}")
             with torch.device("meta"):
                 shapes = YOLOX(MODEL_SPECS[self.model_name], num_classes=self.num_classes,
-                               depth=self.depth, width=self.width, fused=fused)
+                               depth=self.depth, width=self.width, fused=fused,
+                               use_mask=use_mask)
             variables = random_variables(shapes, (self.seed or 0) if seed is None else seed,
                                          prior_prob=0.01)
         return build_model(self.model_name, num_classes=self.num_classes, depth=self.depth,
                            width=self.width, fused=fused, dtype=dtype, device=device,
-                           variables=variables)
+                           variables=variables, use_mask=use_mask)
 
     def get_dataset(self, cache: bool = False):
         from ..data.coco import COCODataset

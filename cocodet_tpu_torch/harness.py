@@ -55,7 +55,7 @@ from .utils.metric import Timer
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NAME_MAP = {"yolox": "yolox", "yolox-dw": "yolox-dw", "yolox-m-p6": "yolox-p6",
             "yolox-m-p6-pr": "yolox-p6", "yolox-p6": "yolox-p6", "yolox-p6-v2": "yolox-p6v2"}
-CKPT_TODO = "is not ported (ROADMAP Queue 1 item 3)"
+CKPT_TODO = "is not ported (ROADMAP Queue 1 item 5)"
 
 
 def count_params(model: torch.nn.Module) -> int:
@@ -104,7 +104,7 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
         if cfg.get(key):
             raise NotImplementedError(f"harness config {key}={cfg[key]!r} is not ported")
     if postprocess_config(cfg).soft:
-        raise NotImplementedError("soft-NMS is not ported (ROADMAP Queue 1 item 3)")
+        raise NotImplementedError("soft-NMS is not ported (ROADMAP Queue 1 item 5)")
     mcfg = cfg["model"]
     name = NAME_MAP.get(mcfg.get("type", "yolox-p6"), "yolox-p6")
     if name not in MODEL_SPECS:

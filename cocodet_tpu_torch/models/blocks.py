@@ -169,6 +169,35 @@ class Conv2d(nn.Module):
                         self.dilation, self.groups)
 
 
+class ChannelMask(nn.Module):
+    """The structured-pruning gate of cocodet_tpu/models/blocks.py:110-130:
+    ``y = x * scale + offset * (1 - scale)``, ``scale`` 0 or 1 per channel.
+    ``scale`` and ``offset`` are f32 buffers (flax's ``masks`` collection),
+    so the optimizer never sees them; the Pruner writes them
+    (core/pruner.py). After a train-mode or eval-mode BN the gate is folded
+    into the BN's per-channel vectors (``fold``); ``forward`` applies it
+    explicitly, in the map's dtype, after a fused conv."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.register_buffer("scale", torch.ones(features))
+        self.register_buffer("offset", torch.zeros(features))
+
+    def fold(self, weight: torch.Tensor, bias: torch.Tensor):
+        """BN vectors with the gate folded in: ``weight * s`` and ``bias * s
+        + offset * (1 - s)``. A BN output ``z = u * weight + bias`` gated is
+        ``z * s + o * (1 - s)``; with s in {0, 1} that is exactly the BN
+        output of these vectors (u * 0 + o = o, and u * w + b at s = 1). As
+        torch ops before the BN, autograd carries the factor s to the
+        weight's and bias's gradients."""
+        s = self.scale.to(weight.dtype)
+        return weight * s, bias * s + self.offset.to(bias.dtype) * (1.0 - s)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        s = self.scale.to(x.dtype).view(1, -1, 1, 1)
+        return x * s + self.offset.to(x.dtype).view(1, -1, 1, 1) * (1.0 - s)
+
+
 class _BatchNormAct(torch.autograd.Function):
     """Train-mode BN and the activation after it through
     ``ops/cuda/bn_act.py``: the CUDA kernels on the card, the plain stages
@@ -212,9 +241,10 @@ class _BatchNormAct(torch.autograd.Function):
 class BatchNorm(nn.BatchNorm2d):
     """BN with the JAX package's constants: eps 1e-3 and the torch
     convention momentum 0.03, flax momentum 0.97 (blocks.py:371-372). It
-    normalises in f32 and casts back to the input dtype, as flax's
-    BatchNorm with ``dtype`` does. ``forward(x, act="identity")`` applies
-    ``act`` ("identity" or "hard_swish") to the result.
+    normalises in f32 (f64 for an f64 input) and casts back to the input
+    dtype, as flax's BatchNorm with ``dtype`` does. ``forward(x,
+    act="identity")`` applies ``act`` ("identity" or "hard_swish") to the
+    result.
 
     Train mode is flax's (flax/linen/normalization.py, ``_compute_stats``
     and ``_normalize``) with the activation fused in (``_BatchNormAct``):
@@ -222,20 +252,28 @@ class BatchNorm(nn.BatchNorm2d):
     ``mean = E[x]`` and the biased ``var = max(0, E[x^2] - mean^2)``; ``y =
     act(T((x - mean) * (rsqrt(var + eps) * scale) + bias))``; the running
     statistics updated in place with the biased variance, ``ra = 0.97 ra +
-    (1 - 0.97) stat`` (``nn.BatchNorm2d`` would take the unbiased one)."""
+    (1 - 0.97) stat`` (``nn.BatchNorm2d`` would take the unbiased one).
+
+    ``mask``, a ``ChannelMask``, gates the BN output before the activation
+    (blocks.py:401-415), folded into the BN's vectors in both modes and, in
+    the data-parallel path, before the finish stage too."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=1e-3, momentum=0.03)
 
-    def forward(self, x: torch.Tensor, act: str = "identity") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, act: str = "identity",
+                mask: Optional["ChannelMask"] = None) -> torch.Tensor:
+        weight, bias = (self.weight, self.bias) if mask is None else \
+            mask.fold(self.weight, self.bias)
         if not self.training:
-            y = F.batch_norm(x.float(), self.running_mean, self.running_var,
-                             self.weight, self.bias, False, 0.0, self.eps).to(x.dtype)
+            acc = torch.promote_types(x.dtype, torch.float32)  # f64 stays f64
+            y = F.batch_norm(x.to(acc), self.running_mean, self.running_var,
+                             weight, bias, False, 0.0, self.eps).to(x.dtype)
             return hard_swish(y) if act == "hard_swish" else y
         mesh = active_mesh()
         if mesh is not None and mesh.size <= 1:
             mesh = None
-        return _BatchNormAct.apply(x, self.weight, self.bias, self, act, mesh)
+        return _BatchNormAct.apply(x, weight, bias, self, act, mesh)
 
 
 class ConvBnAct(nn.Module):
@@ -243,20 +281,24 @@ class ConvBnAct(nn.Module):
     inference topology: the conv carries a bias and there is no BN. ``quant``
     applies to the fused topology only, as in JAX (:397-398). Hard-swish
     after a BN runs in the BN's own passes, and after a w8a8 conv in the
-    conv's epilogue (the same numbers, no extra pass)."""
+    conv's epilogue (the same numbers, no extra pass). ``use_mask`` adds the
+    ``ChannelMask`` ``mask`` between BN and the activation (:412-413),
+    folded into the BN (``BatchNorm.forward``)."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  stride: int = 1, groups: int = 1, dilation: int = 1,
                  act: str = "silu", fused: bool = False,
-                 quant: Optional[str] = None):
+                 quant: Optional[str] = None, use_mask: bool = False):
         super().__init__()
         self.conv = Conv2d(cin, features, kernel_size, stride, groups,
                            dilation, use_bias=fused,
                            quant=quant if fused else None)
         self.bn = None if fused else BatchNorm(features)
+        # the ChannelMask gate between BN and the activation (:412-413)
+        self.mask = ChannelMask(features) if use_mask else None
         self.act = get_activation(act)
         hard = act.lower() in HARD_SWISH_NAMES
-        self.act_in_conv = self.conv.quant == "w8a8" and hard
+        self.act_in_conv = self.conv.quant == "w8a8" and hard and self.mask is None
         self.act_in_bn = self.bn is not None and hard
 
     def forward(self, x: torch.Tensor,
@@ -265,9 +307,11 @@ class ConvBnAct(nn.Module):
             return self.conv(x, dtype, act="hard_swish")
         x = self.conv(x, dtype)
         if self.act_in_bn:
-            return self.bn(x, act="hard_swish")
+            return self.bn(x, act="hard_swish", mask=self.mask)
         if self.bn is not None:
-            x = self.bn(x)
+            x = self.bn(x, mask=self.mask)
+        elif self.mask is not None:
+            x = self.mask(x)
         return self.act(x)
 
 
@@ -317,7 +361,8 @@ class DWConvNoP(nn.Module):
 class Bottleneck(nn.Module):
     """1x1 reduce -> kxk conv, optional residual (blocks.py:473-536).
     ``hidden_width`` and ``out_width`` are the channel-slim pins of conv1's
-    and conv2's widths (:494-508); a residual block keeps ``features``."""
+    and conv2's widths (:494-508); a residual block keeps ``features``.
+    ``use_mask`` gates conv1 and a non-depthwise conv2."""
 
     def __init__(self, cin: int, features: int, shortcut: bool = True,
                  expansion: float = 0.5, depthwise: bool = False,
@@ -325,21 +370,23 @@ class Bottleneck(nn.Module):
                  is_last: bool = False, custom: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
                  hidden_width: Optional[int] = None,
-                 out_width: Optional[int] = None):
+                 out_width: Optional[int] = None, use_mask: bool = False):
         super().__init__()
         hidden = hidden_width if hidden_width is not None else int(features * expansion)
         self.use_add = shortcut and cin == features
         out = features if self.use_add or out_width is None else out_width
         self.out_width = out
         kw = dict(act=act, fused=fused, quant=quant)
-        self.conv1 = ConvBnAct(cin, hidden, 1, 1, **kw)
+        self.conv1 = ConvBnAct(cin, hidden, 1, 1, use_mask=use_mask, **kw)
         if depthwise and custom and not is_last and not self.use_add:
             self.conv2 = DWConvNoP(hidden, out, kernel_size, 1, dilation, **kw)
         elif depthwise:
             self.conv2 = DWConv(hidden, out, kernel_size, 1, dilation, **kw)
         else:
+            # masked in a residual chain too (pre-add), as a member of its
+            # residual group (blocks.py:514-527)
             self.conv2 = ConvBnAct(hidden, out, kernel_size, 1,
-                                   dilation=dilation, **kw)
+                                   dilation=dilation, use_mask=use_mask, **kw)
 
     def forward(self, x):
         y = self.conv2(self.conv1(x))
@@ -361,12 +408,12 @@ class SPPBottleneck(nn.Module):
                  kernel_sizes: Sequence[int] = (5, 9, 13), act: str = "silu",
                  fused: bool = False, quant: Optional[str] = None,
                  hidden_width: Optional[int] = None,
-                 out_width: Optional[int] = None):
+                 out_width: Optional[int] = None, use_mask: bool = False):
         super().__init__()
         hidden = hidden_width if hidden_width is not None else cin // 2
         self.out_width = out_width if out_width is not None else features
         self.kernel_sizes = tuple(kernel_sizes)
-        kw = dict(act=act, fused=fused, quant=quant)
+        kw = dict(act=act, fused=fused, quant=quant, use_mask=use_mask)
         self.conv1 = ConvBnAct(cin, hidden, 1, 1, **kw)
         self.conv2 = ConvBnAct(hidden * (len(self.kernel_sizes) + 1),
                                self.out_width, 1, 1, **kw)
@@ -394,21 +441,26 @@ class CSPLayer(nn.Module):
 
     ``slim`` holds the channel-slim pins (:640-680): ``{i: (hidden, out)}``
     for bottleneck i (None keeps a default), ``"res"`` for the residual
-    stream (conv1 and every bottleneck) and ``"c2"`` for the bypass."""
+    stream (conv1 and every bottleneck) and ``"c2"`` for the bypass.
+    ``use_mask`` gates conv2, the bottlenecks and, in a residual chain,
+    conv1; never conv3."""
 
     def __init__(self, cin: int, features: int, n: int = 1,
                  shortcut: bool = True, expansion: float = 0.5,
                  depthwise: bool = False, kernel_size: int = 3,
                  dilation: int = 1, act: str = "silu", custom: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
-                 slim: Optional[Dict[Any, Any]] = None):
+                 slim: Optional[Dict[Any, Any]] = None, use_mask: bool = False):
         super().__init__()
         slim = slim or {}
         hidden = slim.get("res", int(features * expansion))
         c2 = slim.get("c2", (cin - hidden) if custom else hidden)
         kw = dict(act=act, fused=fused, quant=quant)
-        self.conv1 = ConvBnAct(cin, hidden, 1, 1, **kw)
-        self.conv2 = ConvBnAct(cin, c2, 1, 1, **kw)
+        # conv1 leads a residual group only in a residual, non-depthwise
+        # chain; the bypass conv2 is always prunable (blocks.py:665-675)
+        self.conv1 = ConvBnAct(cin, hidden, 1, 1,
+                               use_mask=use_mask and shortcut and not depthwise, **kw)
+        self.conv2 = ConvBnAct(cin, c2, 1, 1, use_mask=use_mask, **kw)
         self.n = n
         width = hidden
         for i in range(n):
@@ -417,7 +469,7 @@ class CSPLayer(nn.Module):
                 width, hidden, shortcut=shortcut, expansion=1.0,
                 depthwise=depthwise, kernel_size=kernel_size,
                 dilation=dilation, is_last=(i == n - 1), custom=custom,
-                hidden_width=hw, out_width=ow, **kw)
+                hidden_width=hw, out_width=ow, use_mask=use_mask, **kw)
             self.add_module(f"m{i}", block)
             width = block.out_width
         self.conv3 = ConvBnAct(width + c2, features, 1, 1, **kw)
@@ -462,11 +514,12 @@ class Focus(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  stride: int = 1, act: str = "silu", order: str = "slice_cat",
-                 fused: bool = False, quant: Optional[str] = None):
+                 fused: bool = False, quant: Optional[str] = None,
+                 use_mask: bool = False):
         super().__init__()
         self.order = order
         self.conv = ConvBnAct(4 * cin, features, kernel_size, stride, act=act,
-                              fused=fused, quant=quant)
+                              fused=fused, quant=quant, use_mask=use_mask)
 
     def forward(self, x_nhwc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         x = space_to_depth(x_nhwc, self.order).permute(0, 3, 1, 2)

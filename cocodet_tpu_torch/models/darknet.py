@@ -83,7 +83,8 @@ class CSPBackbone(nn.Module):
     channel-slim map of compress/merge.py::load_slim_spec: the widths
     ``stem`` and ``darkN_down``, ``darkN_spp`` ``{"hidden", "out"}`` and
     the ``darkN_csp`` tables (cocodet_tpu/models/darknet.py:133-179).
-    ``quant`` goes to every conv.
+    ``quant`` goes to every conv; ``use_mask`` gates the stem, the down
+    convs, the SPP and the CSP layers (ChannelMask, blocks.py).
     """
 
     def __init__(self, variant: str = "p6", depth: float = 1.0,
@@ -91,7 +92,7 @@ class CSPBackbone(nn.Module):
                  out_features: Sequence[str] = ("dark3", "dark4", "dark5", "dark6"),
                  act: str = "hard_swish", depthwise: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
-                 slim: Optional[Dict[str, Any]] = None):
+                 slim: Optional[Dict[str, Any]] = None, use_mask: bool = False):
         super().__init__()
         stages = BACKBONE_STAGES[variant]
         custom = variant != "standard"
@@ -102,18 +103,19 @@ class CSPBackbone(nn.Module):
         self.out_features = tuple(out_features)
         self.stage_names = [s.name for s in stages]
         cin = int(slim.get("stem", base))
-        self.stem = Focus(3, cin, kernel_size=3, order=_FOCUS_ORDER[variant], **kw)
+        self.stem = Focus(3, cin, kernel_size=3, order=_FOCUS_ORDER[variant],
+                          use_mask=use_mask, **kw)
         self.channels: Dict[str, int] = {"stem": cin}
         for spec in stages:
             feats = base * spec.out_mult
             down_w = int(slim.get(f"{spec.name}_down", feats))
             self.add_module(f"{spec.name}_down", ConvBnAct(
-                cin, down_w, _DOWN_KERNEL[variant], 2, **kw))
+                cin, down_w, _DOWN_KERNEL[variant], 2, use_mask=use_mask, **kw))
             cin = down_w
             if spec.spp:
                 spp_slim = slim.get(f"{spec.name}_spp") or {}
                 spp = SPPBottleneck(cin, feats, hidden_width=spp_slim.get("hidden"),
-                                    out_width=spp_slim.get("out"), **kw)
+                                    out_width=spp_slim.get("out"), use_mask=use_mask, **kw)
                 self.add_module(f"{spec.name}_spp", spp)
                 cin = spp.out_width
             self.add_module(f"{spec.name}_csp", CSPLayer(
@@ -121,7 +123,7 @@ class CSPBackbone(nn.Module):
                 shortcut=spec.shortcut,
                 depthwise=spec.depthwise or depthwise,
                 kernel_size=spec.kernel_size, custom=custom,
-                slim=slim.get(f"{spec.name}_csp"), **kw))
+                slim=slim.get(f"{spec.name}_csp"), use_mask=use_mask, **kw))
             self.channels[spec.name] = cin = feats
 
     def forward(self, x_nhwc: torch.Tensor, dtype: torch.dtype) -> Dict[str, torch.Tensor]:

@@ -19,18 +19,19 @@ class YOLOXHead(nn.Module):
 
     ``forward`` takes NCHW maps and returns a list over scales of dicts
     ``{"reg": (B,H,W,4), "obj": (B,H,W,1), "cls": (B,H,W,num_classes)}``:
-    NHWC views of the channels-last conv outputs.
+    NHWC views of the channels-last conv outputs. ``use_mask`` gates the
+    stems and towers, not the prediction convs (head.py:44-57).
     """
 
     def __init__(self, in_channels: Sequence[int], num_classes: int = 80,
                  width: float = 1.0, act: str = "hard_swish", fused: bool = False,
                  quant: Optional[str] = None,
-                 slim: Optional[Mapping[str, int]] = None):
+                 slim: Optional[Mapping[str, int]] = None, use_mask: bool = False):
         super().__init__()
         self.num_levels = len(in_channels)
         feat = int(256 * width)
         slim = slim or {}
-        kw = dict(act=act, fused=fused, quant=quant)
+        kw = dict(act=act, fused=fused, quant=quant, use_mask=use_mask)
 
         def add(name, cin, k):
             """A stem or tower conv at its slim width (head.py:49-73)."""

@@ -53,7 +53,7 @@ def build(argv: Optional[Sequence[str]] = None):
     overrides, the experiment name, seed and compute dtype set."""
     args = make_parser().parse_args(argv)
     if args.num_hosts > 1:
-        raise NotImplementedError("multi-host training is not ported (ROADMAP Queue 1 item 2)")
+        raise NotImplementedError("multi-host training is not ported (ROADMAP Queue 1 item 4)")
 
     from cocodet_tpu_torch.exp import get_exp
 

@@ -13,6 +13,9 @@ per leaf:
     batch_stats/<scope>/var       -> <scope>.running_var
     quant/<scope>/w_scale         -> <scope>.w_scale       (w8a8 conv)
     quant/<scope>/act_scale       -> <scope>.act_scale     (w8a8 conv)
+    masks/<scope>/mask/scale      -> <scope>.mask.scale    (ChannelMask)
+    masks/<scope>/mask/offset     -> <scope>.mask.offset   (ChannelMask)
+    masks/<scope>/conv/conv_mask  -> <scope>.conv.conv_mask (HWIO -> OIHW)
 
 A quantized tree's int8 kernel goes into the w8a8 conv's int8 ``weight``
 buffer, which is OIHW in channels-last memory (physically OHWI, the layout
@@ -22,6 +25,14 @@ variables: a scalar (per-tensor) or a (cin,) vector (per-channel). The
 which the runtime does not read; they are skipped. A ``"calib"`` conv's
 ``act_absmax`` buffer is state, not a variable: ``jax_layout`` lists it
 under ``quant_stats``, as flax does, and ``load_variables`` leaves it alone.
+
+The ``masks`` collection holds the ChannelMask gates of a ``use_mask``
+model (``models/blocks.py::ChannelMask``, buffers) and the elementwise
+``conv_mask`` kernel masks of the magnitude chain (``compress/
+magnitude.py``). No port model reads a ``conv_mask`` (the weight-mask model
+of SynFlow is not ported; flax's model without ``weight_mask`` ignores it
+too): ``load_variables`` skips those leaves, and BN folding
+(``ops/fuse.py``) multiplies them into the kernels.
 
 ``optimizer_state_dict``/``load_optimizer_state`` map the SGD's momentum
 buffers to optax's trace and back, ``ema_variables``/``load_ema`` the EMA
@@ -45,7 +56,10 @@ _TO_TORCH = {("params", "kernel"): "weight", ("params", "bias"): "bias",
              ("params", "scale"): "weight",
              ("batch_stats", "mean"): "running_mean",
              ("batch_stats", "var"): "running_var",
-             ("quant", "w_scale"): "w_scale", ("quant", "act_scale"): "act_scale"}
+             ("quant", "w_scale"): "w_scale", ("quant", "act_scale"): "act_scale",
+             ("masks", "scale"): "scale", ("masks", "offset"): "offset",
+             ("masks", "conv_mask"): "conv_mask"}
+_HWIO = ("kernel", "conv_mask")  # 4-D leaves that flax keeps HWIO
 _SKIPPED = {("quant", "w_bits")}
 _STATE = "act_absmax"  # quant_stats: filled by calibration, never loaded
 
@@ -80,6 +94,10 @@ def jax_path(name: str, value: torch.Tensor) -> Tuple[Path, Tuple[int, ...]]:
     a port model's state dict."""
     *scope, leaf = name.split(".")
     shape = tuple(value.shape)
+    if leaf in ("scale", "offset"):
+        return ("masks", *scope, leaf), shape
+    if leaf == "conv_mask":
+        return ("masks", *scope, leaf), (shape[2], shape[3], shape[1], shape[0])
     if leaf == "weight" and value.dim() == 4:
         return ("params", *scope, "kernel"), (shape[2], shape[3], shape[1], shape[0])
     if leaf == "weight":
@@ -111,7 +129,7 @@ def convert_variables(variables: Mapping[str, Any]) -> Dict[str, np.ndarray]:
         if rule is None:
             raise KeyError(f"no port counterpart for flax variable {'/'.join(path)}")
         arr = np.asarray(value)
-        if path[-1] == "kernel":
+        if path[-1] in _HWIO:
             arr = arr.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         out[".".join(path[1:-1] + (rule,))] = arr
     return out
@@ -121,10 +139,13 @@ def load_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     """Copy flax ``variables`` into ``model`` in place (dtype, device and
     memory format of the model's tensors are kept). Raises on any missing or
     unused entry and on any shape mismatch. An ``act_scale`` buffer takes
-    the shape of its variable, a scalar or one scale per input channel."""
+    the shape of its variable, a scalar or one scale per input channel.
+    ``conv_mask`` leaves, which no port model reads, are skipped."""
     arrays = convert_variables(variables)
     targets = {n: t for n, t in _torch_entries(model).items()
                if not n.endswith(_STATE)}
+    for name in [n for n in arrays if n.endswith(".conv_mask") and n not in targets]:
+        del arrays[name]
     missing = sorted(set(targets) - set(arrays))
     unused = sorted(set(arrays) - set(targets))
     if missing or unused:
@@ -171,6 +192,9 @@ def random_variables(model: nn.Module, seed: int,
         leaf = path[-1]
         if path[0] == "quant_stats":
             continue
+        if path[0] == "masks":  # every gate open; no draw, so the rest equals
+            flat[path] = np.full(shape, 1.0 if leaf == "scale" else 0.0, np.float32)
+            continue
         if leaf == "kernel" and t.dtype == torch.int8:
             flat[path] = rng.integers(-127, 128, shape).astype(np.int8)
             continue
@@ -203,7 +227,7 @@ def export_tensors(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         path, _ = jax_path(name, t)
         arr = t.detach().cpu()
         arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
-        if path[-1] == "kernel":
+        if path[-1] in _HWIO:
             arr = arr.transpose(2, 3, 1, 0)  # OIHW -> HWIO
         flat[path] = np.array(arr, order="C")  # a copy: the model trains on in place
     return unflatten_tree(flat)
@@ -212,9 +236,29 @@ def export_tensors(named: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
 def export_variables(model: nn.Module) -> Dict[str, Any]:
     """The inverse of ``load_variables``: the model's parameters and
     buffers as a flax-layout tree of numpy arrays (``{"params": ...,
-    "batch_stats": ...}``; kernels HWIO), so a port model's state compares
-    leaf by leaf with a flax variable tree."""
+    "batch_stats": ...}``, and ``"masks"`` for a ``use_mask`` model; kernels
+    HWIO), so a port model's state compares leaf by leaf with a flax
+    variable tree."""
     return export_tensors(_torch_entries(model))
+
+
+def mask_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """``{state-dict name: buffer}`` of the model's ChannelMask gates."""
+    return {n: t for n, t in _torch_entries(model).items()
+            if n.endswith((".mask.scale", ".mask.offset"))}
+
+
+def export_masks(model: nn.Module) -> Dict[str, Any]:
+    """The model's ``masks`` collection as a flax-layout tree ({} for a
+    model without ChannelMask gates)."""
+    return export_tensors(mask_tensors(model)).get("masks", {})
+
+
+def load_masks(model: nn.Module, masks: Mapping[str, Any]) -> None:
+    """Copy a ``masks`` tree into the model's ChannelMask buffers (every
+    gate of the model must be in it; ``conv_mask`` leaves are skipped)."""
+    flat = {k: v for k, v in flatten_tree(masks).items() if k[-1] != "conv_mask"}
+    load_tensors(mask_tensors(model), {"masks": unflatten_tree(flat)})
 
 
 def load_tensors(named: Mapping[str, torch.Tensor], tree: Mapping[str, Any]) -> None:

@@ -111,10 +111,13 @@ def test_model_and_evaluator_follow_the_exp(tmp_path):
 def test_host_mosaic_path_raises():
     """The host mosaic path runs (tests/test_torch_host_mosaic.py); what
     still raises is device_aug without device_mosaic, before any file is
-    read, and masked models."""
+    read. Masked models no longer raise: get_model(use_mask=True) builds the
+    ChannelMask model, every gate open (tests/test_torch_channel_mask.py)."""
     exp = pexp.get_exp_by_file(PORT_FILE)
     exp.device_aug = True
     with pytest.raises(NotImplementedError, match="device_aug without device_mosaic"):
         exp.get_data_loader(batch_size=2)
-    with pytest.raises(NotImplementedError):
-        exp.get_model(device="cpu", use_mask=True)
+    exp.merge(["depth", "0.33", "width", "0.125", "compute_dtype", "float32"])
+    model = exp.get_model(device="cpu", use_mask=True)
+    gates = [m.mask for m in model.modules() if getattr(m, "mask", None) is not None]
+    assert gates and all(bool((g.scale == 1).all()) for g in gates)

@@ -238,15 +238,26 @@ def test_resume_bookkeeping_matches_jax(runs):
 
 
 @pytest.mark.parametrize("attr, value", [("num_accumulate", 2), ("remat", True),
-                                         ("spatial_devices", 2), ("use_mask", True)])
+                                         ("spatial_devices", 2)])
 def test_unported_training_paths_raise(tmp_path, attr, value):
-    """Gradient accumulation, remat, the trainer's spatial mesh and masked
-    models raise (ROADMAP Queue 1), before anything is built."""
+    """Gradient accumulation, remat and the trainer's spatial mesh raise
+    (ROADMAP Queue 1), before anything is built."""
     exp = port_exp(os.path.join(REPO, "cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py"))
     exp.output_dir = str(tmp_path)
     setattr(exp, attr, value)
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         ptr.Trainer(exp, Args(), device="cpu")
+
+
+def test_masked_exp_builds_the_trainer(tmp_path):
+    """A masked exp (use_mask) is a trainer the port builds: the
+    NotImplementedError it raised is gone (the masked training itself:
+    tests/test_torch_compress_cli.py, tests/test_torch_pruner.py)."""
+    exp = port_exp(os.path.join(REPO, "cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py"))
+    exp.output_dir = str(tmp_path)
+    exp.use_mask = True
+    exp.multiscale_step = 64  # the 4-level model's stride (ROADMAP Queue 3)
+    assert ptr.Trainer(exp, Args(), device="cpu").exp.use_mask
 
 
 def test_cli_refuses_several_hosts():

@@ -144,3 +144,54 @@ def assert_same_detections(got, want, box_tol=(1e-2, 1e-3), score_tol=1e-4):
         same_class = got.classes[b, :n].numpy()[:, None] == np.asarray(want.classes[b, :n])[None]
         match = close & same_class
         assert match.any(1).all() and match.any(0).all()
+
+
+_FP_PROBE = r"""
+unsigned get_mxcsr(void) { return __builtin_ia32_stmxcsr(); }
+unsigned short get_x87cw(void) {
+    unsigned short cw;
+    __asm__ volatile("fnstcw %0" : "=m"(cw));
+    return cw;
+}
+"""
+
+
+def fp_state() -> dict:
+    """The process state that elementwise float math can depend on, for a
+    failing comparison to report: torch's thread counts and vector
+    capability, the SSE control/status register (MXCSR: flush-to-zero,
+    denormals-are-zero, rounding mode, sticky flags; 0x1f80 and flags as
+    the process starts) and the x87 control word (0x37f), read through a
+    probe built with gcc for this call, the xdist worker and test, and the
+    shared libraries mapped into the process that are not Python's, numpy's
+    or torch's own."""
+    import ctypes
+    import subprocess
+    import tempfile
+
+    state = {"worker": os.environ.get("PYTEST_XDIST_WORKER"),
+             "test": os.environ.get("PYTEST_CURRENT_TEST"),
+             "torch_threads": torch.get_num_threads(),
+             "torch_interop_threads": torch.get_num_interop_threads(),
+             "cpu_capability": torch.backends.cpu.get_cpu_capability()}
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            src, lib = os.path.join(tmp, "probe.c"), os.path.join(tmp, "probe.so")
+            with open(src, "w") as f:
+                f.write(_FP_PROBE)
+            subprocess.run(["gcc", "-O2", "-shared", "-fPIC", src, "-o", lib], check=True,
+                           capture_output=True, timeout=60)
+            probe = ctypes.CDLL(lib)
+            state["mxcsr"] = hex(probe.get_mxcsr())
+            state["x87_cw"] = hex(probe.get_x87cw())
+    except Exception as e:  # the report must not hide the failure it explains
+        state["probe"] = f"unavailable: {e!r}"
+    try:
+        with open("/proc/self/maps") as f:
+            libs = {line.split()[-1] for line in f if ".so" in line}
+        state["libraries"] = sorted(os.path.basename(p) for p in libs
+                                    if not any(s in p for s in ("/torch/", "/numpy", "python3",
+                                                                "/lib-dynload/")))
+    except OSError:
+        pass
+    return state
