@@ -210,6 +210,38 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the headline in f32 on the card (TF32 off) against the plain path on
      the CPU (phase f's limits). Its kernel checks' worst
      errors join the kernels line's rows.
+  m. the rest of the compression family at full width, its cuts printed
+     first: (m1) tools/qat_tune.py's main() on the slim fused YOLOX-M-P6 of
+     the committed spec (phase f's seeded variables at flax's init gain),
+     calibrated per channel on 4 batches of phase l's synthetic JPEGs (no
+     aug, B=16, 640 px), 4 QAT steps (f32, TF32 off) with the EMA, the
+     w8a8 msgpack written; counts zeroed just before (the fake-quant kernel
+     254 a step forward and 253 backward, hard-swish 127 each way): each
+     step's device ms, host ms to queue it and launches, one step's CUDA
+     kernels (torch.profiler), peak memory; then the fake-quant kernel held
+     bit for bit against its plain version, forward and backward, on every
+     qat conv's input and kernel of a forward, per channel and per tensor,
+     and timed over one step's calls beside its bound, its plain version and
+     torch.fake_quantize_per_channel_affine / _per_tensor_affine; the
+     requantized int8 codes against the QAT forward's on the deployed
+     kernels; the w8a8 model of the written tree served (127 int8 convs, one
+     of each NMS kernel) within 5e-3 of the QAT model's f32 forward, the
+     NMS pair and the int8 conv held bit for bit; (m2)
+     tools/train_synflow.py's build and TrainerSynFlow on the port's
+     exps/synflow/yolox_m_synflow.py (YOLOX-M, bf16), B=16, 640 px, 2
+     epochs of 4 iterations, prune_epoch 1, 100 rounds: the kept count,
+     the output sum and non-finite scores of each round, the step's ms;
+     the card's selection against the plain (CPU) one on the card's own
+     scores, a score pass and a selection timed, an f32 score pass at unit
+     flow on the card against the CPU (TF32 off), and a masked weight
+     changing nothing; (m3) tools/run_pipeline.py's main() --synth at full
+     width (--arch-set depth 0.67 width 0.75), B=16, 1 epoch of 4
+     iterations a stage at 640 px, phase 2 at its exp's 896 px
+     (multiscale 832-960), two prune events that close channels, the lr
+     cut to 1e-5 an image (M3_LR): each stage's seconds,
+     pipeline_results.json with JAX's keys, the slim parameter count. Its
+     NMS and int8 conv checks' worst errors join the kernels line's rows,
+     and the line gains the fake_quant entry.
 
     python3 chip_smoke.py --step TREE
 
@@ -235,6 +267,11 @@ runs phase a and phase k alone (without the kernels and ``ok`` lines).
     python3 chip_smoke.py --phase l
 
 runs phase a and phase l alone (without the kernels and ``ok`` lines).
+
+    python3 chip_smoke.py --phase m
+
+runs phase a and phase m alone and prints the fake_quant entry as one
+``m: {...}`` JSON line (without the kernels and ``ok`` lines).
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -3422,22 +3459,22 @@ def phase_l1(device, card):
 
 class StepTimer:
     """Wraps a step: per call the device ms (CUDA events), the host ms to
-    queue it and the launches of each kernel it made."""
+    queue it and the launches of each kernel it made (``counts()``)."""
 
-    def __init__(self, fn):
-        self.fn, self.calls = fn, []
+    def __init__(self, fn, counts=None):
+        self.fn, self.calls, self.counts = fn, [], counts or l_counts
 
     def __call__(self, *args, **kwargs):
         import torch
 
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        before = l_counts()
+        before = self.counts()
         ev[0].record()
         t0 = time.perf_counter()
         out = self.fn(*args, **kwargs)
         host = (time.perf_counter() - t0) * 1e3
         ev[1].record()
-        after = l_counts()
+        after = self.counts()
         self.calls.append((ev, host, {k: after[k] - before[k] for k in after if after[k] > before[k]}))
         return out
 
@@ -3710,6 +3747,589 @@ def phase_l(device, card, flags):
     return worst
 
 
+M_STEPS, M_CALIB = 4, 4  # m1's QAT steps (of qat_tune's 300) and calibration batches
+M_SYNFLOW_EXP = os.path.join("cocodet_tpu_torch", "exps", "synflow", "yolox_m_synflow.py")
+M_SCORE_TOL = 1e-4  # m2's card-vs-CPU score pass: |d| over each leaf's largest score
+M_PHASE2_SIZE = 896  # m3's phase 2, as its exp says (multiscale (-1, 1) at step 64)
+# m3's lr a stage, cut from --synth's 2.5e-4 an image: from random weights the
+# recipe's lr blows the stem's weights up within 4 iterations (BN running var
+# to 4.2e15), eval mode then gives NaN and the Pruner's score step ranks no
+# channel; at 1e-5 the running var stays below 6e3 and both events prune
+M3_LR = 1e-5
+
+
+def m1_argv(ckpt, root, out):
+    from cocodet_tpu_torch.entry import SLIM_SPEC
+
+    return ["-c", ckpt, "--slim-spec", str(SLIM_SPEC), "--data-dir", root, "--img-size",
+            str(SIZE), "-b", str(BATCH), "--steps", str(M_STEPS), "--calib-batches",
+            str(M_CALIB), "--workers", "4", "--print-interval", "1", "-o", out]
+
+
+def m2_argv(root, out_dir):
+    return ["-f", os.path.join(REPO, M_SYNFLOW_EXP), "-b", str(BATCH), "data_dir", root,
+            "output_dir", out_dir, "input_size", f"({SIZE}, {SIZE})", "test_size",
+            f"({SIZE}, {SIZE})", "multiscale_range", "0", "max_epoch", "2", "warmup_epochs", "1",
+            "no_aug_epochs", "1", "prune_epoch", "1", "print_interval", "2"]
+
+
+def m3_argv(out):
+    return ["--synth", "--synth-epochs", "1", "--synth-size", str(SIZE), "--synth-images",
+            str(L_TRAIN), "-b", str(BATCH), "--out", out, "--arch-set", "depth", "0.67", "width",
+            "0.75", "print_interval", "1", "basic_lr_per_img", str(M3_LR), "--prune-set", "prune_interval", "0.5", "--phase2-set", "input_size",
+            f"({M_PHASE2_SIZE}, {M_PHASE2_SIZE})", "test_size",
+            f"({M_PHASE2_SIZE}, {M_PHASE2_SIZE})", "multiscale_range", "1"]
+
+
+def m_counts():
+    """Phase l's launch counters and the fake-quant kernel's, each way."""
+    from cocodet_tpu_torch.ops.cuda import fake_quant as fq
+
+    return l_counts() | {"fake_quant": fq.fake_quant.launches,
+                         "fake_quant_grad": fq.fake_quant_grad.launches}
+
+
+def m_reset():
+    from cocodet_tpu_torch.ops.cuda import fake_quant as fq
+
+    l_reset()
+    fq.reset_launch_counts()
+
+
+def qat_convs(model):
+    """{name: Conv2d} of the model's quant="qat" convs."""
+    from cocodet_tpu_torch.models.blocks import Conv2d
+
+    return {n: m for n, m in model.named_modules() if isinstance(m, Conv2d) and m.quant == "qat"}
+
+
+def folded_kernel(conv):
+    """A qat conv's kernel as its fake-quant sees it: the float kernel, with
+    a per-channel act_scale folded in; and that act_scale (or None)."""
+    a = conv.act_scale
+    kf = conv.kernel().detach().float()
+    return (kf * a.view(1, -1, 1, 1), a) if a.dim() else (kf, None)
+
+
+def fake_quant_cases(conv, x):
+    """The fake-quant calls of one qat conv, as (v, scale, bound, axis,
+    divisor): its input on its act_scale, its kernel on the per-out-channel
+    scale; with a per-channel act_scale also the input on the vector's
+    largest value as a per-tensor scale."""
+    from cocodet_tpu_torch.ops.cuda import fake_quant as fq
+
+    a = conv.act_scale
+    kf, div = folded_kernel(conv)
+    cases = [(x, a, fq.act_bound(a), 1, None), (kf, *fq.weight_scale_bound(kf), 0, div)]
+    if a.dim():
+        cases.append((x, a.max(), fq.act_bound(a.max()), 1, None))
+    return cases
+
+
+def check_fake_quant(device, model, images):
+    """m1: the fake-quant kernel against its plain version on the card, bit
+    for bit, forward and backward (a normal cotangent in the input's
+    layout), on every qat conv's input (collected by forward pre-hooks in
+    one forward of ``images``) and kernel, per channel and per tensor; then
+    the main path's calls of one step (each conv's input on its act_scale
+    and its folded kernel), forward and backward, timed in held chunks of
+    16 calls (``chunked_ms``): the kernel, its plain version, and
+    torch.fake_quantize_per_channel_affine /
+    _per_tensor_affine (quant range +-127, zero point 0) forward and
+    backward through autograd, and the kernel again on the inputs' calls,
+    the kernels' calls and the largest map alone; each with its bound: f32
+    read 4 and written 4 bytes an element forward, read 8 and written 4
+    backward, at 3.35 TB/s."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import fake_quant as fq
+
+    gen = torch.Generator(device=device).manual_seed(23)
+    st = {"calls": 0, "elements": 0, "on_bound": 0, "max_abs_err": 0.0}
+    calls = []  # the main path's (v, scale, bound, axis, divisor)
+
+    def check(v, scale, bound, axis, div):
+        g = torch.empty_like(v).normal_(generator=gen)
+        pairs = ((fq.fake_quant(v, scale, bound, axis, div),
+                  fq.fake_quant_plain(v, scale, bound, axis, div)),
+                 (fq.fake_quant_grad(v, g, bound, axis, div),
+                  fq.fake_quant_grad_plain(v, g, bound, axis, div)))
+        for way, (got, want) in zip(("forward", "backward"), pairs):
+            n, err = bit_diff(got, want)
+            if n:
+                raise AssertionError(f"m1: fake_quant {way} disagrees with its plain version at "
+                                     f"{tuple(v.shape)}: {n} of {v.numel()} elements")
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+        b = bound.view([-1 if d == axis else 1 for d in range(v.dim())]) if bound.dim() else bound
+        st["on_bound"] += int((v.abs() == b).sum())
+        st["calls"] += 1
+        st["elements"] += v.numel()
+
+    def hook(mod, args):
+        for i, case in enumerate(fake_quant_cases(mod, args[0].float())):
+            check(*case)
+            if i < 2:
+                calls.append(case)
+
+    hooks = [m.register_forward_pre_hook(hook) for m in qat_convs(model).values()]
+    try:
+        with torch.no_grad():
+            model(images)
+    finally:
+        for h in hooks:
+            h.remove()
+    torch.cuda.synchronize()
+
+    cots = [torch.empty_like(v).normal_(generator=gen) for v, *_ in calls]
+
+    def library(v, g, scale, axis):
+        vr = v.detach().requires_grad_(True)
+        if scale.dim():
+            zero = torch.zeros(scale.numel(), dtype=torch.int32, device=device)
+            return lambda: torch.autograd.grad(torch.fake_quantize_per_channel_affine(
+                vr, scale, zero, axis, -127, 127), vr, g)
+        zero = torch.zeros((), dtype=torch.int32, device=device)
+        return lambda: torch.autograd.grad(torch.fake_quantize_per_tensor_affine(
+            vr, scale, zero, -127, 127), vr, g)
+
+    lib = [library(v, g, scale, axis) for (v, scale, _, axis, _), g in zip(calls, cots)]
+
+    def run(fwd, bwd, idx=range(len(calls))):
+        for i in idx:
+            (v, scale, bound, axis, div), g = calls[i], cots[i]
+            fwd(v, scale, bound, axis, div)
+            bwd(v, g, bound, axis, div)
+
+    def bound_ms(idx):
+        return sum(calls[i][0].numel() for i in idx) * (8 + 12) / HBM_BYTES_PER_S * 1e3
+
+    def chunked_ms(fn, idx, per=16, runs=3):
+        """Device ms of ``fn`` over the calls ``idx``, timed in chunks of
+        ``per`` calls, each held (the median of ``runs``) and summed: the
+        launches of a chunk stay far inside the launch queue, so the card,
+        not the host's launch rate, sets each time."""
+        idx = list(idx)
+        return sum(statistics.median(cuda_ms(lambda c=idx[i:i + per]: fn(c), 1)
+                                     for _ in range(runs)) for i in range(0, len(idx), per))
+
+    every = range(len(calls))
+    times = {"ms": chunked_ms(lambda c: run(fq.fake_quant, fq.fake_quant_grad, c), every),
+             "plain_ms": chunked_ms(
+                 lambda c: run(fq.fake_quant_plain, fq.fake_quant_grad_plain, c), every),
+             "library_ms": chunked_ms(lambda c: [lib[i]() for i in c], every),
+             # the whole step's calls 5 times back to back: ~2,500 launches
+             # overrun the launch queue, and the host's rate shows
+             "back_to_back_ms": cuda_ms(lambda: run(fq.fake_quant, fq.fake_quant_grad), 5)}
+    # the same calls in parts, each against its own bound: the inputs, the
+    # kernels (small, many) and the largest map alone
+    largest = max(every, key=lambda i: calls[i][0].numel())
+    parts = {"inputs": range(0, len(calls), 2), "kernels": range(1, len(calls), 2),
+             "largest": [largest]}
+    split = {name: {"calls": len(idx), "elements": sum(calls[i][0].numel() for i in idx),
+                    "ms": chunked_ms(lambda c: run(fq.fake_quant, fq.fake_quant_grad, c), idx),
+                    "bound_ms": bound_ms(idx)} for name, idx in parts.items()}
+    split["largest"]["shape"] = tuple(calls[largest][0].shape)
+    return {**st, **times, "bound_ms": bound_ms(every), "bound_by": "bytes",
+            "timed_calls": len(calls), "timed_elements": sum(v.numel() for v, *_ in calls),
+            "split": split}
+
+
+def requantized_codes(device, model, tree):
+    """m1: each qat conv's int8 codes as the QAT forward computes them on
+    the deployed (EMA) kernels, ``rint(clip(kf) / (am * f32(1/127)))``,
+    against the requantized tree's (numpy ``am / 127``): (codes that
+    differ, of all, those in channels whose two scales are equal, the
+    largest difference, channels whose scales differ, of all)."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import fake_quant as fq
+    from cocodet_tpu_torch.utils.convert import flatten_tree
+
+    params, quant = flatten_tree(tree["params"]), flatten_tree(tree["quant"])
+    out = {"differ": 0, "codes": 0, "differ_same_scale": 0, "max_diff": 0,
+           "scales_differ": 0, "channels": 0}
+    for name, conv in qat_convs(model).items():
+        scope = tuple(name.split("."))
+        kf, _ = folded_kernel(conv)
+        ws, am = (t.view(-1, 1, 1, 1) for t in fq.weight_scale_bound(kf))
+        codes = torch.round(torch.minimum(am, torch.maximum(-am, kf)) / ws)
+        want = torch.from_numpy(params[scope + ("kernel",)].transpose(3, 2, 0, 1).copy())
+        req_ws = torch.from_numpy(quant[scope + ("w_scale",)]).to(device).view(-1, 1, 1, 1)
+        diff = (codes - want.to(device).float()).abs()
+        same = (req_ws == ws).expand_as(diff)
+        out["differ"] += int((diff > 0).sum())
+        out["differ_same_scale"] += int(((diff > 0) & same).sum())
+        out["max_diff"] = max(out["max_diff"], int(diff.max()))
+        out["codes"] += diff.numel()
+        out["scales_differ"] += int((req_ws != ws).sum())
+        out["channels"] += ws.numel()
+    return out
+
+
+def flax_init_gain(variables):
+    """The variables with each conv kernel scaled by 1/sqrt(3): from
+    ``random_variables``' U(+-sqrt(3/fan_in)) to flax's init bound
+    1/sqrt(fan_in) (cocodet_tpu/models/blocks.py:82-91), the weights of
+    JAX's own QAT test (tests/test_qat.py:49-52). At the larger gain a code
+    that flips at a rounding boundary grows through the depth of the
+    random net: the QAT and w8a8 forwards of the slim spec then part by
+    1.7-3.5% of the output's largest magnitude at 128 px, 0.04-0.08% at
+    this gain (measured on the CPU in f32)."""
+    import numpy as np
+
+    from cocodet_tpu_torch.utils.convert import flatten_tree, unflatten_tree
+
+    return unflatten_tree({k: (v * np.float32(3 ** -0.5) if k[-1] == "kernel" else v)
+                           for k, v in flatten_tree(variables).items()})
+
+
+def phase_m1(device, card, root, tmp):
+    """m1: tools/qat_tune.py's main() in process on the slim fused YOLOX-M-P6
+    of the committed spec (phase f's seeded variables at flax's init gain,
+    ``flax_init_gain``), calibrated per
+    channel on M_CALIB batches of the synthetic JPEGs (no aug, B=16, 640
+    px), M_STEPS QAT steps with the EMA, requantized and written; the steps
+    wrapped by StepTimer, counts zeroed just before. Then the fake-quant
+    kernel held and timed (``check_fake_quant``), the requantized codes
+    against the QAT forward's, and the w8a8 model of the written tree served
+    through the int8 conv and NMS kernels against the QAT model's f32
+    forward, within 5e-3 of the output's largest magnitude
+    (tests/test_qat.py:98)."""
+    import numpy as np
+    import torch
+
+    import cocodet_tpu_torch.compress as comp
+    from cocodet_tpu_torch.compress import act_scale_tree
+    from cocodet_tpu_torch.entry import build_w8a8_predictor
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+    from cocodet_tpu_torch.ops.postprocess import _select_topk_fused
+    from cocodet_tpu_torch.tools import qat_tune
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+    from cocodet_tpu_torch.utils.convert import ema_variables, load_variables
+
+    slim, variables = headline_variables(seed=0)
+    variables = flax_init_gain(variables)
+    ckpt = save_checkpoint({"model": variables}, False, tmp, "slim_fused")
+    out = os.path.join(tmp, "qat_w8a8.msgpack")
+    argv = m1_argv(ckpt, root, out)
+    timers, make_step = [], comp.make_qat_step
+
+    def timed_step(*a, **k):
+        timers.append(StepTimer(make_step(*a, **k), m_counts))
+        return timers[-1]
+
+    comp.make_qat_step = timed_step
+    torch.cuda.reset_peak_memory_stats(device)
+    m_reset()
+    t0 = time.perf_counter()
+    try:
+        res = qat_tune.main(argv)
+    finally:
+        comp.make_qat_step = make_step
+    seconds = time.perf_counter() - t0
+    counts = m_counts()
+    peak = torch.cuda.max_memory_allocated(device) / 2**30
+    model, tree = res["model"], res["tree"]
+    n_q = len(qat_convs(model))
+    st = timers[0].summary()
+    losses = [h["loss"] for h in res["history"]]
+    print(f"m1. qat_tune (CLI, {M_STEPS} steps at B={BATCH} {SIZE} px, f32, per-channel act "
+          f"scales from {M_CALIB} batches, EMA 0.999): {seconds:.2f} s; {n_q} qat convs; losses "
+          f"{[round(v, 4) for v in losses]}; peak {peak:.2f} GiB; launches {counts}", flush=True)
+    print(f"m1. QAT step: device ms {st['device_ms']}, host ms to queue {st['host_ms']}, "
+          f"launches a step {st['launches']}", flush=True)
+    want = {"fake_quant": 2 * n_q * M_STEPS, "fake_quant_grad": (2 * n_q - 1) * M_STEPS,
+            "hard_swish": n_q * (M_CALIB + M_STEPS), "hard_swish_grad": n_q * M_STEPS}
+    if (any(counts[k] != v for k, v in want.items()) or not np.isfinite(losses).all()
+            or len(losses) != M_STEPS or load_checkpoint(out).keys() != {"params", "quant"}):
+        raise AssertionError(f"m1: launches {counts} (want {want}), losses {losses}")
+
+    images, labels = (torch.from_numpy(t).to(device) for t in training_batch(BATCH, SIZE, 24))
+    kernels, copies, busy_ms = step_kernel_count(timers[0].fn, images, labels)
+    print(f"m1. QAT step, one of B={BATCH} {SIZE} px under torch.profiler: {kernels} CUDA "
+          f"kernels + {copies} copies or fills, the card busy (ms) {_ms(busy_ms, '.3f')}",
+          flush=True)
+    fq_st = check_fake_quant(device, model, images)
+    print(f"m1. fake_quant kernel == plain version on the card, bit for bit, forward and "
+          f"backward: {fq_st['calls']} calls ({n_q} convs' inputs and kernels, per channel and "
+          f"per tensor), {fq_st['elements']} elements, {fq_st['on_bound']} on a clip bound; "
+          f"one step's {fq_st['timed_calls']} calls ({fq_st['timed_elements']} elements) "
+          f"forward and backward: kernel {fq_st['ms']:.4f} ms, plain {fq_st['plain_ms']:.4f} ms, "
+          f"torch.fake_quantize_* forward and backward {fq_st['library_ms']:.4f} ms, byte bound "
+          f"{fq_st['bound_ms']:.4f} ms (each timed in held chunks of 16 calls; the kernel's "
+          f"calls 5 times back to back {fq_st['back_to_back_ms']:.4f} ms a time); in parts, "
+          f"forward and backward, each beside its byte bound: {json.dumps(fq_st['split'])}",
+          flush=True)
+
+    quant = act_scale_tree(tree["quant"])
+    load_variables(model, {"params": ema_variables(res["ema"])["params"], "quant": quant})
+    codes = requantized_codes(device, model, tree)
+    print(f"m1. requantized int8 codes vs the QAT forward's on the deployed kernels: "
+          f"{codes['differ']} of {codes['codes']} differ ({codes['differ_same_scale']} where "
+          f"the two scales are equal, largest difference {codes['max_diff']}); the scales "
+          f"am / 127 (numpy) and am * f32(1/127) (XLA's, the forward's) differ in "
+          f"{codes['scales_differ']} of {codes['channels']} out channels", flush=True)
+    if codes["differ_same_scale"] or codes["max_diff"] > 1:
+        raise AssertionError(f"m1: requantized codes {codes}")
+
+    w8 = build_w8a8_predictor(tree, slim, dtype=torch.float32, device=device)
+    keys = ("reg", "obj", "cls")
+    with torch.no_grad():
+        sim = torch.cat([m[k].reshape(-1) for m in model(images) for k in keys])
+        dep = torch.cat([m[k].reshape(-1).float() for m in w8.model(images) for k in keys])
+    rel = float((sim - dep).abs().max() / dep.abs().max())
+    m_reset()
+    dets = w8(images)
+    torch.cuda.synchronize()
+    served = m_counts()
+    with torch.inference_mode():
+        boxes, _, classes, _, valid = _select_topk_fused(w8.model(images), STRIDES, w8.cfg)
+        nms_err = check_kernels(f"m1. NMS kernels on the requantized model's candidates, "
+                                f"K={valid.shape[1]} B={BATCH}", class_offset_boxes(
+                                    boxes, classes, valid).contiguous(), valid,
+                                w8.cfg.nms_threshold)
+    records, _ = w8a8_conv_inputs(w8.model, images[:2])
+    int8_err = 0.0
+    for name, m, x, odt in records:
+        int8_err = max(int8_err, check_int8_conv(name, x, m.weight, m.act_scale, m.w_scale,
+                                                 m.bias.detach().to(odt), m.stride, odt))
+    print(f"m1. the requantized tree served as w8a8 (f32) at B={BATCH} {SIZE} px: head maps vs "
+          f"the QAT model's f32 forward max |d| / max |v| = {rel:.3e} (limit 5e-3), "
+          f"detections {int(dets.valid.sum())}, launches {served}; int8 conv == plain version "
+          f"bit for bit on its {len(records)} convs at B=2", flush=True)
+    if rel >= 5e-3 or served["int8_conv"] != n_q or served["overlap_matrix"] != 1:
+        raise AssertionError(f"m1: served w8a8 {rel}, launches {served}")
+    del model, w8, records, images, labels
+    torch.cuda.empty_cache()
+    entry = {"launches": counts["fake_quant"] + counts["fake_quant_grad"],
+             **{k: fq_st[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                      "library_ms")}}
+    return entry, {**nms_err, "int8_conv": int8_err}, seconds
+
+
+def scaled_for_flow(variables):
+    """The variables with each conv kernel divided by its mean row sum of
+    |w| (over cin, kh, kw), so the all-ones pass through |w| keeps values of
+    order 1 and a card-vs-CPU comparison compares finite numbers, and every
+    ``conv_mask`` open: masks chosen on all-NaN scores keep the first half
+    of the flat order, whole late layers closed, and no kernel's score
+    would then be other than 0."""
+    import numpy as np
+
+    from cocodet_tpu_torch.utils.convert import flatten_tree, unflatten_tree
+
+    flat = dict(flatten_tree(variables))
+    for k, v in flat.items():
+        if k[0] == "params" and k[-1] == "kernel":
+            flat[k] = (v / np.abs(v).sum(axis=(0, 1, 2)).mean()).astype(np.float32)
+        elif k[-1] == "conv_mask":
+            flat[k] = np.ones_like(v)
+    return unflatten_tree(flat)
+
+
+def compare_selection(shards, fraction):
+    """m2: ``synflow_keep`` of the card's ``shards`` on the card against the
+    same on their CPU copies: the masks that differ, the scores, the finite
+    ones, the distinct finite values, the score at the cut (the kept count's
+    smallest) and how many scores equal it."""
+    import torch
+
+    from cocodet_tpu_torch.core import trainer_synflow as tsf
+
+    on_card = tsf.synflow_keep(shards, fraction)
+    on_cpu = tsf.synflow_keep([s.cpu() for s in shards], fraction)
+    flat = torch.cat([s.reshape(-1) for s in shards])
+    finite = flat[torch.isfinite(flat)]
+    cut = torch.sort(-flat, stable=True).values[tsf.keep_count(flat.numel(), fraction) - 1].neg()
+    ties = (flat.isnan() if cut.isnan() else flat == cut).sum()
+    return {"differ": sum(int((a.cpu() != b).sum()) for a, b in zip(on_card, on_cpu)),
+            "scores": flat.numel(), "finite": finite.numel(),
+            "distinct": torch.unique(finite).numel(), "cut": float(cut), "at_cut": int(ties)}
+
+
+def phase_m2(device, card, root, out_dir):
+    """m2: tools/train_synflow.py as its main() runs (the train CLI's build,
+    TrainerSynFlow, train) on the port's exps/synflow/yolox_m_synflow.py at
+    full width (YOLOX-M, bf16), B=16, 640 px, 2 epochs of 4 iterations,
+    prune_epoch 1, all 100 rounds; steps wrapped by StepTimer, counts zeroed
+    just before. Checks: the kept count; the card's selection equal to the
+    plain (CPU) selection on the card's own scores; one f32 score pass on
+    the card against the CPU's (TF32 off, at 256 px, on the trained
+    variables with each kernel scaled to unit flow and the masks open,
+    ``scaled_for_flow``)
+    within M_SCORE_TOL of each leaf's largest score, and the card's
+    selection on that pass's finite scores equal to the CPU's at the keep
+    ratio and at half of it; with the masks of that selection, a masked
+    kernel changes nothing in the forward."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.core import trainer_synflow as tsf
+    from cocodet_tpu_torch.models import build_model
+    from cocodet_tpu_torch.tools.train import build
+    from cocodet_tpu_torch.utils.convert import export_variables
+
+    exp, args = build(m2_argv(root, out_dir))
+    t0 = time.perf_counter()
+    trainer = tsf.TrainerSynFlow(exp, args, device=device)
+    trainer.before_train()
+    trainer.train_step = step = StepTimer(trainer.train_step, m_counts)
+    torch.cuda.reset_peak_memory_stats(device)
+    m_reset()
+    trainer.train_epochs()
+    seconds = time.perf_counter() - t0
+    counts = m_counts()
+    sf = trainer.synflow_stats
+    st = step.summary()
+    sums, bad = sf["output_sums"], sf["nonfinite_scores"]
+    print(f"m2. train_synflow (CLI surface, {exp.max_epoch} epochs of {trainer.iters_per_epoch} "
+          f"iterations at B={BATCH} {SIZE} px, {exp.compute_dtype}, prune_epoch "
+          f"{exp.prune_epoch}): {seconds:.2f} s; SynFlow {sf['iterations']} rounds in "
+          f"{sf['seconds']:.2f} s, kept {sf['kept']} of {sf['total']}; output sum round 1 "
+          f"{sums[0]!r}, round 100 {sums[-1]!r} (non-finite in {sum(not np.isfinite(v) for v in sums)} "
+          f"rounds); non-finite scores round 1 {bad[0]}, round 100 {bad[-1]}, most {max(bad)}; "
+          f"peak {torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; launches {counts}",
+          flush=True)
+    print(f"m2. train step: device ms {st['device_ms']} (epoch 2 masked), host ms to queue "
+          f"{st['host_ms']}; per epoch step ms {[e['step_ms'] for e in trainer.epoch_stats]}; "
+          f"losses finite: {all(e['nonfinite_losses'] == 0 for e in trainer.epoch_stats)}",
+          flush=True)
+    if (sf["kept"] != max(int(round(sf["total"] * exp.prune_ratio)), 1)
+            or sf["iterations"] != 100 or counts["bn_act.reduce"] == 0):
+        raise AssertionError(f"m2: SynFlow {sf['kept']} of {sf['total']}, launches {counts}")
+
+    sites = tsf.mask_sites(trainer.model)
+    scores, _ = trainer.score_step()
+    shards = [scores[f"{n}.weight"] for n in sites]
+    sel = compare_selection(shards, exp.prune_ratio)
+    score_ms = cuda_ms(lambda: trainer.score_step(), 3)
+    select_ms = cuda_ms(lambda: tsf.synflow_keep(shards, exp.prune_ratio), 5)
+    print(f"m2. selection on the card vs the plain (CPU) selection on the trained model's "
+          f"scores (keep {exp.prune_ratio}): {sel}; a score pass {score_ms:.3f} ms, a "
+          f"selection (sort of {sel['scores']} scores) {select_ms:.3f} ms (card held)",
+          flush=True)
+    if sel["differ"]:
+        raise AssertionError(f"m2: the card's selection differs from the plain one: {sel}")
+
+    variables = scaled_for_flow(export_variables(trainer.model))
+    worst, nonfinite = 0.0, 0
+    with cudnn_deterministic():
+        pair = [build_model("yolox", depth=exp.depth, width=exp.width, weight_mask=True,
+                            device=d, variables=variables) for d in (device, "cpu")]
+        (sg, tg), (sc, tc) = (tsf.make_synflow_score_step(m, (256, 256))() for m in pair)
+    for k, w in sc.items():
+        g = sg[k].cpu()
+        nonfinite += int((~torch.isfinite(g)).sum() + (~torch.isfinite(w)).sum())
+        worst = max(worst, float((g - w).abs().max() / w.abs().max().clamp_min(1e-30)))
+    m = pair[0]
+    unit = [sg[f"{n}.weight"] for n in tsf.mask_sites(m)]
+    sels = {f: compare_selection(unit, f) for f in (exp.prune_ratio, exp.prune_ratio / 2)}
+    print(f"m2. selection on the card vs the plain (CPU) selection on the unit-flow pass's "
+          f"scores of the masked kernels (masks open, finite): {sels}", flush=True)
+    if any(v["differ"] or v["finite"] != v["scores"] for v in sels.values()):
+        raise AssertionError(f"m2: the card's selection on finite scores: {sels}")
+    tsf.synflow_update_masks(m, sg, exp.prune_ratio)
+    x = torch.from_numpy(np.random.RandomState(6).uniform(0, 255, (1, 256, 256, 3))
+                         .astype(np.float32)).to(device)
+    with torch.no_grad():
+        before = m(x)
+        for conv in tsf.mask_sites(m).values():
+            conv.weight.add_(torch.randn_like(conv.weight) * (1 - conv.conv_mask))
+        after = m(x)
+    same = all(torch.equal(a[k], b[k]) for a, b in zip(before, after) for k in a)
+    print(f"m2. one f32 score pass (unit-flow kernels, 256 px, TF32 off), card vs CPU: output "
+          f"sums {float(tg)!r} / {float(tc)!r}, worst |d| / leaf max {worst:.3e} (limit "
+          f"{M_SCORE_TOL}), non-finite {nonfinite}; masked weights perturbed, forward "
+          f"unchanged: {same}", flush=True)
+    if worst > M_SCORE_TOL or nonfinite or not same:
+        raise AssertionError(f"m2: score pass card vs CPU {worst}, non-finite {nonfinite}, "
+                             f"masked forward unchanged {same}")
+    del trainer, pair, scores, shards
+    torch.cuda.empty_cache()
+    return seconds
+
+
+def phase_m3(device, card, tmp):
+    """m3: tools/run_pipeline.py's main() in process, --synth at full width
+    (--arch-set depth 0.67 width 0.75), B=16, 1 epoch of 4 iterations a
+    stage, the synthetic set at 640 px (64 train, 16 val, 640-1280 px
+    JPEGs), phase 2 at its exp's 896 px with multiscale (-1, 1) at step 64
+    (--phase2-set), two prune events (--prune-set prune_interval 0.5), the
+    lr M3_LR an image in every stage (--arch-set); counts zeroed just
+    before. The prune events must close channels, and the slim model must
+    be smaller than the merged one."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.tools import run_pipeline as rp
+
+    out = os.path.join(tmp, "pipeline")
+    argv = m3_argv(out)
+    m_reset()
+    torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    stats = {}
+    results = rp.main(argv, stats)
+    seconds = time.perf_counter() - t0
+    counts = m_counts()
+    events = stats["runtimes"]["prune"]["prune_events"]
+    sizes = {s: sorted({tuple(z) for e in r["epoch_stats"] for z in e.get("sizes", [])})
+             for s, r in stats["runtimes"].items()}
+    with open(os.path.join(out, "pipeline_results.json")) as f:
+        written = json.load(f)
+    print(f"m3. run_pipeline --synth at full width: {seconds:.2f} s; stage seconds "
+          f"{ {k: round(v, 2) for k, v in stats['seconds'].items()} }; training sizes {sizes}; "
+          f"prune events {[(e['pruned'], e['kept']) for e in events]}; peak "
+          f"{torch.cuda.max_memory_allocated(device) / 2**30:.2f} GiB; launches {counts}",
+          flush=True)
+    print(f"m3. pipeline_results.json: {json.dumps(written)}", flush=True)
+    keys = [f"{s}_{k}" for s in ("phase1", "phase2", "prune", "tune")
+            for k in ("loss", "AP50", "AP")] + [
+        "deploy_stage", "slim_layers", "params_dense", "params_slim", "param_ratio", "mAP", "AP50"]
+    if (list(written) != keys or not any(e["pruned"] for e in events)
+            or written["params_slim"] >= written["params_dense"]
+            or not np.isfinite([written[k] for k in keys if k != "deploy_stage"]).all()
+            or not set(sizes["phase2"]) <= {(M_PHASE2_SIZE + d,) * 2 for d in (-64, 0, 64)}
+            or any(counts[k] == 0 for k in ("bn_act.reduce", "hard_swish", "overlap_matrix"))):
+        raise AssertionError(f"m3: results {written}, events {events}, sizes {sizes}, "
+                             f"launches {counts}")
+    print(f"m3. the slim model: {written['params_slim']} parameters of {written['params_dense']} "
+          f"merged ({written['param_ratio']}), {written['slim_layers']} slimmed entries", flush=True)
+    return seconds
+
+
+def phase_m(device, card, flags):
+    """m: the rest of the compression family at full width (see the
+    docstring). Returns the kernels line's fake_quant entry and the worst
+    errors of m's NMS and int8 conv checks."""
+    import tempfile
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    print(f"m. cuts: full width kept (the headline's slim YOLOX-M-P6, YOLOX-M, YOLOX-M-P6); "
+          f"weights random from numpy seeds (no trained checkpoint here); QAT {M_STEPS} steps "
+          f"(not 300); SynFlow's prune_epoch 1 (not 10), 2 epochs of 4 iterations; the chain 1 "
+          f"epoch of 4 iterations a stage, at lr {M3_LR} an image (not --synth's 2.5e-4: from "
+          f"random weights that lr makes eval mode NaN within 4 iterations); {L_TRAIN} "
+          f"synthetic train and {L_VAL} val JPEGs (no COCO in the repo)", flush=True)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_m_") as tmp, backend_flags(flags):
+        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=L_TRAIN, n_val=L_VAL,
+                                   size_range=(256, 512), seed=2, variant="default")
+        entry, worst, qat_s = phase_m1(device, card, root, tmp)
+        synflow_s = phase_m2(device, card, root, os.path.join(tmp, "out"))
+        chain_s = phase_m3(device, card, tmp)
+    print(f"m. phase m: {time.perf_counter() - t_start:.1f} s (qat_tune {qat_s:.2f} s, "
+          f"train_synflow {synflow_s:.2f} s, run_pipeline {chain_s:.2f} s) ({card})", flush=True)
+    return entry, worst
+
+
+def fake_quant_kernel(entry):
+    """The kernels line's entry of the fake-quant kernel."""
+    return {"name": "fake_quant", "route": "cuda", "source": "cocodet_tpu_torch/csrc/fake_quant.cu",
+            "replaces": "cocodet_tpu/models/blocks.py:140", **entry}
+
+
 def train_aug_kernels(aug_stats):
     """The kernels line's entries of K1-K4."""
     return [{"name": name, "route": "cuda", "source": "cocodet_tpu_torch/csrc/train_aug.cu",
@@ -3733,9 +4353,9 @@ def main():
     args = sys.argv[1:]
     if args and (len(args) != 2 or args not in (["--step", args[1]], ["--phase", "j"],
                                                  ["--phase", "j1"], ["--phase", "k"],
-                                                 ["--phase", "l"])):
+                                                 ["--phase", "l"], ["--phase", "m"])):
         print("usage: python3 chip_smoke.py [--step TREE | --phase j | --phase j1 | --phase k "
-              "| --phase l]", file=sys.stderr)
+              "| --phase l | --phase m]", file=sys.stderr)
         return 2
     tree = os.path.abspath(args[1]) if args[:1] == ["--step"] else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
@@ -3762,6 +4382,10 @@ def main():
         return 0
     if args == ["--phase", "l"]:
         phase_l(device, card, flags)
+        return 0
+    if args == ["--phase", "m"]:
+        entry, _ = phase_m(device, card, flags)
+        print("m: " + json.dumps(fake_quant_kernel(entry)))
         return 0
     if args:
         # --phase j
@@ -3792,6 +4416,10 @@ def main():
     k_worst = phase_k(device, card, flags)
     torch.cuda.empty_cache()
     l_worst = phase_l(device, card, flags)
+    torch.cuda.empty_cache()
+    fq_entry, m_worst = phase_m(device, card, flags)
+    for name in ("overlap_matrix", "greedy_keep", "int8_conv"):
+        l_worst[name] = max(l_worst[name], m_worst[name])
     for name, st in bn_stats.items():
         st["max_abs_err"] = max(st["max_abs_err"], k_worst[name[len("bn_act_"):]],
                                 l_worst[name[len("bn_act_"):]])
@@ -3823,6 +4451,7 @@ def main():
                         "source": "cocodet_tpu_torch/csrc/bn_act.cu",
                         "replaces": "cocodet_tpu/models/blocks.py:403", **st})
     kernels += train_aug_kernels(aug_stats)
+    kernels.append(fake_quant_kernel(fq_entry))
     print(f"build_s={build_s:.2f} total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -26,7 +26,7 @@ model (``exp.use_mask``, or an init checkpoint whose ``model`` carries a
 gates (trainer.py:74-117); the gates stay fixed, are loaded from the init
 checkpoint (its leaves the model lacks dropped, as ``load_matched`` does)
 and go into the evaluated and saved ``model`` variables (:376-383). Raise,
-by design (ROADMAP Queue 1 item 4): gradient accumulation
+by design (ROADMAP Queue 1 item 1): gradient accumulation
 (``num_accumulate > 1``), ``remat``, a spatial mesh or more than one rank.
 """
 
@@ -51,7 +51,7 @@ from ..utils.logger import logger, setup_logger
 from ..utils.metric import MeterBuffer, device_mem_usage_mb
 from .train_state import create_train_state, make_train_step, resize_batch
 
-TODO = "(ROADMAP Queue 1 item 4)"
+TODO = "(ROADMAP Queue 1 item 1)"
 
 
 class Trainer:
@@ -308,7 +308,7 @@ class Trainer:
         t0 = time.perf_counter()
         variables = self.eval_variables()
         model = self.exp.get_model(device=self.device, variables=variables,
-                                   use_mask="masks" in variables)
+                                   use_mask=self.use_mask)
         ap, ap50, summary = self.evaluator.evaluate(Predictor(model))
         del model
         self.eval_stats.append({"epoch": self.epoch + 1, "AP": ap, "AP50": ap50,

@@ -12,7 +12,7 @@ into the (max_labels, 5) layout the loss takes), with no host sync.
 
 Not ported: ``DeviceAugDataset`` and ``make_device_collate`` (``device_aug``
 without ``device_mosaic``, which needs the host mosaic), ``mixup_batch`` and
-``DeviceTrainAug`` (ROADMAP Queue 1 item 4).
+``DeviceTrainAug`` (ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
@@ -136,6 +136,6 @@ def apply_device_preproc(exp, input_size: Tuple[int, int], batch: Mapping[str, t
     if "mosaic_tiles" not in batch:
         raise NotImplementedError(
             "device_aug without device_mosaic (DeviceAugDataset, make_device_collate) is not "
-            "ported (ROADMAP Queue 1 item 4)")
+            "ported (ROADMAP Queue 1 item 1)")
     return mosaic_preproc_batch(batch, tuple(input_size), max_labels=exp.max_labels_mosaic,
                                 flip_prob=exp.flip_prob, hsv_prob=exp.hsv_prob)

@@ -374,3 +374,33 @@ def make_synthetic_coco(root: str, n_train: int = 256, n_val: int = 64,
             json.dump({"images": images, "annotations": annotations,
                        "categories": cats}, f)
     return root
+
+
+def make_fake_coco(root: str, n_images: int = 8, size: int = 96, seed: int = 0) -> str:
+    """The one-box COCO set of the JAX package's tests (tests/synthetic.py::
+    make_fake_coco), the data of ``tools/run_pipeline.py --tiny``: train2017/
+    and val2017/ each with ``n_images`` grey images of 60 to ``size`` px
+    holding one white rectangle of class 1, and their annotations. The same
+    draws, pixels (``rectangle``) and JPEG bytes (``write_image``) as JAX's,
+    which draws with cv2; returns ``root``."""
+    rs = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
+    for split in ("train2017", "val2017"):
+        os.makedirs(os.path.join(root, split), exist_ok=True)
+        images, annotations = [], []
+        for i in range(n_images):
+            h = int(rs.randint(60, size))
+            w = int(rs.randint(60, size))
+            img = np.full((h, w, 3), 120, np.uint8)
+            x, y = w * 0.2, h * 0.2
+            bw, bh = w * 0.5, h * 0.5
+            rectangle(img, (int(x), int(y)), (int(x + bw), int(y + bh)), (255, 255, 255))
+            name = f"{i:012d}.jpg"
+            write_image(os.path.join(root, split, name), img)
+            images.append({"id": i, "width": w, "height": h, "file_name": name})
+            annotations.append({"id": i, "image_id": i, "category_id": 1,
+                                "bbox": [x, y, bw, bh], "area": bw * bh, "iscrowd": 0})
+        cats = [{"id": c, "name": str(c)} for c in range(1, 91)]
+        with open(os.path.join(root, "annotations", f"instances_{split}.json"), "w") as f:
+            json.dump({"images": images, "annotations": annotations, "categories": cats}, f)
+    return root

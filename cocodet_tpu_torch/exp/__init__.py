@@ -1,5 +1,5 @@
 from .base_exp import BaseExp, get_exp, get_exp_by_file, get_exp_by_name, register_exp
-from .yolox_exp import CustomExp, CustomP6Exp, CustomP6v2Exp, Exp
+from .yolox_exp import CustomExp, CustomP6Exp, CustomP6v2Exp, Exp, SynFlowExp
 
 # the name registry of cocodet_tpu/exp/__init__.py (ref yolox/exp/build.py:20-35)
 for _name, _over in {

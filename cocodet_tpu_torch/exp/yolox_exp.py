@@ -12,8 +12,13 @@ with nesterov momentum and weight decay on the conv kernels only
 ``test_conf`` and ``nms_threshold``. The loader is the host mosaic path by
 default (``data/mosaic.py``, as the JAX package's default exp) and the
 device-mosaic path with ``device_mosaic True``. ``get_model(use_mask=True)``
-builds the ChannelMask model of the Pruner and Tuner. ``device_aug`` alone
-and the yolov3 model raise ``NotImplementedError``.
+builds the ChannelMask model of the Pruner and Tuner, ``weight_mask=True``
+SynFlow's (``SynFlowExp``). ``device_aug`` alone and the yolov3 model raise
+``NotImplementedError``.
+
+``bn_momentum`` is an attribute of every exp (0.01 in the phase-2 exp) that
+no ``get_model`` reads, in JAX as here: the BN momentum stays the blocks'
+0.03 (cocodet_tpu/exp/yolox_exp.py:135-144 passes no momentum).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from .base_exp import BaseExp
 
 DEVICE_AUG_TODO = ("device_aug without device_mosaic (DeviceAugDataset, make_device_collate) "
-                   "is not ported (ROADMAP Queue 1 item 4): unset device_aug for the host "
+                   "is not ported (ROADMAP Queue 1 item 1): unset device_aug for the host "
                    "mosaic path, or set device_mosaic True")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
@@ -101,13 +106,15 @@ class Exp(BaseExp):
 
     # ---------------- factories ----------------
     def get_model(self, device: Union[str, torch.device] = "cuda", fused: bool = False,
-                  use_mask: bool = False, variables=None, seed: Optional[int] = None):
+                  use_mask: bool = False, variables=None, seed: Optional[int] = None,
+                  weight_mask: bool = False):
         """The model in ``compute_dtype`` (f32 parameters) on ``device``, with
         the flax-layout ``variables``, or weights drawn from numpy ``seed``
         (default ``self.seed`` or 0) with the head's cls and obj biases at the
         prior 0.01 (``utils/convert.py::random_variables``). ``use_mask``
-        builds the ChannelMask model (yolox_exp.py:135-144); its random
-        weights equal the unmasked model's, every gate open."""
+        builds the ChannelMask model and ``weight_mask`` SynFlow's
+        (yolox_exp.py:135-144); their random weights equal the unmasked
+        model's, every gate open and every ``conv_mask`` 1."""
         from ..models.yolox import MODEL_SPECS, YOLOX, build_model
         from ..utils.convert import random_variables
 
@@ -118,12 +125,12 @@ class Exp(BaseExp):
             with torch.device("meta"):
                 shapes = YOLOX(MODEL_SPECS[self.model_name], num_classes=self.num_classes,
                                depth=self.depth, width=self.width, fused=fused,
-                               use_mask=use_mask)
+                               use_mask=use_mask, weight_mask=weight_mask)
             variables = random_variables(shapes, (self.seed or 0) if seed is None else seed,
                                          prior_prob=0.01)
         return build_model(self.model_name, num_classes=self.num_classes, depth=self.depth,
                            width=self.width, fused=fused, dtype=dtype, device=device,
-                           variables=variables, use_mask=use_mask)
+                           variables=variables, use_mask=use_mask, weight_mask=weight_mask)
 
     def get_dataset(self, cache: bool = False):
         from ..data.coco import COCODataset
@@ -262,3 +269,20 @@ class CustomP6v2Exp(CustomP6Exp):
     def __init__(self):
         super().__init__()
         self.model_name = "yolox-p6v2"
+
+
+class SynFlowExp(Exp):
+    """SynFlow pruning (yolox_exp.py:352-363): ``prune_iters`` rounds of
+    scoring to ``prune_ratio`` of the masked kernels kept, at
+    ``prune_epoch``; ``get_model`` builds the weight-mask model unless told
+    otherwise."""
+
+    def __init__(self):
+        super().__init__()
+        self.prune_iters = 100
+        self.prune_ratio = 0.5
+        self.prune_epoch = 10
+
+    def get_model(self, *args, **kwargs):
+        kwargs.setdefault("weight_mask", True)
+        return super().get_model(*args, **kwargs)

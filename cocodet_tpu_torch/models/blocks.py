@@ -11,10 +11,17 @@ Every module computes in the dtype of its input: a conv casts its weights to
 that dtype (a no-op once the model itself was cast), as the JAX ``Conv2d``
 casts its kernel to ``dtype``. The one exception is the Focus stem, which
 hands its conv the f32 images and the model's dtype, as JAX does.
+
+``weight_mask`` (SynFlow's unstructured pruning) gives every conv of a block
+an elementwise ``conv_mask`` buffer multiplied into its kernel at each use;
+it is threaded where JAX threads it (blocks.py:353-760, darknet.py:107-174,
+pafpn.py:77-130, yolox.py:71-108): the backbone and the PAFPN's CSP layers,
+not the PAFPN's lateral and down convs, not the head.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
@@ -22,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda import bn_act as bnk
+from ..ops.cuda import fake_quant as fq
 from ..ops.cuda import hard_swish as hs
 from ..ops.cuda.int8_conv import conv2d_w8a8
 from ..parallel.collectives import all_reduce_, halo_exchange
@@ -80,6 +88,51 @@ def get_activation(name: str = "silu") -> Callable[[torch.Tensor], torch.Tensor]
 
 
 # --------------------------------------------------------------------------
+# fake-quant (quantization-aware training)
+# --------------------------------------------------------------------------
+
+
+class _FakeQuant(torch.autograd.Function):
+    """``fake_quant`` and its VJP through ``ops/cuda/fake_quant.py``: the
+    CUDA kernel on the card, the plain versions on the CPU. Saves its input
+    and the bound (and divisor); the backward recomputes the clip. No
+    gradient reaches the scale, bound or divisor (JAX stops it, or they are
+    frozen buffers)."""
+
+    @staticmethod
+    def forward(ctx, v, scale, bound, axis, div):
+        ctx.save_for_backward(v, bound, div)
+        ctx.axis = axis
+        return fq.fake_quant(v, scale, bound, axis, div)
+
+    @staticmethod
+    def backward(ctx, g):
+        v, bound, div = ctx.saved_tensors
+        return fq.fake_quant_grad(v, g, bound, ctx.axis, div), None, None, None, None
+
+
+def fake_quant(v: torch.Tensor, scale: torch.Tensor, bound: torch.Tensor, axis: int = 1,
+               div: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """cocodet_tpu/models/blocks.py::fake_quant (:140-153): ``v`` snapped
+    onto the int8 grid ``scale * [-127, 127]`` with the clipped
+    straight-through gradient, then divided by ``div`` (one value per index
+    of dim 1), differentiable. The scale and bound are 0-d or one per index
+    along ``axis``; the arithmetic and JAX's roundings are in
+    ``ops/cuda/fake_quant.py``."""
+    return _FakeQuant.apply(v, scale, bound, axis, div)
+
+
+@contextlib.contextmanager
+def no_tf32():
+    """cuDNN's convolutions in full f32 (no TF32) inside the block, the
+    other cuDNN flags as they were."""
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                     deterministic=cudnn.deterministic, allow_tf32=False):
+        yield
+
+
+# --------------------------------------------------------------------------
 # Conv2d / ConvBnAct
 # --------------------------------------------------------------------------
 
@@ -106,15 +159,29 @@ class Conv2d(nn.Module):
       memory, so physically OHWI, the layout of the CUDA kernel), with the
       buffers ``w_scale`` (cout,) f32 and ``act_scale``, an f32 scalar or a
       (cin,) vector: whichever shape the loaded variables give it. The conv
-      is ``ops/cuda/int8_conv.py::conv2d_w8a8`` (:248-283).
+      is ``ops/cuda/int8_conv.py::conv2d_w8a8`` (:248-283);
+    - ``"qat"``: quantization-aware training (:284-319): the f32 input
+      fake-quantized on the frozen ``act_scale`` buffer (scalar or (cin,)),
+      the float kernel fake-quantized per out channel on a scale taken from
+      it with no gradient, the conv in f32 through cuDNN with TF32 off. A
+      (cin,) act_scale is folded into the kernel first and divided out after
+      its fake-quant, the grid the deployed w8a8 conv computes on. A
+      split-concat input raises, as in JAX (:285-287).
+
+    ``weight_mask`` adds the f32 ``conv_mask`` buffer (OIHW, the optimizer
+    never sees it), multiplied into the kernel at every use before any cast
+    (:219-223).
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  stride: int = 1, groups: int = 1, dilation: int = 1,
-                 use_bias: bool = False, quant: Optional[str] = None):
+                 use_bias: bool = False, quant: Optional[str] = None,
+                 weight_mask: bool = False):
         super().__init__()
-        if quant not in (None, "calib", "w8a8"):
+        if quant not in (None, "calib", "w8a8", "qat"):
             raise ValueError(f"unsupported quant mode {quant!r}")
+        if weight_mask and quant == "w8a8":
+            raise ValueError("a w8a8 conv's kernel is int8: it takes no weight mask")
         self.stride, self.groups, self.dilation = stride, groups, dilation
         self.padding = ((kernel_size - 1) * dilation) // 2
         self.quant = quant
@@ -127,10 +194,23 @@ class Conv2d(nn.Module):
             self.weight = nn.Parameter(torch.empty(shape))
         if quant == "calib":
             self.register_buffer("act_absmax", torch.zeros(cin))
+        if quant == "qat":
+            self.register_buffer("act_scale", torch.empty(()))
+        self.register_buffer("conv_mask", torch.ones(shape) if weight_mask else None)
         self.bias = nn.Parameter(torch.empty(features)) if use_bias else None
+
+    def kernel(self) -> torch.Tensor:
+        """The float kernel as the conv uses it: ``weight``, times
+        ``conv_mask`` where there is one."""
+        if self.conv_mask is None:
+            return self.weight
+        return self.weight * self.conv_mask.to(self.weight.dtype)
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
                 act: Optional[str] = None) -> torch.Tensor:
+        if self.quant == "qat" and isinstance(x, (tuple, list)):
+            raise ValueError("split-concat is a deployment-graph mode (incompatible with "
+                             "quant='qat')")
         dtype = dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dtype)
         if self.quant == "w8a8":
@@ -139,14 +219,36 @@ class Conv2d(nn.Module):
                                self.groups, dtype, act)
         if act is not None:
             raise ValueError("only a w8a8 conv applies an activation itself")
+        if self.quant == "qat":
+            return self._forward_qat(x, dtype)
         if self.quant == "calib":
             absmax = x.detach().float().abs().amax(dim=(0, 2, 3))
             torch.maximum(self.act_absmax, absmax, out=self.act_absmax)
         mesh = active_mesh()
         if mesh is not None and mesh.space is not None:
             return self._forward_sharded(x.to(dtype), b, mesh)
-        return F.conv2d(x.to(dtype), self.weight.to(dtype), b, self.stride,
+        return F.conv2d(x.to(dtype), self.kernel().to(dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
+
+    def _forward_qat(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+        """conv(fake_quant(x, a), fake_quant(kf, w_scale) [/ a]) + bias in
+        f32, cast to ``dtype`` (blocks.py:284-319)."""
+        a = self.act_scale
+        kf = self.kernel().float()
+        if a.dim():
+            if self.groups != 1:
+                raise ValueError("a per-channel act_scale does not fold into a grouped "
+                                 "conv's kernel (JAX's fold fails there too)")
+            kf = kf * a.view(1, -1, 1, 1)
+            w = fake_quant(kf, *fq.weight_scale_bound(kf), axis=0, div=a)
+        else:
+            w = fake_quant(kf, *fq.weight_scale_bound(kf), axis=0)
+        xq = fake_quant(x.float(), a, fq.act_bound(a), axis=1)
+        b = None if self.bias is None else self.bias.float()
+        with no_tf32():
+            y = F.conv2d(xq, w, None, self.stride, self.padding, self.dilation, self.groups)
+        y = y.to(dtype)
+        return y if b is None else y + b.to(dtype).view(1, -1, 1, 1)
 
     def _forward_sharded(self, x: torch.Tensor, b: Optional[torch.Tensor],
                          mesh) -> torch.Tensor:
@@ -165,7 +267,7 @@ class Conv2d(nn.Module):
         reach = self.dilation * (self.weight.shape[2] - 1)
         x = halo_exchange(x, self.padding, max(0, reach - self.padding - self.stride + 1),
                           mesh.space)
-        return F.conv2d(x, self.weight.to(x.dtype), b, self.stride, (0, self.padding),
+        return F.conv2d(x, self.kernel().to(x.dtype), b, self.stride, (0, self.padding),
                         self.dilation, self.groups)
 
 
@@ -283,16 +385,19 @@ class ConvBnAct(nn.Module):
     after a BN runs in the BN's own passes, and after a w8a8 conv in the
     conv's epilogue (the same numbers, no extra pass). ``use_mask`` adds the
     ``ChannelMask`` ``mask`` between BN and the activation (:412-413),
-    folded into the BN (``BatchNorm.forward``)."""
+    folded into the BN (``BatchNorm.forward``). ``weight_mask`` gives the
+    conv its ``conv_mask``; the activation after a ``"qat"`` conv is the
+    standalone hard-swish, forward and backward."""
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  stride: int = 1, groups: int = 1, dilation: int = 1,
                  act: str = "silu", fused: bool = False,
-                 quant: Optional[str] = None, use_mask: bool = False):
+                 quant: Optional[str] = None, use_mask: bool = False,
+                 weight_mask: bool = False):
         super().__init__()
         self.conv = Conv2d(cin, features, kernel_size, stride, groups,
                            dilation, use_bias=fused,
-                           quant=quant if fused else None)
+                           quant=quant if fused else None, weight_mask=weight_mask)
         self.bn = None if fused else BatchNorm(features)
         # the ChannelMask gate between BN and the activation (:412-413)
         self.mask = ChannelMask(features) if use_mask else None
@@ -320,9 +425,10 @@ class DWConv(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, act: str = "silu",
-                 fused: bool = False, quant: Optional[str] = None):
+                 fused: bool = False, quant: Optional[str] = None,
+                 weight_mask: bool = False):
         super().__init__()
-        kw = dict(act=act, fused=fused, quant=quant)
+        kw = dict(act=act, fused=fused, quant=quant, weight_mask=weight_mask)
         self.dconv = ConvBnAct(cin, cin, kernel_size, stride, groups=cin,
                                dilation=dilation, **kw)
         self.pconv = ConvBnAct(cin, features, 1, 1, **kw)
@@ -336,13 +442,14 @@ class DWConvNoP(nn.Module):
 
     def __init__(self, cin: int, features: int, kernel_size: int,
                  stride: int = 1, dilation: int = 1, act: str = "silu",
-                 fused: bool = False, quant: Optional[str] = None):
+                 fused: bool = False, quant: Optional[str] = None,
+                 weight_mask: bool = False):
         super().__init__()
         if features != cin:
             raise ValueError(f"DWConvNoP keeps the width: {cin} -> {features}")
         self.dconv = ConvBnAct(cin, cin, kernel_size, stride, groups=cin,
                                dilation=dilation, act=act, fused=fused,
-                               quant=quant)
+                               quant=quant, weight_mask=weight_mask)
 
     def forward(self, x):
         return self.dconv(x)
@@ -370,13 +477,14 @@ class Bottleneck(nn.Module):
                  is_last: bool = False, custom: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
                  hidden_width: Optional[int] = None,
-                 out_width: Optional[int] = None, use_mask: bool = False):
+                 out_width: Optional[int] = None, use_mask: bool = False,
+                 weight_mask: bool = False):
         super().__init__()
         hidden = hidden_width if hidden_width is not None else int(features * expansion)
         self.use_add = shortcut and cin == features
         out = features if self.use_add or out_width is None else out_width
         self.out_width = out
-        kw = dict(act=act, fused=fused, quant=quant)
+        kw = dict(act=act, fused=fused, quant=quant, weight_mask=weight_mask)
         self.conv1 = ConvBnAct(cin, hidden, 1, 1, use_mask=use_mask, **kw)
         if depthwise and custom and not is_last and not self.use_add:
             self.conv2 = DWConvNoP(hidden, out, kernel_size, 1, dilation, **kw)
@@ -408,12 +516,14 @@ class SPPBottleneck(nn.Module):
                  kernel_sizes: Sequence[int] = (5, 9, 13), act: str = "silu",
                  fused: bool = False, quant: Optional[str] = None,
                  hidden_width: Optional[int] = None,
-                 out_width: Optional[int] = None, use_mask: bool = False):
+                 out_width: Optional[int] = None, use_mask: bool = False,
+                 weight_mask: bool = False):
         super().__init__()
         hidden = hidden_width if hidden_width is not None else cin // 2
         self.out_width = out_width if out_width is not None else features
         self.kernel_sizes = tuple(kernel_sizes)
-        kw = dict(act=act, fused=fused, quant=quant, use_mask=use_mask)
+        kw = dict(act=act, fused=fused, quant=quant, use_mask=use_mask,
+                  weight_mask=weight_mask)
         self.conv1 = ConvBnAct(cin, hidden, 1, 1, **kw)
         self.conv2 = ConvBnAct(hidden * (len(self.kernel_sizes) + 1),
                                self.out_width, 1, 1, **kw)
@@ -450,12 +560,13 @@ class CSPLayer(nn.Module):
                  depthwise: bool = False, kernel_size: int = 3,
                  dilation: int = 1, act: str = "silu", custom: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
-                 slim: Optional[Dict[Any, Any]] = None, use_mask: bool = False):
+                 slim: Optional[Dict[Any, Any]] = None, use_mask: bool = False,
+                 weight_mask: bool = False):
         super().__init__()
         slim = slim or {}
         hidden = slim.get("res", int(features * expansion))
         c2 = slim.get("c2", (cin - hidden) if custom else hidden)
-        kw = dict(act=act, fused=fused, quant=quant)
+        kw = dict(act=act, fused=fused, quant=quant, weight_mask=weight_mask)
         # conv1 leads a residual group only in a residual, non-depthwise
         # chain; the bypass conv2 is always prunable (blocks.py:665-675)
         self.conv1 = ConvBnAct(cin, hidden, 1, 1,
@@ -515,11 +626,12 @@ class Focus(nn.Module):
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
                  stride: int = 1, act: str = "silu", order: str = "slice_cat",
                  fused: bool = False, quant: Optional[str] = None,
-                 use_mask: bool = False):
+                 use_mask: bool = False, weight_mask: bool = False):
         super().__init__()
         self.order = order
         self.conv = ConvBnAct(4 * cin, features, kernel_size, stride, act=act,
-                              fused=fused, quant=quant, use_mask=use_mask)
+                              fused=fused, quant=quant, use_mask=use_mask,
+                              weight_mask=weight_mask)
 
     def forward(self, x_nhwc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         x = space_to_depth(x_nhwc, self.order).permute(0, 3, 1, 2)

@@ -83,8 +83,9 @@ class CSPBackbone(nn.Module):
     channel-slim map of compress/merge.py::load_slim_spec: the widths
     ``stem`` and ``darkN_down``, ``darkN_spp`` ``{"hidden", "out"}`` and
     the ``darkN_csp`` tables (cocodet_tpu/models/darknet.py:133-179).
-    ``quant`` goes to every conv; ``use_mask`` gates the stem, the down
-    convs, the SPP and the CSP layers (ChannelMask, blocks.py).
+    ``quant`` and ``weight_mask`` go to every conv; ``use_mask`` gates the
+    stem, the down convs, the SPP and the CSP layers (ChannelMask,
+    blocks.py).
     """
 
     def __init__(self, variant: str = "p6", depth: float = 1.0,
@@ -92,14 +93,15 @@ class CSPBackbone(nn.Module):
                  out_features: Sequence[str] = ("dark3", "dark4", "dark5", "dark6"),
                  act: str = "hard_swish", depthwise: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
-                 slim: Optional[Dict[str, Any]] = None, use_mask: bool = False):
+                 slim: Optional[Dict[str, Any]] = None, use_mask: bool = False,
+                 weight_mask: bool = False):
         super().__init__()
         stages = BACKBONE_STAGES[variant]
         custom = variant != "standard"
         base = int(width * 64)
         base_depth = max(round(depth * 3), 1)
         slim = slim or {}
-        kw = dict(act=act, fused=fused, quant=quant)
+        kw = dict(act=act, fused=fused, quant=quant, weight_mask=weight_mask)
         self.out_features = tuple(out_features)
         self.stage_names = [s.name for s in stages]
         cin = int(slim.get("stem", base))

@@ -49,13 +49,16 @@ class YOLOPAFPN(nn.Module):
     outputs shallowest (stride 8) first; ``widths`` gives their channels.
     ``use_mask`` gates every conv but the CSPs' conv3 (pafpn.py:98-106,
     128-157); ``forward(..., return_taps=True)`` also returns the
-    distillation taps (pafpn.py:170-181)."""
+    distillation taps (pafpn.py:170-181). ``weight_mask`` reaches the
+    backbone and the CSP layers, not ``lateral{k}`` and ``bu_conv{k}``
+    (pafpn.py:98-157)."""
 
     def __init__(self, variant: str = "p6", depth: float = 1.0,
                  width: float = 1.0, act: str = "hard_swish",
                  depthwise: bool = False, fused: bool = False,
                  quant: Optional[str] = None,
-                 slim: Optional[Dict[str, Any]] = None, use_mask: bool = False):
+                 slim: Optional[Dict[str, Any]] = None, use_mask: bool = False,
+                 weight_mask: bool = False):
         super().__init__()
         cfg = PAFPN_VARIANTS[variant]
         self.in_features: Tuple[str, ...] = tuple(cfg["in_features"])
@@ -67,11 +70,12 @@ class YOLOPAFPN(nn.Module):
         csp_kw = dict(n=round(3 * depth), shortcut=False,
                       kernel_size=cfg["kernel_size"],
                       depthwise=cfg["depthwise"] or depthwise,
-                      custom=cfg["custom"], use_mask=use_mask, **kw)
+                      custom=cfg["custom"], use_mask=use_mask, weight_mask=weight_mask,
+                      **kw)
         self.backbone = CSPBackbone(variant=cfg["backbone"], depth=depth,
                                     width=width, out_features=self.in_features,
                                     depthwise=depthwise, slim=slim, use_mask=use_mask,
-                                    **kw)
+                                    weight_mask=weight_mask, **kw)
         ch = [self.backbone.channels[f] for f in self.in_features]
 
         # slim pins (cocodet_tpu/models/pafpn.py:115-167): the widths of

@@ -47,14 +47,16 @@ class YOLOX(nn.Module):
     per-call weight casts. ``use_mask`` builds the ChannelMask model of the
     Pruner and Tuner (cocodet_tpu/models/yolox.py:70-132); ``forward(images,
     return_taps=True)`` returns ``(maps, taps)``, the distillation taps of
-    the PAFPN.
+    the PAFPN. ``weight_mask`` builds SynFlow's model: the backbone's and
+    the PAFPN's CSP convs carry a ``conv_mask`` (yolox.py:71-108).
     """
 
     def __init__(self, spec: ModelSpec, num_classes: int = 80,
                  depth: float = 1.0, width: float = 1.0, fused: bool = False,
                  dtype: torch.dtype = torch.float32,
                  slim: Optional[Mapping[str, Any]] = None,
-                 quant: Optional[str] = None, use_mask: bool = False):
+                 quant: Optional[str] = None, use_mask: bool = False,
+                 weight_mask: bool = False):
         super().__init__()
         if spec.variant == "yolofpn":
             raise NotImplementedError(
@@ -62,10 +64,12 @@ class YOLOX(nn.Module):
         self.spec, self.num_classes = spec, num_classes
         self.depth, self.width, self.fused, self.dtype = depth, width, fused, dtype
         self.slim, self.quant, self.use_mask = slim, quant, use_mask
+        self.weight_mask = weight_mask
         self.backbone = YOLOPAFPN(variant=spec.variant, depth=depth,
                                   width=width, act=spec.act,
                                   depthwise=spec.depthwise, fused=fused,
-                                  quant=quant, slim=slim, use_mask=use_mask)
+                                  quant=quant, slim=slim, use_mask=use_mask,
+                                  weight_mask=weight_mask)
         self.head = YOLOXHead(self.backbone.widths, num_classes=num_classes,
                               width=width, act=spec.act, fused=fused,
                               quant=quant, slim=(slim or {}).get("head"),
@@ -96,6 +100,7 @@ def build_model(
     slim: Optional[Mapping[str, Any]] = None,
     quant: Optional[str] = None,
     use_mask: bool = False,
+    weight_mask: bool = False,
 ) -> YOLOX:
     """Model registry. ``name`` keys into MODEL_SPECS.
 
@@ -104,17 +109,18 @@ def build_model(
     without them, drawn from numpy seed 0 (``random_variables``). The model
     lives on ``device`` in channels-last memory, in eval mode. ``slim`` is a
     channel-slim map (compress/merge.py::load_slim_spec) and ``quant`` the
-    int8 PTQ mode of the fused topology (None, "calib" or "w8a8"), as in
+    int8 mode of the fused topology (None, "calib", "w8a8" or "qat"), as in
     cocodet_tpu/models/yolox.py:69-75,140-155. ``use_mask`` builds the
-    ChannelMask model; ``variables`` then carry its ``masks`` collection,
-    and the random weights have every gate open (scale 1, offset 0).
+    ChannelMask model and ``weight_mask`` SynFlow's; ``variables`` then
+    carry their ``masks`` collection, and the random weights have every
+    gate open (scale 1, offset 0) and every ``conv_mask`` 1.
     """
     if name not in MODEL_SPECS:
         raise KeyError(f"unknown model {name!r}; available: {sorted(MODEL_SPECS)}")
     with torch.device("meta"):  # no init: every weight is loaded below
         model = YOLOX(MODEL_SPECS[name], num_classes=num_classes, depth=depth,
                       width=width, fused=fused, dtype=dtype, slim=slim,
-                      quant=quant, use_mask=use_mask)
+                      quant=quant, use_mask=use_mask, weight_mask=weight_mask)
     model = model.to_empty(device=device).to(memory_format=torch.channels_last)
     load_variables(model, random_variables(model, 0) if variables is None else variables)
     return model.eval()

@@ -16,7 +16,7 @@ port: steps 01 -> 02 -> 03 of the reference in one tool, on the host.
   serves.
 
 Checkpoints are msgpack trees (utils/checkpoint.py); a ``.pth`` checkpoint
-raises (ROADMAP Queue 1 item 5). ``main`` returns what it wrote and the
+raises (ROADMAP Queue 1 item 2). ``main`` returns what it wrote and the
 parameter counts.
 """
 
@@ -55,7 +55,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
 
     if args.ckpt.endswith(".pth"):
         raise NotImplementedError("reference .pth checkpoints are not ported "
-                                  "(ROADMAP Queue 1 item 5)")
+                                  "(ROADMAP Queue 1 item 2)")
     ckpt = load_checkpoint(args.ckpt)
     variables = ckpt.get("model", ckpt)
     os.makedirs(args.out_dir, exist_ok=True)

@@ -9,7 +9,7 @@ flax ``{params, batch_stats}`` trees (``utils/convert.py``), ``opt_state``
 optax's state dict of ``chain(add_decayed_weights, sgd(nesterov))``. Every
 leaf is written as ``np.asarray`` of it, as JAX's ``save_checkpoint`` does,
 so a file the port writes is one JAX's ``load_checkpoint`` reads, and the
-other way round. Nibble-packed int4 trees raise (ROADMAP Queue 1 item 6).
+other way round. Nibble-packed int4 trees raise (ROADMAP Queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -59,7 +59,7 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
         tree = loads_tree(f.read())
     if isinstance(tree, dict) and tree_has_int4(tree):
         raise NotImplementedError(f"{path}: nibble-packed int4 checkpoints are not ported "
-                                  "(ROADMAP Queue 1 item 6)")
+                                  "(ROADMAP Queue 1 item 3)")
     return tree
 
 

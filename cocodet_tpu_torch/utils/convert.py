@@ -28,11 +28,12 @@ under ``quant_stats``, as flax does, and ``load_variables`` leaves it alone.
 
 The ``masks`` collection holds the ChannelMask gates of a ``use_mask``
 model (``models/blocks.py::ChannelMask``, buffers) and the elementwise
-``conv_mask`` kernel masks of the magnitude chain (``compress/
-magnitude.py``). No port model reads a ``conv_mask`` (the weight-mask model
-of SynFlow is not ported; flax's model without ``weight_mask`` ignores it
-too): ``load_variables`` skips those leaves, and BN folding
-(``ops/fuse.py``) multiplies them into the kernels.
+``conv_mask`` kernel masks of SynFlow's ``weight_mask`` model (the convs'
+``conv_mask`` buffers) and of the magnitude chain (``compress/
+magnitude.py``). A model with ``conv_mask`` buffers loads those leaves; a
+model without them skips them, as flax's model without ``weight_mask``
+ignores them, and BN folding (``ops/fuse.py``) multiplies them into the
+kernels.
 
 ``optimizer_state_dict``/``load_optimizer_state`` map the SGD's momentum
 buffers to optax's trace and back, ``ema_variables``/``load_ema`` the EMA
@@ -140,7 +141,8 @@ def load_variables(model: nn.Module, variables: Mapping[str, Any]) -> nn.Module:
     memory format of the model's tensors are kept). Raises on any missing or
     unused entry and on any shape mismatch. An ``act_scale`` buffer takes
     the shape of its variable, a scalar or one scale per input channel.
-    ``conv_mask`` leaves, which no port model reads, are skipped."""
+    ``conv_mask`` leaves load into a weight-mask model and are skipped by a
+    model without ``conv_mask`` buffers."""
     arrays = convert_variables(variables)
     targets = {n: t for n, t in _torch_entries(model).items()
                if not n.endswith(_STATE)}
@@ -193,7 +195,7 @@ def random_variables(model: nn.Module, seed: int,
         if path[0] == "quant_stats":
             continue
         if path[0] == "masks":  # every gate open; no draw, so the rest equals
-            flat[path] = np.full(shape, 1.0 if leaf == "scale" else 0.0, np.float32)
+            flat[path] = np.full(shape, 0.0 if leaf == "offset" else 1.0, np.float32)
             continue
         if leaf == "kernel" and t.dtype == torch.int8:
             flat[path] = rng.integers(-127, 128, shape).astype(np.int8)
@@ -243,22 +245,27 @@ def export_variables(model: nn.Module) -> Dict[str, Any]:
 
 
 def mask_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """``{state-dict name: buffer}`` of the model's ChannelMask gates."""
+    """``{state-dict name: buffer}`` of the model's ``masks`` collection:
+    its ChannelMask gates and its convs' ``conv_mask`` kernel masks."""
     return {n: t for n, t in _torch_entries(model).items()
-            if n.endswith((".mask.scale", ".mask.offset"))}
+            if n.endswith((".mask.scale", ".mask.offset", ".conv_mask"))}
 
 
 def export_masks(model: nn.Module) -> Dict[str, Any]:
     """The model's ``masks`` collection as a flax-layout tree ({} for a
-    model without ChannelMask gates)."""
+    model without masks)."""
     return export_tensors(mask_tensors(model)).get("masks", {})
 
 
 def load_masks(model: nn.Module, masks: Mapping[str, Any]) -> None:
-    """Copy a ``masks`` tree into the model's ChannelMask buffers (every
-    gate of the model must be in it; ``conv_mask`` leaves are skipped)."""
-    flat = {k: v for k, v in flatten_tree(masks).items() if k[-1] != "conv_mask"}
-    load_tensors(mask_tensors(model), {"masks": unflatten_tree(flat)})
+    """Copy a ``masks`` tree into the model's mask buffers (every mask of
+    the model must be in it; ``conv_mask`` leaves are skipped by a model
+    without ``conv_mask`` buffers)."""
+    named = mask_tensors(model)
+    has_conv_mask = any(n.endswith(".conv_mask") for n in named)
+    flat = {k: v for k, v in flatten_tree(masks).items()
+            if has_conv_mask or k[-1] != "conv_mask"}
+    load_tensors(named, {"masks": unflatten_tree(flat)})
 
 
 def load_tensors(named: Mapping[str, torch.Tensor], tree: Mapping[str, Any]) -> None:

@@ -1,5 +1,5 @@
 // A CPU stand-in for the subset of CUDA that cocodet_tpu_torch/csrc/
-// train_aug.cu's kernels use, so that g++ can compile them and the tests can
+// train_aug.cu's and fake_quant.cu's kernels use, so that g++ can compile them and the tests can
 // run them on the CPU (tests/torch_cuda_emu.py): a block is 256 std::threads
 // that meet at a barrier; shared memory is one buffer (blocks run one after
 // another); cp.async is a plain copy; the f32 intrinsics are IEEE operations
@@ -56,6 +56,10 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+template <class T>
+inline T __ldg(const T* p) {
+  return *p;
+}
 inline uint32_t __float_as_uint(float f) {
   uint32_t u;
   memcpy(&u, &f, 4);

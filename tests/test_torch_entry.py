@@ -90,8 +90,9 @@ def test_entry_full_width_on_cpu():
 
 
 def test_port_imports_no_jax():
-    """Importing every module of the port (64, the evaluation family's and
-    the training runtime's among them), and chip_smoke.py, loads no jax,
+    """Importing every module of the port (64 or more, the evaluation
+    family's, the training runtime's and the compression family's among
+    them), and chip_smoke.py, loads no jax,
     flax, cocodet_tpu, cv2, PIL or msgpack (the port writes and reads
     checkpoints with its own codec)."""
     code = textwrap.dedent("""
@@ -102,7 +103,12 @@ def test_port_imports_no_jax():
         assert len(names) >= 64, names
         assert {"cocodet_tpu_torch.core.trainer", "cocodet_tpu_torch.tools.train",
                 "cocodet_tpu_torch.exps.p6.yolox_m_p6", "cocodet_tpu_torch.utils.msgpack",
-                "cocodet_tpu_torch.ops.cuda.train_aug"} <= set(names), names
+                "cocodet_tpu_torch.ops.cuda.train_aug", "cocodet_tpu_torch.compress.qat",
+                "cocodet_tpu_torch.core.trainer_synflow", "cocodet_tpu_torch.tools.qat_tune",
+                "cocodet_tpu_torch.tools.train_synflow", "cocodet_tpu_torch.tools.run_pipeline",
+                "cocodet_tpu_torch.exps.synflow.yolox_m_synflow",
+                "cocodet_tpu_torch.exps.p6.yolox_m_p6_tune",
+                "cocodet_tpu_torch.ops.cuda.fake_quant"} <= set(names), names
         for name in names:
             importlib.import_module(name)
         import chip_smoke
