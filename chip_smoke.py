@@ -66,8 +66,11 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      B=16 640 px numpy-seeded images with 5-60 boxes each padded to G=120, 2
      warm-up steps and 5 timed steps (the last with use_l1), the launch
      counts zeroed just before and read just after: train-mode BN and the
-     hard-swish after it run as the fused pair of csrc/bn_act.cu, 4 x 127
-     launches a step, and the standalone hard-swish never; the device ms of
+     hard-swish after it run in csrc/bn_act.cu's kernels as the plan of
+     ops/cuda/bn_act.py says (one resident launch a map each way where the
+     map has a plan, else reduce and apply; 338 launches a step at 640 px
+     against the two passes' 508), and the standalone hard-swish never; the
+     device ms of
      a step and of its forward, SimOTA and losses, backward, optimizer and
      EMA, the host's ms to queue a step, img/s, peak memory, the CUDA
      kernels of one step (torch.profiler), every loss and num_fg (finite,
@@ -75,8 +78,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      at each of one step's BN+act shapes (bf16 and f32) and on ragged cases
      (the sums within a stated tolerance of f64 sums, the vectors, running
      statistics and both apply stages bit for bit, each reduce equal in two
-     runs), and timed on one step's maps beside its bound, its plain stages
-     and train-mode F.batch_norm + F.hardswish; (g4, run after phase d)
+     runs; the resident kernel likewise on every case whose map has a
+     plan), and timed on one step's maps beside its bound, its plain stages
+     and train-mode F.batch_norm + F.hardswish, per shape and path; (g4,
+     run after phase d)
      phase c's dense forward timed with the standalone hard-swish kernel
      (as served) and with its plain version in its place, in turns, and the
      kernel timed at its activations' shapes beside F.hardswish;
@@ -1482,6 +1487,29 @@ def measure_train_step(device, card):
             "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}, shapes
 
 
+def resident_fit(x, g, backward):
+    """A plan of the resident kernel for map ``x`` (cotangent ``g``) one
+    way: ``bn_act.plan_for``'s where the map has one, else the plan
+    ``resident_plan`` gives when its CTAs need not all run at once (the
+    step sends such a map to the two passes, as faster there, but the
+    kernel takes it, with 16-byte tiles on the 80x80 maps of a 640 px
+    step), or None where no tile fits a cluster's shared memory."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    maps = (g,) if backward else ()
+    plan = bnk.plan_for(x, backward, maps)
+    n, c, h, w = x.shape
+    if plan is not None or x.dtype not in (torch.float32, torch.bfloat16) \
+            or not x.is_contiguous(memory_format=torch.channels_last) \
+            or any(m.data_ptr() % 16 for m in (x, *maps)):
+        return plan
+    slab, max_cluster, _ = bnk._resident_limits(x.device)
+    return bnk.resident_plan(n * h * w, c, x.element_size(), backward, sms=1 << 30,
+                             slab_bytes=slab, max_cluster=max_cluster)
+
+
 BN_ACT_SUM_TOL = 1e-5  # each sum's error over the sum of its terms' magnitudes
 
 
@@ -1494,7 +1522,8 @@ def bn_act_case(x, g, act, gen, determinism=False, gate=False):
     vectors and the running statistics bit for bit, and so the data-parallel
     path's finish kernels from the same sums; (3) given the kernel's
     vectors, both apply stages bit for bit; the backward's reduce and its
-    vectors likewise. With ``determinism``, the reduce runs twice and must
+    vectors likewise, and on a channels-last map the backward keeping gz
+    (its gz bit for bit, its sums and vectors the same bits, dx from it). With ``determinism``, the reduce runs twice and must
     give the same bits. Returns a dict: ``rel`` and ``rel_plain``, the sum
     errors of the kernel and of the plain version; ``bits``, the elements
     that differ where equal bits are due; and, for the kernels line, each
@@ -1504,7 +1533,10 @@ def bn_act_case(x, g, act, gen, determinism=False, gate=False):
     statistics). With ``gate``, about 30% of the channels carry a closed
     ChannelMask gate folded into the vectors as the model folds it
     (models/blocks.py::ChannelMask.fold): weight 0 and bias the gate's
-    offset."""
+    offset. Where the map fits a cluster (resident_fit), each way, the
+    resident kernel likewise (``resident``: its largest absolute difference
+    from the plain stages, sums included; ``resident_ways``: 1 if the
+    forward was held, + 2 if the backward was)."""
     import torch
 
     from cocodet_tpu_torch.ops.cuda import bn_act as bnk
@@ -1559,6 +1591,16 @@ def bn_act_case(x, g, act, gen, determinism=False, gate=False):
                          for i, (r, m) in enumerate(grefs)))
     held(bnk.grad_apply(x, g, fvec, bias, bvec, act),
          bnk.grad_apply_plain(x, g, fvec, bias, bvec, act), "apply")
+    if x.is_contiguous(memory_format=torch.channels_last):
+        # the two passes keeping gz: the reduce writes it (its sums and
+        # vectors the same bits), the apply reads it back
+        gz = torch.empty_like(x)
+        gsums_z, bvec_z = bnk.grad_reduce(x, g, fvec, bias, weight, count, act, gz=gz)
+        held(gz, bnk.grad_z(x, g, fvec, bias, act), "reduce")
+        held(gsums_z, gsums)
+        held(bvec_z, bvec)
+        held(bnk.grad_apply(x, g, fvec, bias, bvec, act, gz=gz),
+             bnk.grad_apply_plain(x, g, fvec, bias, bvec, act), "apply")
     # the data-parallel path's finish kernels against the plain finish, from
     # the same sums
     rf = [t.clone() for t in stats0]
@@ -1572,8 +1614,45 @@ def bn_act_case(x, g, act, gen, determinism=False, gate=False):
         held(again[0], sums)
         held(again[1], fvec)
         held(bnk.grad_reduce(x, g, fvec, bias, weight, count, act)[1], bvec)
+    # the resident kernel, where the map fits a cluster: its sums within
+    # the tolerance, its vectors and running statistics bit for bit from
+    # its own sums, y and dx bit for bit from its vectors; twice with equal
+    # bits
+    absdiff["resident"] = 0.0
+    resident = 0
+    plan_f, plan_b = resident_fit(x, g, False), resident_fit(x, g, True)
+    if plan_f is not None:
+        resident += 1
+        rr = [t.clone() for t in stats0]
+        y_r, sums_r, fvec_r = bnk.resident_forward(x, weight, bias, *rr, act=act, plan=plan_f)
+        rq = [t.clone() for t in stats0]
+        for got, want in ((fvec_r, bnk.finish_plain(sums_r, weight, *rq, 1e-3, 0.03)),
+                          (rr[0], rq[0]), (rr[1], rq[1]),
+                          (y_r, bnk.apply_plain(x, fvec_r, bias, act))):
+            held(got, want, "resident")
+        err = max(err, *(sum_err(sums_r[i * c:(i + 1) * c], r, m)
+                         for i, (r, m) in enumerate(refs)))
+        absdiff["resident"] = max(absdiff["resident"], float((sums_r - s_plain).abs().max()))
+        if determinism:
+            again = bnk.resident_forward(x, weight, bias, *[t.clone() for t in stats0], act=act,
+                                         plan=plan_f)
+            for got, want in zip(again, (y_r, sums_r, fvec_r)):
+                held(got, want)
+    if plan_b is not None:
+        resident += 2
+        dx_r, gsums_r, bvec_r = bnk.resident_backward(x, g, fvec, bias, weight, count, act,
+                                                      plan=plan_b)
+        held(bvec_r, bnk.grad_finish_plain(gsums_r, fvec, weight, count), "resident")
+        held(dx_r, bnk.grad_apply_plain(x, g, fvec, bias, bvec_r, act), "resident")
+        err = max(err, *(sum_err(gsums_r[i * c:(i + 1) * c], r, m)
+                         for i, (r, m) in enumerate(grefs)))
+        absdiff["resident"] = max(absdiff["resident"], float((gsums_r - gplain).abs().max()))
+        if determinism:
+            again = bnk.resident_backward(x, g, fvec, bias, weight, count, act, plan=plan_b)
+            for got, want in zip(again, (dx_r, gsums_r, bvec_r)):
+                held(got, want)
     torch.cuda.synchronize()
-    return {"rel": err, "rel_plain": err_p, "bits": bits, **absdiff}
+    return {"rel": err, "rel_plain": err_p, "bits": bits, "resident_ways": resident, **absdiff}
 
 
 def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=True):
@@ -1586,7 +1665,8 @@ def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=Tru
     Returns the worst of bn_act_case's numbers over all cases; ``tag``
     begins the printed line. ``gate`` closes ChannelMask gates in the
     vectors of every case (bn_act_case); ``ragged_cases=False`` holds the
-    step's shapes only."""
+    step's shapes only. The resident kernel is held on every case whose map
+    fits a cluster (bn_act_case, resident_fit)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(13)
@@ -1606,8 +1686,13 @@ def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=Tru
 
     worst, lines = {}, []
 
+    ways = {"forward": 0, "backward": 0}
+
     def case(x, g, act):
         r = bn_act_case(x, g, act, gen, determinism=True, gate=gate)
+        held_ways = r.pop("resident_ways")
+        ways["forward"] += held_ways & 1
+        ways["backward"] += held_ways >> 1
         for k, v in r.items():
             worst[k] = worst.get(k, 0) + v if k == "bits" else max(worst.get(k, 0.0), v)
         return r["bits"]
@@ -1648,33 +1733,81 @@ def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=Tru
         lines.append("~30% of each case's channels gated closed")
     print(f"{tag} bn_act kernels vs their plain stages on the card: {', '.join(lines)}: vectors, "
           f"running statistics and both apply stages bit for bit ({worst['bits']} elements "
-          f"differ), each reduce equal in two runs; the sums' worst error over the sum of their "
-          f"terms' magnitudes: kernel {worst['rel']:.2e} (limit {BN_ACT_SUM_TOL:.0e}), plain "
-          f"version {worst['rel_plain']:.2e}; largest absolute difference from the plain "
-          f"version: reduce's sums {worst['reduce']!r}, apply {worst['apply']!r}, finish "
-          f"{worst['finish']!r}", flush=True)
+          f"differ), each reduce equal in two runs; the resident kernel (one launch a way) held "
+          f"likewise on the {ways['forward']} cases whose maps fit a cluster forward and "
+          f"{ways['backward']} backward (resident_fit), each twice with equal bits; the sums' "
+          f"worst error over "
+          f"the sum of their terms' magnitudes: kernels {worst['rel']:.2e} (limit "
+          f"{BN_ACT_SUM_TOL:.0e}), plain version {worst['rel_plain']:.2e}; largest absolute "
+          f"difference from the plain version: reduce's sums {worst['reduce']!r}, apply "
+          f"{worst['apply']!r}, finish {worst['finish']!r}, resident (its sums) "
+          f"{worst['resident']!r}", flush=True)
     if worst["bits"] or worst["rel"] > BN_ACT_SUM_TOL:
         raise AssertionError("the bn_act kernels disagree with their plain stages")
     return worst
 
 
+# Each BN+act kernel's bytes an element (in units of the map's element size:
+# each input read once, each output written once) and f32 operations an
+# element: the reduce reads x; the apply reads x and writes y; backward g
+# too (keeping gz, the reduce also writes it and the apply reads it in g's
+# place); the resident kernel reads x (and g) once and writes y (dx).
+BN_PER_ELEM = {"reduce": (1, 3), "apply": (2, 10), "grad_reduce": (2, 18), "grad_apply": (3, 20),
+               "grad_reduce_gz": (3, 18), "grad_apply_gz": (3, 6),
+               "resident_fwd": (2, 13), "resident_bwd": (3, 38)}
+
+
+def bn_inputs(shape, dtype, gen, device):
+    """A channels-last map x (N(0, 2)) and cotangent g of ``shape`` and
+    ``dtype``, its BN's weight, bias and running statistics, and the
+    two-pass reduce's sums and forward vectors: (x, g, w, b, rm, rv, sums,
+    fvec)."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    c = shape[1]
+    x = (torch.randn(shape, generator=gen, device=device) * 2).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    g = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
+        memory_format=torch.channels_last)
+    w = torch.rand(c, generator=gen, device=device) + 0.5
+    b = torch.randn(c, generator=gen, device=device)
+    rm, rv = torch.zeros(c, device=device), torch.ones(c, device=device)
+    sums, fvec = bnk.reduce(x, w, rm, rv)
+    return x, g, w, b, rm, rv, sums, fvec
+
+
+def bn_bound_ms(numel, elem, key):
+    """(ms, "bytes" or "operations"): the least time of BN+act kernel ``key``
+    on a map of ``numel`` elements of ``elem`` bytes (BN_PER_ELEM) at
+    3.35 TB/s and 67 TFLOP/s."""
+    b, o = BN_PER_ELEM[key]
+    bytes_ms = numel * elem * b / HBM_BYTES_PER_S * 1e3
+    ops_ms = numel * o / F32_OPS_PER_S * 1e3
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
+
+
 def bn_act_times(shapes, device):
-    """Device ms of the BN+act pair over ``shapes`` (each timed once, times
-    its count), forward and backward: the kernels, their plain stages and a
-    library yardstick for the pair (torch's train-mode F.batch_norm, then
-    F.hardswish; their backward by autograd: cuDNN's or ATen's BN and
-    hardswish_backward, which round otherwise and update the running
-    variance unbiased). Each stage also beside ATen's own stage of the
-    same split, the kernels of SyncBatchNorm (``<stage>_library``):
-    torch.batch_norm_stats for the reduce, batch_norm_elemt for the apply,
-    batch_norm_backward_reduce and batch_norm_backward_elemt backward; they
-    have no activation, take ``g`` as the BN output's cotangent, compute
-    Welford statistics and an inverse standard deviation, and leave the
-    running statistics alone. Bounds
-    from bytes (each input read once, each output written once: the reduce
-    reads x, and g backward; the apply reads them and writes y or dx) at
-    3.35 TB/s against ~3 (reduce) to ~20 (backward apply) f32 operations an
-    element at 67 TFLOP/s."""
+    """Device ms of the BN+act kernels over ``shapes`` (each timed once,
+    times its count), forward and backward: the two-pass kernels at every
+    shape, the resident kernel where the map has a plan (bn_act.plan_for),
+    their plain stages and a library yardstick for the pair (torch's
+    train-mode F.batch_norm, then F.hardswish; their backward by autograd:
+    cuDNN's or ATen's BN and hardswish_backward, which round otherwise and
+    update the running variance unbiased). Each two-pass stage also beside
+    ATen's own stage of the same split, the kernels of SyncBatchNorm
+    (``<stage>_library``): torch.batch_norm_stats for the reduce,
+    batch_norm_elemt for the apply, batch_norm_backward_reduce and
+    batch_norm_backward_elemt backward; they have no activation, take ``g``
+    as the BN output's cotangent, compute Welford statistics and an inverse
+    standard deviation, and leave the running statistics alone. Bounds
+    (bn_bound_ms) from bytes at 3.35 TB/s against f32 operations at 67
+    TFLOP/s. Returns the sums over all shapes (``<kernel>``, ``_plain``,
+    ``_library``, ``_bound``, ``_by``), ``rows`` (a shape each: its path
+    each way, the planned pair's ms and bound each way, every kernel's ms)
+    and ``main``: each kernel at the maps the step gives it (the two-pass
+    kernels at the maps without a plan, the resident one at the others)."""
     import torch
     import torch.nn.functional as F
 
@@ -1685,21 +1818,16 @@ def bn_act_times(shapes, device):
     tot = {f"{k}{s}": 0.0 for k in keys + ("finish", "grad_finish") for s in ("", "_plain")}
     tot |= {"library_fwd": 0.0, "library_bwd": 0.0} | {f"{k}_library": 0.0 for k in keys}
     elems = {"bytes": dict.fromkeys(keys, 0), "ops": dict.fromkeys(keys, 0)}
-    tot["by shape"] = {}
-    per_elem = {"reduce": (1, 3), "apply": (2, 10), "grad_reduce": (2, 18),
-                "grad_apply": (3, 20)}
+    names = ("bn_act_reduce", "bn_act_apply", "bn_act_resident")
+    main = {n: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "by": set()}
+            for n in names}
+    tot["rows"] = []
     for (shape, dtype), count in shapes.items():
         c = shape[1]
-        x = (torch.randn(shape, generator=gen, device=device) * 2).to(dtype).contiguous(
-            memory_format=torch.channels_last)
-        g = torch.randn(shape, generator=gen, device=device).to(dtype).contiguous(
-            memory_format=torch.channels_last)
-        w = torch.rand(c, generator=gen, device=device) + 0.5
-        b = torch.randn(c, generator=gen, device=device)
-        rm, rv = torch.zeros(c, device=device), torch.ones(c, device=device)
-        sums, fvec = bnk.reduce(x, w, rm, rv)
+        x, g, w, b, rm, rv, sums, fvec = bn_inputs(shape, dtype, gen, device)
         cnt = sums[-1:]
         gsums, bvec = bnk.grad_reduce(x, g, fvec, b, w, cnt)
+        plan_f, plan_b = bnk.plan_for(x, False), bnk.plan_for(x, True, (g,))
         fns = {
             "reduce": lambda: bnk.reduce(x, w, rm, rv),
             "reduce_plain": lambda: bnk.reduce_plain(x, w, rm, rv, 1e-3, 0.03),
@@ -1714,6 +1842,15 @@ def bn_act_times(shapes, device):
             "grad_finish": lambda: bnk.grad_finish(gsums, gsums, fvec, w, cnt),
             "grad_finish_plain": lambda: bnk.grad_finish_plain(gsums, fvec, w, cnt, gsums),
         }
+        if plan_f is not None:
+            fns["resident_fwd"] = lambda: bnk.resident_forward(x, w, b, rm, rv, plan=plan_f)
+        if plan_b is not None:
+            fns["resident_bwd"] = lambda: bnk.resident_backward(x, g, fvec, b, w, cnt,
+                                                                plan=plan_b)
+        else:  # the two passes as bn_act.backward runs them on this map
+            gzb = torch.empty_like(x)
+            fns["grad_reduce_gz"] = lambda: bnk.grad_reduce(x, g, fvec, b, w, cnt, gz=gzb)
+            fns["grad_apply_gz"] = lambda: bnk.grad_apply(x, g, fvec, b, bvec, gz=gzb)
         mean, invstd = torch.batch_norm_stats(x, 1e-3)
         sum_dy, sum_dy_xmu, _, _ = torch.batch_norm_backward_reduce(g, x, mean, invstd, w, True,
                                                                      True, True)
@@ -1727,23 +1864,23 @@ def bn_act_times(shapes, device):
                 g, x, mean, invstd, w, sum_dy, sum_dy_xmu, n_rows),
         }
         ms = {k: cuda_ms(fn, 5 if k.endswith("plain") else 20) for k, fn in fns.items()}
-        for k, v in ms.items():
-            tot[k] += count * v
-        # each kernel's time at this shape over its byte bound
-        tot["by shape"][shape] = (count, {k: ms[k] / (x.numel() * x.element_size()
-                                                      * per_elem[k][0] / HBM_BYTES_PER_S * 1e3)
-                                          for k in keys})
+        for k in fns:
+            if k in tot:
+                tot[k] += count * ms[k]
         xr, wr, br = (x.detach().requires_grad_(), w.clone().requires_grad_(),
                       b.clone().requires_grad_())
         with torch.no_grad():
-            tot["library_fwd"] += count * cuda_ms(lambda: F.hardswish(F.batch_norm(
-                x, rm, rv, w, b, True, 0.03, 1e-3)), 20)
+            lib_f = cuda_ms(lambda: F.hardswish(F.batch_norm(x, rm, rv, w, b, True, 0.03, 1e-3)),
+                            20)
         y = F.hardswish(F.batch_norm(xr, rm, rv, wr, br, True, 0.03, 1e-3))
-        tot["library_bwd"] += count * cuda_ms(
-            lambda: torch.autograd.grad(y, (xr, wr, br), g, retain_graph=True), 20)
+        lib_b = cuda_ms(lambda: torch.autograd.grad(y, (xr, wr, br), g, retain_graph=True), 20)
+        tot["library_fwd"] += count * lib_f
+        tot["library_bwd"] += count * lib_b
+        numel, elem = x.numel(), x.element_size()
+        bound = {k: bn_bound_ms(numel, elem, k) for k in BN_PER_ELEM}
         for k in keys:
-            elems["bytes"][k] += count * x.numel() * x.element_size() * per_elem[k][0]
-            elems["ops"][k] += count * x.numel() * per_elem[k][1]
+            elems["bytes"][k] += count * numel * elem * BN_PER_ELEM[k][0]
+            elems["ops"][k] += count * numel * BN_PER_ELEM[k][1]
         # the finish kernels, C-length f32: forward reads the sums, the scale
         # and the running statistics and writes the 4 vectors and the
         # statistics; backward reads both sums, the vectors, the scale and
@@ -1752,32 +1889,108 @@ def bn_act_times(shapes, device):
                          ("grad_finish", 4 * c + 4 * c + c + 1 + 4 * c)):
             elems["bytes"][k] = elems["bytes"].get(k, 0) + count * words * 4
             elems["ops"][k] = elems["ops"].get(k, 0) + count * 20 * c
+        row = {"shape": tuple(shape), "maps": count, "ms": ms}
+        for way, plan, res, stages, lib in (("fwd", plan_f, "resident_fwd", ("reduce", "apply"),
+                                             lib_f),
+                                            ("bwd", plan_b, "resident_bwd",
+                                             ("grad_reduce", "grad_apply"), lib_b)):
+            plain = sum(ms[f"{k}_plain"] for k in stages)
+            if plan is not None:
+                row[way] = {"path": "resident", "plan": list(plan), "ms": ms[res],
+                            "bound_ms": bound[res][0]}
+                for key, v in (("ms", ms[res]), ("plain_ms", plain), ("bound_ms", bound[res][0]),
+                               ("library_ms", lib)):
+                    main["bn_act_resident"][key] += count * v
+                main["bn_act_resident"]["by"].add(bound[res][1])
+            else:
+                # the stages as the step runs them (keeping gz backward)
+                run = [f"{k}_gz" if f"{k}_gz" in ms else k for k in stages]
+                row[way] = {"path": "two-pass", "gz": run != list(stages),
+                            "ms": sum(ms[k] for k in run),
+                            "bound_ms": sum(bound[k][0] for k in stages)}
+                for k, r, name in zip(stages, run, ("bn_act_reduce", "bn_act_apply")):
+                    for key, v in (("ms", ms[r]), ("plain_ms", ms[f"{k}_plain"]),
+                                   ("bound_ms", bound[r][0]), ("library_ms", ms[f"{k}_library"])):
+                        main[name][key] += count * v
+                    main[name]["by"].add(bound[r][1])
+        tot["rows"].append(row)
     for k in keys + ("finish", "grad_finish"):
         bytes_ms = elems["bytes"][k] / HBM_BYTES_PER_S * 1e3
         ops_ms = elems["ops"][k] / F32_OPS_PER_S * 1e3
         tot[f"{k}_bound"] = max(bytes_ms, ops_ms)
         tot[f"{k}_by"] = "bytes" if bytes_ms >= ops_ms else "operations"
+    for v in main.values():
+        v["by"] = "bytes" if v["by"] <= {"bytes"} else "operations"
+    tot["main"] = main
+    for way in ("fwd", "bwd"):
+        tot[f"planned_{way}"] = sum(r["maps"] * r[way]["ms"] for r in tot["rows"])
+        tot[f"planned_{way}_bound"] = sum(r["maps"] * r[way]["bound_ms"] for r in tot["rows"])
     return tot
+
+
+def bn_plan_counts(shapes, device):
+    """{"resident_forward", "resident_backward", "two_pass_forward",
+    "two_pass_backward": maps} of ``shapes`` ({(shape, dtype): count}) as
+    bn_act's plan sends them on ``device``."""
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    out = dict.fromkeys(("resident_forward", "resident_backward", "two_pass_forward",
+                         "two_pass_backward"), 0)
+    for (shape, dtype), n in shapes.items():
+        for way, bwd in (("forward", False), ("backward", True)):
+            path = "resident" if bnk.shape_plan(shape, dtype, bwd, device) else "two_pass"
+            out[f"{path}_{way}"] += n
+    return out
+
+
+def bn_launches_wanted(shapes, device, steps=1):
+    """The BN+act wrappers' launches that ``steps`` single-device steps over
+    ``shapes`` make: the two-pass stages at the maps without a resident
+    plan, the resident kernel at the others, no finish."""
+    n = bn_plan_counts(shapes, device)
+    return {"bn_act.reduce": n["two_pass_forward"] * steps,
+            "bn_act.apply": n["two_pass_forward"] * steps,
+            "bn_act.grad_reduce": n["two_pass_backward"] * steps,
+            "bn_act.grad_apply": n["two_pass_backward"] * steps,
+            "bn_act.resident_forward": n["resident_forward"] * steps,
+            "bn_act.resident_backward": n["resident_backward"] * steps,
+            "bn_act.finish": 0, "bn_act.grad_finish": 0}
+
+
+def check_pair_launches(per_step, n_maps, tag):
+    """The BN+act pair's launches in one step (``per_step``: wrapper ->
+    launches) over ``n_maps`` maps, apart from the plan: the resident kernel
+    ran both ways, and the pair launched fewer times than the two passes'
+    4 a map. Returns the pair's launches."""
+    pair = sum(v for k, v in per_step.items() if k.startswith("bn_act."))
+    if not (per_step["bn_act.resident_forward"] > 0 and per_step["bn_act.resident_backward"] > 0
+            and pair < 4 * n_maps):
+        raise AssertionError(f"{tag} the BN+act pair launched {pair} times a step over {n_maps} "
+                             f"maps (want the resident kernel both ways and fewer than "
+                             f"{4 * n_maps}): {per_step}")
+    return pair
 
 
 def phase_train(device, card):
     """g3: the training step's measurement (measure_train_step) with its
     checks: finite losses, num_fg > 0, no host sync, and the fused BN+act
-    pair launched 4 x 127 times a step (reduce and apply, forward and
-    backward) with no standalone hard-swish and no data-parallel finish;
-    then the pair held against its plain stages (check_bn_act_kernels) and
-    timed (bn_act_times) on one step's maps."""
+    pair launched as its plan says (bn_launches_wanted: one resident launch
+    a map each way where the map has a plan, else reduce and apply each
+    way), with no standalone hard-swish and no data-parallel finish; then
+    the pair held against its plain stages (check_bn_act_kernels) and timed
+    (bn_act_times) on one step's maps. Apart from the plan, the resident
+    kernel must run both ways and the pair launch fewer than 4 times a map
+    (check_pair_launches)."""
     import torch
 
     res, shapes = measure_train_step(device, card)
     n_maps = sum(shapes.values())
     launches = res["launches"]
-    want = {"bn_act.reduce": n_maps, "bn_act.apply": n_maps, "bn_act.grad_reduce": n_maps,
-            "bn_act.grad_apply": n_maps, "bn_act.finish": 0, "bn_act.grad_finish": 0,
-            "hard_swish": 0, "hard_swish_grad": 0}
+    want = bn_launches_wanted(shapes, device) | {"hard_swish": 0, "hard_swish_grad": 0}
     per_step = {k: v / TRAIN_STEPS for k, v in launches.items()}
     if per_step != want:
         raise AssertionError(f"launches a step {per_step}, want {want}")
+    pair = check_pair_launches(per_step, n_maps, "g3.")
     if res["host syncs"]:
         raise AssertionError(f"the train step synchronizes with the card {res['host syncs']} "
                              f"times, first: {res['first sync'][0]}")
@@ -1788,7 +2001,6 @@ def phase_train(device, card):
             raise AssertionError(f"non-finite training metrics at step {i + 1}: {vals}")
         if vals["num_fg"] <= 0:
             raise AssertionError(f"no foreground anchor at step {i + 1}")
-    pair = sum(v for k, v in launches.items() if k.startswith("bn_act.")) // TRAIN_STEPS
     mean = res["mean"]
     kernels = ("not measured (the profiler recorded no device activity)"
                if res["kernels a step"] is None else
@@ -1805,27 +2017,43 @@ def phase_train(device, card):
           f"{res['img/s device']:.2f} img/s on the device, {res['img/s host']:.2f} img/s by "
           f"the host clock; peak device memory {res['peak_gib']:.2f} GiB; one step under the "
           f"profiler: {kernels}; launches in the {TRAIN_STEPS} steps {launches}: the BN+act "
-          f"pair {pair} a step ({n_maps} BN+act maps), the standalone hard-swish 0; host syncs "
-          f"in a step (sync debug mode): 0", flush=True)
+          f"pair {pair:g} a step, fewer than the two passes' {4 * n_maps} ({n_maps} BN+act "
+          f"maps: {bn_plan_counts(shapes, device)}), the "
+          f"standalone hard-swish 0; host syncs in a step (sync debug mode): 0", flush=True)
     torch.cuda.empty_cache()
     worst = check_bn_act_kernels(device, shapes)
     t = bn_act_times(shapes, device)
     fwd = {s: t[f"reduce{s}"] + t[f"apply{s}"] for s in ("", "_plain", "_bound")}
     bwd = {s: t[f"grad_reduce{s}"] + t[f"grad_apply{s}"] for s in ("", "_plain", "_bound")}
     print(f"g3. bn_act pair on one step's {n_maps} BN+act maps ({len(shapes)} shapes, bf16, "
-          f"hard-swish): forward {fwd['']:.4f} ms (reduce {t['reduce']:.4f}, apply "
+          f"hard-swish), as the step runs it (the resident kernel where the map has a plan, "
+          f"else the two passes): forward {t['planned_fwd']:.4f} ms, backward "
+          f"{t['planned_bwd']:.4f} (bounds {t['planned_fwd_bound']:.4f} and "
+          f"{t['planned_bwd_bound']:.4f}: x read once and y written, 4 bytes an element in "
+          f"bf16 forward and 6 backward, on a resident map; x read twice, 6 and 10, on a "
+          f"two-pass map); F.batch_norm + F.hardswish {t['library_fwd']:.4f}, autograd of the "
+          f"two {t['library_bwd']:.4f}", flush=True)
+    print(f"g3. bn_act two-pass kernels at all {n_maps} maps (as PRs 7-14 ran every map): "
+          f"forward {fwd['']:.4f} ms (reduce {t['reduce']:.4f}, apply "
           f"{t['apply']:.4f}; bound {fwd['_bound']:.4f} by bytes; plain {fwd['_plain']:.4f}; "
-          f"F.batch_norm + F.hardswish {t['library_fwd']:.4f}; ATen's stages "
-          f"batch_norm_stats {t['reduce_library']:.4f}, batch_norm_elemt "
+          f"ATen's stages batch_norm_stats {t['reduce_library']:.4f}, batch_norm_elemt "
           f"{t['apply_library']:.4f}); backward {bwd['']:.4f} ms (reduce "
           f"{t['grad_reduce']:.4f}, apply {t['grad_apply']:.4f}; bound {bwd['_bound']:.4f}; "
-          f"plain {bwd['_plain']:.4f}; autograd of the two {t['library_bwd']:.4f}; ATen's "
-          f"stages batch_norm_backward_reduce {t['grad_reduce_library']:.4f}, "
-          f"batch_norm_backward_elemt {t['grad_apply_library']:.4f})", flush=True)
-    print("g3. bn_act, each kernel's time at each shape over its byte bound (shape x maps: "
-          "reduce, apply, grad_reduce, grad_apply): " + "; ".join(
-              f"{tuple(sh)} x{n}: " + ", ".join(f"{v:.2f}" for v in r.values())
-              for sh, (n, r) in t["by shape"].items()), flush=True)
+          f"plain {bwd['_plain']:.4f}; ATen's stages batch_norm_backward_reduce "
+          f"{t['grad_reduce_library']:.4f}, batch_norm_backward_elemt "
+          f"{t['grad_apply_library']:.4f})", flush=True)
+    print("g3. bn_act per shape (shape x maps: forward path, ms, bound ms, ms over bound; "
+          "backward the same; the two-pass kernels' ms reduce, apply, grad_reduce, "
+          "grad_apply): " + "; ".join(
+              f"{r['shape']} x{r['maps']}: "
+              + ", ".join(f"{r[w]['path']}{tuple(r[w].get('plan', ()))} {r[w]['ms']:.4f} "
+                          f"{r[w]['bound_ms']:.4f} {r[w]['ms'] / r[w]['bound_ms']:.2f}"
+                          for w in ("fwd", "bwd"))
+              + " (" + ", ".join(f"{r['ms'][k]:.4f}" for k in ("reduce", "apply", "grad_reduce",
+                                                               "grad_apply")) + ")"
+              for r in t["rows"]), flush=True)
+    print("bn_rows: " + json.dumps([{k: v for k, v in r.items() if k != "ms"}
+                                    for r in t["rows"]]), flush=True)
     print(f"g3. bn_act_finish (the data-parallel path's, after the all-reduce of the sums) "
           f"at one step's {n_maps} channel counts: forward {t['finish']:.4f} ms, backward "
           f"{t['grad_finish']:.4f} (plain {t['finish_plain']:.4f}, "
@@ -1834,22 +2062,141 @@ def phase_train(device, card):
     stats = {}
     for name, keys in (("bn_act_reduce", ("reduce", "grad_reduce")),
                        ("bn_act_apply", ("apply", "grad_apply")),
+                       ("bn_act_resident", ("resident_forward", "resident_backward")),
                        ("bn_act_finish", ("finish", "grad_finish"))):
+        # the launches are the step's; the times each kernel's at the maps
+        # the step gives it (bn_act_times' "main"), the finish at every map
+        m = t["main"].get(name)
         stats[name] = {
             "launches": sum(launches[f"bn_act.{k}"] for k in keys),
             "max_abs_err": worst[name[len("bn_act_"):]],
             # the finish runs on the data-parallel path only: its launches
             # there are phase h2's (main() fills them in)
-            "ms": sum(t[k] for k in keys), "plain_ms": sum(t[f"{k}_plain"] for k in keys),
-            "bound_ms": sum(t[f"{k}_bound"] for k in keys),
-            "bound_by": "bytes" if all(t[f"{k}_by"] == "bytes" for k in keys)
-            else "operations",
-            # ATen's stages, forward and backward (bn_act_times); no call of
-            # torch computes the backward finish's coefficients from summed
-            # sums, so the finish has none
-            "library_ms": (None if name == "bn_act_finish"
-                           else sum(t[f"{k}_library"] for k in keys))}
+            "ms": m["ms"] if m else sum(t[k] for k in keys),
+            "plain_ms": m["plain_ms"] if m else sum(t[f"{k}_plain"] for k in keys),
+            "bound_ms": m["bound_ms"] if m else sum(t[f"{k}_bound"] for k in keys),
+            "bound_by": m["by"] if m else ("bytes" if all(t[f"{k}_by"] == "bytes" for k in keys)
+                                           else "operations"),
+            # ATen's stages (two-pass) or F.batch_norm + F.hardswish and its
+            # autograd (resident); no call of torch computes the backward
+            # finish's coefficients from summed sums, so the finish has none
+            "library_ms": m["library_ms"] if m else None}
     return stats
+
+
+def g3_bn_shapes(device):
+    """g3's BN+act maps, {(shape, bf16): count}: the ConvBnAct outputs of
+    YOLOX-M-P6 (depth 0.67, width 0.75) at 64 px, scaled to B=BATCH at SIZE
+    px (every level's size is SIZE / 64 times its own at 64 px)."""
+    import torch
+
+    from cocodet_tpu_torch.models import build_model
+
+    model = build_model("yolox-p6", depth=0.67, width=0.75, device=device).eval()
+    with torch.no_grad():
+        small = activation_shapes(model, lambda: model(torch.zeros(1, 64, 64, 3, device=device)))
+    k = SIZE // 64
+    return {((BATCH, sh[1], sh[2] * k, sh[3] * k), torch.bfloat16): n
+            for (sh, _), n in small.items()}
+
+
+def bn_pair_times(shapes, device, variants=False):
+    """The BN+act pair each way at each of ``shapes`` as the package on
+    sys.path runs it in a single-device step: ``bn_act.forward`` and
+    ``backward`` where the package has them (the resident kernel where the
+    map has a plan, else the two passes), else reduce then apply (the
+    package of PRs 7-14). Each beside its bound as that path moves the map
+    (BN_PER_ELEM). With ``variants`` (this tree's package), also every
+    resident plan that fits the map (16- and 32-byte tiles, clusters of 1
+    to the card's largest), the planned resident launch with no activation,
+    and the two passes with the reduce's tiles 16, 32 and 48 channels wide,
+    each way (backward recomputing gz in the apply, where bn_act.backward
+    keeps it). Returns {"rows": [...], "fwd", "bwd":
+    totals over the maps, "fwd_bound", "bwd_bound"}."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    gen = torch.Generator(device=device).manual_seed(19)
+    fused = hasattr(bnk, "forward")
+    rows = []
+    for (shape, dtype), count in shapes.items():
+        c = shape[1]
+        x, g, w, b, rm, rv, sums, fvec = bn_inputs(shape, dtype, gen, device)
+        cnt = sums[-1:]
+
+        def two_pass_fwd():
+            return bnk.apply(x, bnk.reduce(x, w, rm, rv)[1], b)
+
+        def two_pass_bwd():
+            return bnk.grad_apply(x, g, fvec, b, bnk.grad_reduce(x, g, fvec, b, w, cnt)[1])
+
+        numel, elem = x.numel(), x.element_size()
+        row = {"shape": list(shape), "maps": count}
+        for way, bwd in (("fwd", False), ("bwd", True)):
+            plan = bnk.plan_for(x, bwd, (g,) if bwd else ()) if fused else None
+            if fused:
+                fn = (lambda: bnk.backward(x, g, fvec, b, w, cnt)) if bwd else \
+                    (lambda: bnk.forward(x, w, b, rm, rv))
+            else:
+                fn = two_pass_bwd if bwd else two_pass_fwd
+            key = "resident_bwd" if bwd else "resident_fwd"
+            stages = ("grad_reduce", "grad_apply") if bwd else ("reduce", "apply")
+            bound = bn_bound_ms(numel, elem, key)[0] if plan else \
+                sum(bn_bound_ms(numel, elem, k)[0] for k in stages)
+            row[way] = {"path": "resident" if plan else "two-pass", "plan": plan,
+                        "ms": cuda_ms(fn, 20), "bound_ms": bound}
+            if variants:
+                tried = {}
+                slab, max_cluster, _ = bnk._resident_limits(device)
+                for gt in (2, 1):
+                    for cs in (1, 2, 4, 8, 16):
+                        rows_cta = -(-(numel // c) // cs)
+                        if c % (16 // elem) or cs > max_cluster \
+                                or rows_cta * gt * 16 * (2 if bwd else 1) > slab:
+                            continue
+                        f = (lambda p=(gt, cs): bnk.resident_backward(x, g, fvec, b, w, cnt,
+                                                                      plan=p)) if bwd else \
+                            (lambda p=(gt, cs): bnk.resident_forward(x, w, b, rm, rv, plan=p))
+                        tried[f"resident{gt}x{cs}"] = cuda_ms(f, 20)
+                if plan:  # the planned launch with no activation: the hard-swish's share
+                    f = (lambda: bnk.resident_backward(x, g, fvec, b, w, cnt, "identity",
+                                                       plan=plan)) if bwd else \
+                        (lambda: bnk.resident_forward(x, w, b, rm, rv, act="identity", plan=plan))
+                    tried["planned-identity"] = cuda_ms(f, 20)
+                default = bnk._REDUCE_TILE
+                try:
+                    for width in (16, 32, 48):
+                        bnk._REDUCE_TILE = width
+                        tried[f"two-pass{width}"] = cuda_ms(two_pass_bwd if bwd else two_pass_fwd,
+                                                            20)
+                finally:
+                    bnk._REDUCE_TILE = default
+                row[way]["variants"] = tried
+        rows.append(row)
+    out = {"rows": rows}
+    for way in ("fwd", "bwd"):
+        out[way] = sum(r["maps"] * r[way]["ms"] for r in rows)
+        out[f"{way}_bound"] = sum(r["maps"] * r[way]["bound_ms"] for r in rows)
+    return out
+
+
+def phase_bn(device, card, tree):
+    """--bn TREE: the BN+act pair at g3's maps (g3_bn_shapes), each way as
+    TREE's package runs it (bn_pair_times), in one ``bn: {json}`` line with
+    the card; for this tree's package first held against its plain stages
+    (check_bn_act_kernels at g3's shapes, bf16 and f32, with the ragged
+    cases) and timed with every variant."""
+    import torch
+
+    shapes = g3_bn_shapes(device)
+    mine = os.path.samefile(tree, REPO)
+    if mine:
+        check_bn_act_kernels(device, shapes, tag="bn.")
+        torch.cuda.empty_cache()
+    res = bn_pair_times(shapes, device, variants=mine)
+    print("bn: " + json.dumps({"tree": tree, "card": card, "maps": sum(shapes.values()),
+                               "shapes": len(shapes), **res}), flush=True)
 
 
 def phase_repeat(device, predictor):
@@ -2043,13 +2390,18 @@ def phase_dp(device, card):
                   f"{({k: v // H_STEPS for k, v in r['staged'].items()})}; peak device memory "
                   f"{r['peak_gib']:.2f} GiB; launches in {H_STEPS} steps {r['launches']}",
                   flush=True)
-            # the BN+act pair with its finish between the passes (the sums
-            # are all-reduced there), each way; no standalone hard-swish
-            fused = [k for k in r["launches"] if k.startswith("bn_act.")]
+            # the BN+act pair's two passes with its finish between them (the
+            # sums are all-reduced there), each way; on a mesh no resident
+            # launch and no standalone hard-swish
+            fused = [k for k in r["launches"] if k.startswith("bn_act.")
+                     and not k.startswith("bn_act.resident")]
             if not all(r["launches"][k] for k in fused) or r["launches"]["hard_swish"] \
-                    or r["launches"]["hard_swish_grad"]:
-                raise AssertionError(f"the BN+act kernels did not all launch, or the "
-                                     f"standalone hard-swish did, on rank {rank} ({mesh})")
+                    or r["launches"]["hard_swish_grad"] \
+                    or r["launches"]["bn_act.resident_forward"] \
+                    or r["launches"]["bn_act.resident_backward"]:
+                raise AssertionError(f"the BN+act two-pass kernels did not all launch, or the "
+                                     f"resident kernel or the standalone hard-swish did, on "
+                                     f"rank {rank} ({mesh})")
         for i, m in enumerate(runs[0]["metrics"]):
             print(f"h2. ({mesh}) step {i + 1}{' (use_l1)' if i == H_STEPS - 1 else ''}: "
                   + ", ".join(f"{k}={v:.4f}" for k, v in m.items()), flush=True)
@@ -3260,7 +3612,8 @@ def phase_k2(device, root, out_dir):
           f"loader threads; {len(trainer.epoch_stats)} epochs in {seconds:.2f} s", flush=True)
     j_report(trainer, "k2.")
     keys = ("bn_act.reduce", "bn_act.apply", "bn_act.grad_reduce", "bn_act.grad_apply",
-            "overlap_matrix", "greedy_keep", "hard_swish")
+            "bn_act.resident_forward", "bn_act.resident_backward", "overlap_matrix",
+            "greedy_keep", "hard_swish")
     prev = {k: 0 for k in per_epoch[0]} if per_epoch else {}
     for i, counts in enumerate(per_epoch):
         delta = {k: counts[k] - prev[k] for k in keys}
@@ -3283,23 +3636,39 @@ def phase_k3(device, trainer):
     (check_bn_act_kernels) at the BN+act maps of one step of k2's model at
     every size k2 trained at (with the exp's seed, its largest bucket in
     epoch 1 and 768 px in epoch 2), and at 768 px and the largest bucket in
-    any case. Returns the check's worst numbers."""
+    any case; each of those steps launches the pair as its plan says
+    (bn_launches_wanted), the resident kernel both ways, and fewer than 4
+    launches a map (check_pair_launches). Returns the check's worst
+    numbers."""
     import torch
 
     exp = trainer.exp
     sizes = {tuple(s) for st in trainer.epoch_stats for s in st["size_sequence"]}
     sizes |= {tuple(exp.input_size), tuple(max(exp.multiscale_sizes()))}
-    shapes = {}
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    shapes, counted = {}, []
     for h, w in sorted(sizes):
         images, labels = (torch.from_numpy(t).to(device)
                           for t in training_batch(J_BATCH, h, 12, width=w))
         run = lambda: trainer.train_step(images, labels)  # noqa: E731
-        for key, n in activation_shapes(trainer.model, run).items():
+        bnk.reset_launch_counts()
+        step_shapes = activation_shapes(trainer.model, run)
+        got = {f"bn_act.{fn.__name__}": fn.launches for fn in bnk.WRAPPERS}
+        want = bn_launches_wanted(step_shapes, device)
+        if got != want:
+            raise AssertionError(f"k3: a step at {h}x{w} launched {got}, want {want}")
+        n_maps = sum(step_shapes.values())
+        pair = check_pair_launches(got, n_maps, f"k3: at {h}x{w},")
+        counted.append(f"{h}x{w} {bn_plan_counts(step_shapes, device)}, pair {pair} of "
+                       f"{4 * n_maps}")
+        for key, n in step_shapes.items():
             shapes[key] = shapes.get(key, 0) + n
     del images, labels
     torch.cuda.empty_cache()
     print(f"k3. BN+act maps of one B={J_BATCH} step at {sorted(sizes)}: {len(shapes)} shapes, "
-          f"{sum(shapes.values())} maps", flush=True)
+          f"{sum(shapes.values())} maps; each step's launches as its plan says (resident "
+          f"and two-pass maps each way: {'; '.join(counted)})", flush=True)
     return check_bn_act_kernels(device, shapes, tag="k3.")
 
 
@@ -3576,7 +3945,8 @@ def phase_l2(device, root, out_dir, init):
           and kept[0] == ev[0]["total"] - ev[0]["pruned"] and kept[1] == kept[0] - ev[1]["pruned"]
           and pruner.epoch_stats[0]["nonfinite_losses"] == 0 and sc["calls"] == 4)
     need = ("bn_act.reduce", "bn_act.apply", "bn_act.grad_reduce", "bn_act.grad_apply",
-            "hard_swish", "hard_swish_grad", "overlap_matrix", "greedy_keep")
+            "bn_act.resident_forward", "bn_act.resident_backward", "hard_swish",
+            "hard_swish_grad", "overlap_matrix", "greedy_keep")
     if not ok or any(counts[k] == 0 for k in need):
         raise AssertionError(f"l2: events {ev}, launches {counts}")
 
@@ -3632,6 +4002,7 @@ def phase_l3(device, root, out_dir, pruned):
     del images, labels
     if not (tuner.use_mask and tuner.epoch_stats[0]["nonfinite_losses"] == 0
             and st["calls"] == tuner.iters_per_epoch and counts["bn_act.reduce"]
+            and counts["bn_act.resident_forward"] and counts["bn_act.resident_backward"]
             and counts["hard_swish"]):
         raise AssertionError(f"l3: the Tuner's run ({st}, {counts})")
     ckpt = os.path.join(tuner.file_name, "latest_ckpt.msgpack")
@@ -4195,7 +4566,8 @@ def phase_m2(device, card, root, out_dir):
           f"losses finite: {all(e['nonfinite_losses'] == 0 for e in trainer.epoch_stats)}",
           flush=True)
     if (sf["kept"] != max(int(round(sf["total"] * exp.prune_ratio)), 1)
-            or sf["iterations"] != 100 or counts["bn_act.reduce"] == 0):
+            or sf["iterations"] != 100 or counts["bn_act.reduce"] == 0
+            or counts["bn_act.resident_forward"] == 0 or counts["bn_act.resident_backward"] == 0):
         raise AssertionError(f"m2: SynFlow {sf['kept']} of {sf['total']}, launches {counts}")
 
     sites = tsf.mask_sites(trainer.model)
@@ -4290,7 +4662,9 @@ def phase_m3(device, card, tmp):
             or written["params_slim"] >= written["params_dense"]
             or not np.isfinite([written[k] for k in keys if k != "deploy_stage"]).all()
             or not set(sizes["phase2"]) <= {(M_PHASE2_SIZE + d,) * 2 for d in (-64, 0, 64)}
-            or any(counts[k] == 0 for k in ("bn_act.reduce", "hard_swish", "overlap_matrix"))):
+            or any(counts[k] == 0 for k in ("bn_act.reduce", "bn_act.resident_forward",
+                                            "bn_act.resident_backward", "hard_swish",
+                                            "overlap_matrix"))):
         raise AssertionError(f"m3: results {written}, events {events}, sizes {sizes}, "
                              f"launches {counts}")
     print(f"m3. the slim model: {written['params_slim']} parameters of {written['params_dense']} "
@@ -4351,13 +4725,14 @@ def main():
         return 2
     flags = current_flags()  # before any phase sets them
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args not in (["--step", args[1]], ["--phase", "j"],
-                                                 ["--phase", "j1"], ["--phase", "k"],
-                                                 ["--phase", "l"], ["--phase", "m"])):
-        print("usage: python3 chip_smoke.py [--step TREE | --phase j | --phase j1 | --phase k "
-              "| --phase l | --phase m]", file=sys.stderr)
+    if args and (len(args) != 2 or args not in (["--step", args[1]], ["--bn", args[1]],
+                                                 ["--phase", "j"], ["--phase", "j1"],
+                                                 ["--phase", "k"], ["--phase", "l"],
+                                                 ["--phase", "m"])):
+        print("usage: python3 chip_smoke.py [--step TREE | --bn TREE | --phase j | --phase j1 "
+              "| --phase k | --phase l | --phase m]", file=sys.stderr)
         return 2
-    tree = os.path.abspath(args[1]) if args[:1] == ["--step"] else REPO
+    tree = os.path.abspath(args[1]) if args[:1] in (["--step"], ["--bn"]) else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
         print(f"chip_smoke: FAIL: no cocodet_tpu_torch package in {tree}", file=sys.stderr)
         return 2
@@ -4373,6 +4748,9 @@ def main():
         # --step TREE: g3's step measurement alone, of TREE's package
         res, _ = measure_train_step(device, card)
         print("step: " + json.dumps({"tree": tree, **res}), flush=True)
+        return 0
+    if args[:1] == ["--bn"]:
+        phase_bn(device, card, tree)
         return 0
     if args == ["--phase", "j1"]:
         print("j1: " + json.dumps(phase_j1_alone(device, card, flags)))

@@ -33,13 +33,32 @@
 //     through the formula above: du = -0.5 (B scale) inv^3, dd = du where
 //     d > 0, du / 2 where d == 0 (jnp.maximum splits a tie evenly), else 0;
 //     c1 = (-mul A - 2 mean dd) / n, c2 = 2 dd / n.
-//   bn_act_apply_kernel: dx = T((gz * mul + c1) + c2 * x), gz recomputed.
-// Nothing of the size of the map is saved between the passes: the autograd
-// Function keeps x and the C-length vectors.
+//   bn_act_apply_kernel: dx = T((gz * mul + c1) + c2 * x), gz recomputed,
+//     or (channels-last, a.gz) read back where the reduce wrote it.
+// The resident kernel computes the same, with the same roundings: its sums
+// in another order (so within a tolerance of the reduce's), its vectors from
+// them and y or dx from those by the same functions. Nothing of the size of
+// the map is saved between the passes: the autograd Function keeps x and
+// the C-length vectors.
 //
-// Bound on the H100: bytes. The forward reads x twice and writes y (6 bytes
-// an element in bf16), the backward reads x and g twice and writes dx (10
-// bytes), at a few operations a byte. The design:
+// Bound on the H100: bytes, at a few operations a byte. A map needs x read
+// once and y written (4 bytes an element in bf16), backward x and g read
+// and dx written (6). Two designs:
+//   - bn_act_resident_kernel, one launch a map each way, for a channels-
+//     last map whose channel tile (16 or 32 bytes of a row), over every row,
+//     fits the shared memory of a thread-block cluster of up to 16 CTAs
+//     (ops/cuda/bn_act.py::resident_plan): each CTA copies its chunk of the
+//     rows into shared memory once (cp.async), sums it, the cluster adds its
+//     CTAs' partials through distributed shared memory, and each CTA writes
+//     y or dx from its copy. The map is read once; nothing of its size, and
+//     no partial, goes through device memory between the reduce and the
+//     apply. The kernel's comment has the steps.
+//   - bn_act_reduce_kernel then bn_act_apply_kernel, for the other maps
+//     (the largest: the stem and the 160x160 maps of a 640 px step), NCHW
+//     maps and the data-parallel path. The forward reads x twice and writes
+//     y (6 bytes an element in bf16), the backward reads x and g twice and
+//     writes dx (10 bytes).
+// The two-pass design:
 //   - channels-last: a thread owns V = 16 / sizeof(T) adjacent channels
 //     (one 16-byte load) and a block a tile of channel groups times R row
 //     lanes, so a thread's channels never change and their vectors (mean,
@@ -57,8 +76,9 @@
 //     kernels: the reduce then writes the sums only, and
 //     bn_act_finish_kernel computes the vectors from the summed ones.
 // A misaligned pointer, or C (channels-last) or H*W (NCHW) not a multiple
-// of V, takes the same kernels with V = 1.
+// of V, takes the two-pass kernels with V = 1.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,6 +105,8 @@ struct BnActArgs {
   float* running_var;     // C
   const float* count;     // backward finish: the forward's count
   float* vec_out;         // the finish's vectors (fvec or bvec), 4C
+  void* gz;               // backward, channels-last, or null: the reduce writes gz, the
+                          // apply reads it in place of g (no second VJP)
   int64_t outer;          // rows (channels-last) or N (NCHW)
   int64_t inner;          // 1 (channels-last) or H*W (NCHW)
   int C;
@@ -117,6 +139,19 @@ constexpr int kUnroll = 2;        // 16-byte loads in flight a thread, each oper
 constexpr int kFinishLoads = 8;   // values in flight a thread in the reduce's column sums
 constexpr int kIdentity = 0;
 constexpr int kHardSwish = 1;
+// The resident kernel: threads a CTA (16 warps: an SM holds one CTA of a
+// large slab), the widest tile (32 bytes of a row), rows a thread's cp.async
+// group, and the scratch at the start of its dynamic shared memory (the
+// warps' and the CTA's f64 partials of two sums, two f32 vectors), before
+// the slab.
+constexpr int kResThreads = 512;
+constexpr int kResWarps = kResThreads / 32;
+constexpr int kResMaxTile = 16;
+constexpr int kResStage = 4;
+constexpr int kResScratch = (2 * kResWarps + 2) * kResMaxTile * 8 + 2 * kResMaxTile * 4;
+static_assert(kResScratch % 16 == 0, "the slab starts 16-byte aligned");
+
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -174,28 +209,52 @@ __device__ __forceinline__ float grad_z(T xe, T ge, float mean, float mul, float
   return to_float(ge);
 }
 
-__device__ __forceinline__ void finish_forward(const BnActArgs& a, int c, float s1,
-                                               float s2, float n) {
-  const int C = a.C;
-  const float mean = __fdiv_rn(s1, n);
-  const float d = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(mean, mean));
-  const float var = d < 0.f ? 0.f : d;  // NaN stays NaN, as torch.maximum
-  const float u = __fadd_rn(var, a.eps);
-  const float inv = __double2float_rn(__drcp_rn(__dsqrt_rn(static_cast<double>(u))));
-  a.vec_out[c] = mean;
-  a.vec_out[C + c] = d;
-  a.vec_out[2 * C + c] = inv;
-  a.vec_out[3 * C + c] = __fmul_rn(inv, a.weight[c]);
-  a.running_mean[c] =
-      __fadd_rn(__fmul_rn(a.keep, a.running_mean[c]), __fmul_rn(a.one_minus_keep, mean));
-  a.running_var[c] =
-      __fadd_rn(__fmul_rn(a.keep, a.running_var[c]), __fmul_rn(a.one_minus_keep, var));
+// The forward's per-channel values from the sums: mean, d = E[x^2] - mean^2,
+// var = max(d, 0), inv = 1 / sqrt(var + eps) (f64, rounded once), mul.
+struct FwdVec {
+  float mean, d, var, inv, mul;
+};
+
+__device__ __forceinline__ FwdVec forward_vectors(const BnActArgs& a, int c, float s1, float s2,
+                                                  float n) {
+  FwdVec v;
+  v.mean = __fdiv_rn(s1, n);
+  v.d = __fsub_rn(__fdiv_rn(s2, n), __fmul_rn(v.mean, v.mean));
+  v.var = v.d < 0.f ? 0.f : v.d;  // NaN stays NaN, as torch.maximum
+  const float u = __fadd_rn(v.var, a.eps);
+  v.inv = __double2float_rn(__drcp_rn(__dsqrt_rn(static_cast<double>(u))));
+  v.mul = __fmul_rn(v.inv, a.weight[c]);
+  return v;
 }
 
-// A, B: the sums over every rank (c1, c2); al, bl: this rank's (the
-// parameter gradients, which the step sums over ranks itself)
-__device__ __forceinline__ void finish_backward(const BnActArgs& a, int c, float A,
-                                                float B, float al, float bl, float n) {
+// fvec and the running statistics of channel c
+__device__ __forceinline__ void write_forward(const BnActArgs& a, int c, const FwdVec& v) {
+  const int C = a.C;
+  a.vec_out[c] = v.mean;
+  a.vec_out[C + c] = v.d;
+  a.vec_out[2 * C + c] = v.inv;
+  a.vec_out[3 * C + c] = v.mul;
+  a.running_mean[c] =
+      __fadd_rn(__fmul_rn(a.keep, a.running_mean[c]), __fmul_rn(a.one_minus_keep, v.mean));
+  a.running_var[c] =
+      __fadd_rn(__fmul_rn(a.keep, a.running_var[c]), __fmul_rn(a.one_minus_keep, v.var));
+}
+
+__device__ __forceinline__ void finish_forward(const BnActArgs& a, int c, float s1,
+                                               float s2, float n) {
+  write_forward(a, c, forward_vectors(a, c, s1, s2, n));
+}
+
+// The backward's per-channel values: dx = gz * mul + c1 + c2 * x, and the
+// scale and bias gradients. A, B: the sums over every rank (c1, c2); al,
+// bl: this rank's (the parameter gradients, which the step sums over ranks
+// itself)
+struct BwdVec {
+  float c1, c2, dscale, dbias;
+};
+
+__device__ __forceinline__ BwdVec backward_vectors(const BnActArgs& a, int c, float A, float B,
+                                                   float al, float bl, float n) {
   const int C = a.C;
   const float mean = a.fvec[c], d = a.fvec[C + c], inv = a.fvec[2 * C + c],
               mul = a.fvec[3 * C + c];
@@ -203,24 +262,36 @@ __device__ __forceinline__ void finish_backward(const BnActArgs& a, int c, float
   const float du = __fmul_rn(__fmul_rn(dinv, -0.5f), __fmul_rn(__fmul_rn(inv, inv), inv));
   const float dd = d > 0.f ? du : (d == 0.f ? __fmul_rn(du, 0.5f) : 0.f);
   const float dmean = __fsub_rn(__fmul_rn(-mul, A), __fmul_rn(__fmul_rn(2.f, mean), dd));
-  a.vec_out[c] = __fdiv_rn(dmean, n);
-  a.vec_out[C + c] = __fdiv_rn(__fmul_rn(2.f, dd), n);
-  a.vec_out[2 * C + c] = __fmul_rn(bl, inv);
-  a.vec_out[3 * C + c] = al;
+  return {__fdiv_rn(dmean, n), __fdiv_rn(__fmul_rn(2.f, dd), n), __fmul_rn(bl, inv), al};
 }
 
-// One element's contribution to the two sums.
+__device__ __forceinline__ void write_backward(const BnActArgs& a, int c, const BwdVec& v) {
+  const int C = a.C;
+  a.vec_out[c] = v.c1;
+  a.vec_out[C + c] = v.c2;
+  a.vec_out[2 * C + c] = v.dscale;
+  a.vec_out[3 * C + c] = v.dbias;
+}
+
+__device__ __forceinline__ void finish_backward(const BnActArgs& a, int c, float A,
+                                                float B, float al, float bl, float n) {
+  write_backward(a, c, backward_vectors(a, c, A, B, al, bl, n));
+}
+
+// One element's contribution to the two sums; backward, returns gz.
 template <typename T, int kAct, bool kBwd>
-__device__ __forceinline__ void accumulate(T xe, T ge, float mean, float mul, float bias,
-                                           float& sa, float& sb) {
+__device__ __forceinline__ float accumulate(T xe, T ge, float mean, float mul, float bias,
+                                            float& sa, float& sb) {
   if constexpr (kBwd) {
     const float gz = grad_z<T, kAct>(xe, ge, mean, mul, bias);
     sa = __fadd_rn(sa, gz);
     sb = __fadd_rn(sb, __fmul_rn(gz, __fsub_rn(to_float(xe), mean)));
+    return gz;
   } else {
     const float x = to_float(xe);
     sa = __fadd_rn(sa, x);
     sb = __fadd_rn(sb, __fmul_rn(x, x));
+    return 0.f;
   }
 }
 
@@ -272,7 +343,7 @@ __device__ __forceinline__ void column_sums(int ncols, int n, Get get, double* s
 // Channels-last: grid (grid_x, tiles); block `groups` * `lanes` threads, a
 // thread a group of V channels and every lanes-th row of the block's chunk.
 // NCHW: grid (grid_x, C); a block a chunk of one channel's elements.
-template <typename T, int kAct, bool kBwd, int V, bool kNCHW>
+template <typename T, int kAct, bool kBwd, int V, bool kNCHW, bool kGz>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     bn_act_reduce_kernel(const BnActArgs a) {
   __shared__ float sh_a[kThreads * (16 / sizeof(T))];
@@ -320,11 +391,14 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         }
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          if (r + int64_t(u) * R < end) {
+          const int64_t ru = r + int64_t(u) * R;
+          if (ru < end) {
+            float gz[V];
 #pragma unroll
             for (int j = 0; j < V; ++j)
-              accumulate<T, kAct, kBwd>(xv[u][j], kBwd ? gv[u][j] : xv[u][j], mean[j], mul[j],
-                                        bias[j], pa[j], pb[j]);
+              gz[j] = accumulate<T, kAct, kBwd>(xv[u][j], kBwd ? gv[u][j] : xv[u][j], mean[j],
+                                                mul[j], bias[j], pa[j], pb[j]);
+            if constexpr (kGz) store<T, V>(static_cast<T*>(a.gz) + ru * C + c0, gz);
           }
         }
       }
@@ -448,7 +522,7 @@ __global__ void __launch_bounds__(kThreads) bn_act_finish_kernel(const BnActArgs
 // serve trips * kUnroll rows; the wrapper takes more trips only where the
 // map leaves enough blocks). NCHW: kUnroll * kThreads vectors a block, the
 // channel read per vector.
-template <typename T, int kAct, bool kBwd, int V, bool kNCHW>
+template <typename T, int kAct, bool kBwd, int V, bool kNCHW, bool kGz>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     bn_act_apply_kernel(const BnActArgs a) {
   const int C = a.C;
@@ -479,7 +553,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         const int64_t r = r0 + int64_t(u) * R;
         if (r < a.outer) {
           load<T, V>(x + r * C + c0, xv[u]);
-          if constexpr (kBwd) load<T, V>(g + r * C + c0, gv[u]);
+          if constexpr (kBwd)
+            load<T, V>((kGz ? static_cast<const T*>(a.gz) : g) + r * C + c0, gv[u]);
         }
       }
 #pragma unroll
@@ -490,7 +565,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 #pragma unroll
           for (int j = 0; j < V; ++j) {
             if constexpr (kBwd) {
-              const float gz = grad_z<T, kAct>(xv[u][j], gv[u][j], mean[j], mul[j], bias[j]);
+              const float gz = kGz ? to_float(gv[u][j])  // the reduce's gz
+                                   : grad_z<T, kAct>(xv[u][j], gv[u][j], mean[j], mul[j], bias[j]);
               out[j] = __fadd_rn(__fadd_rn(__fmul_rn(gz, mul[j]), c1[j]),
                                  __fmul_rn(c2[j], to_float(xv[u][j])));
             } else {
@@ -537,14 +613,254 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
-template <typename T, int kAct, bool kBwd, int V, bool kNCHW>
+// ---------------------------------------------------------------------------
+// The resident kernel: a map's forward or backward in one launch.
+
+// 16-byte copies from device memory to shared memory that bypass the
+// registers (cp.async, cached in L2 only); a thread's copies form groups,
+// and it waits for its own.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most n of this thread's groups are pending (n above 7 waits
+// for all but 7).
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
+}
+
+__device__ __forceinline__ uint8_t* resident_smem() {
+  extern __shared__ __align__(16) uint8_t bn_act_resident_smem[];
+  return bn_act_resident_smem;
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void load_shared(const T* p, T (&v)[V]) {
+  *reinterpret_cast<uint4*>(v) = *reinterpret_cast<const uint4*>(p);
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_shared(T* p, const T (&v)[V]) {
+  *reinterpret_cast<uint4*>(p) = *reinterpret_cast<const uint4*>(v);
+}
+
+// The map's forward (kBwd false: sums, vectors, running statistics and y)
+// or backward (sums, vectors and dx) in one launch, for a channels-last map
+// whose channel tile, over every row, fits the shared memory of a cluster.
+// Grid (cluster size, tiles) in clusters of (cluster size, 1, 1): a cluster
+// a tile of a.groups * V channels (a.groups 1 or 2: 16 or 32 bytes of a
+// row), each of its CTAs an even chunk of the rows, a thread a group of V
+// channels and every lanes-th row of the chunk. The CTA copies its chunk's
+// slab (x, and g backward) into shared memory once, by cp.async, in groups
+// of kResStage rows a thread, and sums each group as it lands (f32 a
+// thread, as the two-pass reduce; backward, gz, computed once, replaces g
+// in the slab); the threads' sums in f64 over the warp by
+// a butterfly, then over the warps in order, into the CTA's partial in its
+// shared memory; a cluster barrier; every CTA then adds the cluster's
+// partials through distributed shared memory in rank order, so each holds
+// the same bits, and computes the tile's vectors with the finish's own
+// arithmetic (rank 0 writes them, the sums and the running statistics); a
+// second cluster barrier (no CTA leaves while another reads its partial);
+// then y or dx from the slab in shared memory, 16-byte stores. The map is
+// read from device memory once and nothing goes through global scratch.
+template <typename T, int kAct, bool kBwd>
+__global__ void __launch_bounds__(kResThreads, 1) bn_act_resident_kernel(const BnActArgs a) {
+  constexpr int V = 16 / sizeof(T);
+  uint8_t* smem = resident_smem();
+  double* w_a = reinterpret_cast<double*>(smem);  // [warp][channel of the tile]
+  double* w_b = w_a + kResWarps * kResMaxTile;
+  double* c_a = w_b + kResWarps * kResMaxTile;     // the CTA's partials, read by the cluster
+  double* c_b = c_a + kResMaxTile;
+  float* v_a = reinterpret_cast<float*>(c_b + kResMaxTile);  // mean, or c1
+  float* v_b = v_a + kResMaxTile;                            // mul, or c2
+  T* xs = reinterpret_cast<T*>(smem + kResScratch);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int ranks = static_cast<int>(cluster.num_blocks());
+  const int C = a.C, gt = a.groups, tc = gt * V;
+  const int grp = threadIdx.x % gt, lane = threadIdx.x / gt, lanes = kResThreads / gt;
+  const int cbeg = blockIdx.y * tc, c0 = cbeg + grp * V;
+  const int64_t chunk = (a.outer + ranks - 1) / ranks;
+  const int64_t r0 = min64(a.outer, rank * chunk);
+  const int64_t nrow = min64(a.outer, r0 + chunk) - r0;
+  T* xs_me = xs + grp * V;
+  T* gs_me = xs + chunk * tc + grp * V;
+  // this thread's rows of the chunk: lane, lane + lanes, ...
+  const int mine = (c0 < C && lane < nrow) ? static_cast<int>((nrow - 1 - lane) / lanes) + 1 : 0;
+
+  {
+    const T* x = static_cast<const T*>(a.x) + r0 * C + c0;
+    const T* g = static_cast<const T*>(a.g) + r0 * C + c0;
+    for (int i = 0; i < mine; ++i) {
+      const int64_t r = lane + int64_t(i) * lanes;
+      cp_async16(xs_me + r * tc, x + r * C);
+      if constexpr (kBwd) cp_async16(gs_me + r * tc, g + r * C);
+      if (i % kResStage == kResStage - 1) cp_async_commit();
+    }
+    cp_async_commit();
+  }
+  const int pending = mine / kResStage;  // groups after the first
+
+  float mean[V], mul[V], bias[V], pa[V], pb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const bool held = kBwd && c0 < C;
+    mean[j] = held ? a.fvec[c0 + j] : 0.f;
+    mul[j] = held ? a.fvec[3 * C + c0 + j] : 0.f;
+    bias[j] = held ? a.bias[c0 + j] : 0.f;
+    pa[j] = pb[j] = 0.f;
+  }
+  for (int i = 0; i < mine; ++i) {
+    if (i % kResStage == 0) cp_async_wait(pending - i / kResStage);
+    const int64_t r = lane + int64_t(i) * lanes;
+    alignas(16) T xv[V];
+    load_shared<T, V>(xs_me + r * tc, xv);
+    if constexpr (kBwd) {
+      // gz, a value of T, takes g's place in the slab: the apply reads it
+      // back instead of computing the activation's VJP a second time
+      alignas(16) T gv[V];
+      load_shared<T, V>(gs_me + r * tc, gv);
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        const float gz = grad_z<T, kAct>(xv[j], gv[j], mean[j], mul[j], bias[j]);
+        pa[j] = __fadd_rn(pa[j], gz);
+        pb[j] = __fadd_rn(pb[j], __fmul_rn(gz, __fsub_rn(to_float(xv[j]), mean[j])));
+        gv[j] = from_float<T>(gz);
+      }
+      store_shared<T, V>(gs_me + r * tc, gv);
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j)
+        accumulate<T, kAct, false>(xv[j], xv[j], 0.f, 0.f, 0.f, pa[j], pb[j]);
+    }
+  }
+
+  // the CTA's partial of each channel of the tile
+  double da[V], db[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    da[j] = pa[j];
+    db[j] = pb[j];
+  }
+  for (int off = gt; off < 32; off <<= 1) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      da[j] += __shfl_xor_sync(0xffffffffu, da[j], off);
+      db[j] += __shfl_xor_sync(0xffffffffu, db[j], off);
+    }
+  }
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 < gt) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      w_a[warp * tc + grp * V + j] = da[j];
+      w_b[warp * tc + grp * V + j] = db[j];
+    }
+  }
+  __syncthreads();
+  const int t = threadIdx.x;
+  if (t < tc) {
+    double sa = 0.0, sb = 0.0;
+    for (int w = 0; w < kResWarps; ++w) {
+      sa += w_a[w * tc + t];
+      sb += w_b[w * tc + t];
+    }
+    c_a[t] = sa;
+    c_b[t] = sb;
+  }
+  cluster.sync();
+
+  // the tile's sums over the cluster, and its vectors
+  const int c = cbeg + t;
+  if (t < tc && c < C) {
+    double sa = 0.0, sb = 0.0;
+    for (int q = 0; q < ranks; ++q) {
+      sa += cluster.map_shared_rank(c_a, q)[t];
+      sb += cluster.map_shared_rank(c_b, q)[t];
+    }
+    const float s1 = __double2float_rn(sa), s2 = __double2float_rn(sb);
+    if constexpr (kBwd) {
+      const BwdVec v = backward_vectors(a, c, s1, s2, s1, s2, *a.count);
+      v_a[t] = v.c1;
+      v_b[t] = v.c2;
+      if (rank == 0) write_backward(a, c, v);
+    } else {
+      const FwdVec v = forward_vectors(a, c, s1, s2, static_cast<float>(a.outer));
+      v_a[t] = v.mean;
+      v_b[t] = v.mul;
+      if (rank == 0) write_forward(a, c, v);
+    }
+    if (rank == 0) {
+      a.sums[c] = s1;
+      a.sums[C + c] = s2;
+    }
+  }
+  if (!kBwd && rank == 0 && blockIdx.y == 0 && t == 0)
+    a.sums[2 * C] = static_cast<float>(a.outer);
+  cluster.sync();
+
+  if (c0 >= C) return;
+  // the tile's vectors: mean and mul forward (with the bias), c1 and c2
+  // backward (mul as the reduce read it)
+  float va[V], vb[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    va[j] = v_a[grp * V + j];
+    vb[j] = v_b[grp * V + j];
+    if constexpr (!kBwd) bias[j] = a.bias[c0 + j];
+  }
+  T* y = static_cast<T*>(a.y) + r0 * C + c0;
+  for (int i = 0; i < mine; ++i) {
+    const int64_t r = lane + int64_t(i) * lanes;
+    alignas(16) T xv[V];
+    alignas(16) T gv[V];
+    load_shared<T, V>(xs_me + r * tc, xv);
+    if constexpr (kBwd) load_shared<T, V>(gs_me + r * tc, gv);
+    float out[V];
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      if constexpr (kBwd) {
+        const float gz = to_float(gv[j]);  // the reduce's gz
+        out[j] = __fadd_rn(__fadd_rn(__fmul_rn(gz, mul[j]), va[j]),
+                           __fmul_rn(vb[j], to_float(xv[j])));
+      } else {
+        out[j] = forward_elem<T, kAct>(xv[j], va[j], vb[j], bias[j]);
+      }
+    }
+    store<T, V>(y + r * C, out);
+  }
+}
+
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// Launchers (host code).
+
+namespace {
+
+template <typename T, int kAct, bool kBwd, int V, bool kNCHW, bool kGz>
 int launch(const BnActArgs& a, bool reduce, cudaStream_t s) {
   const dim3 grid(static_cast<unsigned>(a.grid_x), static_cast<unsigned>(a.tiles));
   const int block = kNCHW ? kThreads : a.groups * a.lanes;
   if (reduce) {
-    bn_act_reduce_kernel<T, kAct, kBwd, V, kNCHW><<<grid, block, 0, s>>>(a);
+    bn_act_reduce_kernel<T, kAct, kBwd, V, kNCHW, kGz><<<grid, block, 0, s>>>(a);
   } else {
-    bn_act_apply_kernel<T, kAct, kBwd, V, kNCHW><<<grid, block, 0, s>>>(a);
+    bn_act_apply_kernel<T, kAct, kBwd, V, kNCHW, kGz><<<grid, block, 0, s>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -553,11 +869,15 @@ template <typename T, int kAct, bool kBwd>
 int dispatch_layout(const BnActArgs& a, bool reduce, cudaStream_t s) {
   constexpr int kV = 16 / sizeof(T);
   if (a.nchw) {
-    return a.vec ? launch<T, kAct, kBwd, kV, true>(a, reduce, s)
-                 : launch<T, kAct, kBwd, 1, true>(a, reduce, s);
+    return a.vec ? launch<T, kAct, kBwd, kV, true, false>(a, reduce, s)
+                 : launch<T, kAct, kBwd, 1, true, false>(a, reduce, s);
   }
-  return a.vec ? launch<T, kAct, kBwd, kV, false>(a, reduce, s)
-               : launch<T, kAct, kBwd, 1, false>(a, reduce, s);
+  if (kBwd && a.gz != nullptr) {
+    return a.vec ? launch<T, kAct, kBwd, kV, false, kBwd>(a, reduce, s)
+                 : launch<T, kAct, kBwd, 1, false, kBwd>(a, reduce, s);
+  }
+  return a.vec ? launch<T, kAct, kBwd, kV, false, false>(a, reduce, s)
+               : launch<T, kAct, kBwd, 1, false, false>(a, reduce, s);
 }
 
 template <typename T>
@@ -574,15 +894,109 @@ int dispatch(const BnActArgs* a, bool reduce, void* stream) {
   if (a == nullptr || (a->dtype != 0 && a->dtype != 1) || (a->act != kIdentity &&
                                                            a->act != kHardSwish))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a->gz != nullptr && (a->nchw || !a->backward))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (a->outer <= 0 || a->C <= 0 || a->inner <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return a->dtype == 0 ? dispatch_type<float>(*a, reduce, s)
                        : dispatch_type<__nv_bfloat16>(*a, reduce, s);
 }
 
+// The dynamic shared memory of a resident launch: the scratch, then the
+// slab (x, and g backward) of a CTA's chunk of rows.
+int64_t resident_smem_bytes(const BnActArgs& a, int elem) {
+  const int64_t chunk = (a.outer + a.grid_x - 1) / a.grid_x;
+  return kResScratch + chunk * a.groups * 16 * (a.backward ? 2 : 1);
+}
+
+// Launch the resident kernel, or (clusters non-null) ask how many of its
+// clusters the card can hold at once with this plan's shared memory.
+template <typename T, int kAct, bool kBwd>
+int launch_resident(const BnActArgs& a, cudaStream_t s, int* clusters) {
+  auto kernel = bn_act_resident_kernel<T, kAct, kBwd>;
+  static int ready[64] = {};  // the kernel's attributes set on this device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  static int optin[64] = {};
+  if (!ready[dev]) {
+    e = cudaDeviceGetAttribute(optin + dev, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin[dev]);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    ready[dev] = 1;
+  }
+  const int64_t smem = resident_smem_bytes(a, sizeof(T));
+  if (smem > optin[dev]) return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(a.grid_x), static_cast<unsigned>(a.tiles), 1);
+  cfg.blockDim = dim3(kResThreads, 1, 1);
+  cfg.dynamicSmemBytes = static_cast<size_t>(smem);
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = static_cast<unsigned>(a.grid_x);
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (clusters != nullptr) {
+    // a query the card refuses (a cluster too large) answers 0 clusters;
+    // cudaGetLastError() takes its error away from the next launch's check
+    e = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+    cudaGetLastError();
+    if (e != cudaSuccess) *clusters = 0;
+    return 0;
+  }
+  e = cudaLaunchKernelEx(&cfg, kernel, a);
+  return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
+}
+
+template <typename T>
+int resident_type(const BnActArgs& a, cudaStream_t s, int* clusters) {
+  if (!a.backward) {
+    return a.act == kIdentity ? launch_resident<T, kIdentity, false>(a, s, clusters)
+                              : launch_resident<T, kHardSwish, false>(a, s, clusters);
+  }
+  return a.act == kIdentity ? launch_resident<T, kIdentity, true>(a, s, clusters)
+                            : launch_resident<T, kHardSwish, true>(a, s, clusters);
+}
+
+int resident(const BnActArgs* a, void* stream, int* clusters) {
+  if (a == nullptr || (a->dtype != 0 && a->dtype != 1) ||
+      (a->act != kIdentity && a->act != kHardSwish) || a->nchw || !a->vec ||
+      (a->groups != 1 && a->groups != 2) || a->grid_x < 1 || a->grid_x > 16 || a->tiles < 1 ||
+      a->outer <= 0 || a->inner != 1 || a->C <= 0 ||
+      int64_t(a->tiles) * a->groups * (a->dtype == 0 ? 4 : 8) < a->C)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return a->dtype == 0 ? resident_type<float>(*a, s, clusters)
+                       : resident_type<__nv_bfloat16>(*a, s, clusters);
+}
+
 }  // namespace
 
 extern "C" {
+
+// The resident kernel (one launch a map and direction); the wrapper plans
+// a.groups (channel groups a tile), a.grid_x (CTAs a cluster) and a.tiles.
+int cocodet_bn_act_resident(const BnActArgs* a, void* stream) {
+  return resident(a, stream, nullptr);
+}
+
+// How many clusters of plan `a` the card holds at once (0: it cannot
+// launch); returns a CUDA error where the arguments are refused.
+int cocodet_bn_act_resident_clusters(const BnActArgs* a, int* clusters) {
+  *clusters = 0;
+  return resident(a, nullptr, clusters);
+}
+
+// The bytes of the resident kernel's shared memory before its slab: the
+// wrapper plans slabs against the card's shared memory less these.
+int cocodet_bn_act_resident_scratch() { return kResScratch; }
 
 // Each returns cudaGetLastError() after its launch (0 = cudaSuccess). The
 // wrapper (ops/cuda/bn_act.py) checks devices, types and layouts and plans

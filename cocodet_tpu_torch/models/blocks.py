@@ -302,41 +302,43 @@ class ChannelMask(nn.Module):
 
 class _BatchNormAct(torch.autograd.Function):
     """Train-mode BN and the activation after it through
-    ``ops/cuda/bn_act.py``: the CUDA kernels on the card, the plain stages
-    on the CPU. Two passes each way (a per-channel reduce, then an apply);
-    saves the map ``x`` in its own dtype, the per-channel vectors and the
-    sums' count, no copy of the map in f32.
+    ``ops/cuda/bn_act.py``: on the card one launch each way (the resident
+    kernel) where the map's channel tile fits a cluster's shared memory,
+    else two passes (a per-channel reduce, then an apply); the plain stages
+    on the CPU. Saves the map ``x`` in its own dtype, the per-channel
+    vectors and the sums' count, no copy of the map in f32.
 
     On a ``mesh`` of more than one rank the statistics are the global
-    batch's: the forward sums ``[sum x, sum x^2, count]`` over the world
-    between its two passes, and the backward ``[sum gz, sum gz (x -
-    mean)]``, one all-reduce each way. The scale and bias gradients stay
+    batch's: the two passes, with ``[sum x, sum x^2, count]`` summed over
+    the world between them forward, and ``[sum gz, sum gz (x - mean)]``
+    backward, one all-reduce each way. The scale and bias gradients stay
     this rank's (the step sums every gradient over ranks itself)."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, bn, act, mesh):
         args = (weight, bn.running_mean, bn.running_var, bn.eps, bn.momentum)
         if mesh is None:
-            sums, fvec = bnk.reduce(x, *args)
+            y, sums, fvec = bnk.forward(x, weight, bias, *args[1:], act)
         else:
             sums, _ = bnk.reduce(x, finish=False)
             all_reduce_(sums, mesh.world)
             fvec = bnk.finish(sums, *args)
+            y = bnk.apply(x, fvec, bias, act)
         ctx.save_for_backward(x, weight, bias, fvec, sums)
         ctx.act, ctx.mesh = act, mesh
-        return bnk.apply(x, fvec, bias, ctx.act)
+        return y
 
     @staticmethod
     def backward(ctx, g):
         x, weight, bias, fvec, sums = ctx.saved_tensors
         count = sums[-1:]
         if ctx.mesh is None:
-            _, bvec = bnk.grad_reduce(x, g, fvec, bias, weight, count, ctx.act)
+            dx, _, bvec = bnk.backward(x, g, fvec, bias, weight, count, ctx.act)
         else:
             local, _ = bnk.grad_reduce(x, g, fvec, bias, weight, count, ctx.act, finish=False)
             total = all_reduce_(local.clone(), ctx.mesh.world)
             bvec = bnk.grad_finish(total, local, fvec, weight, count)
-        dx = bnk.grad_apply(x, g, fvec, bias, bvec, ctx.act)
+            dx = bnk.grad_apply(x, g, fvec, bias, bvec, ctx.act)
         return dx, bvec[2], bvec[3], None, None, None
 
 

@@ -1,5 +1,7 @@
-"""Train-mode BatchNorm fused with the activation after it: two CUDA kernels
-each way (a per-channel reduction, then one elementwise pass).
+"""Train-mode BatchNorm fused with the activation after it: one CUDA kernel
+each way where a map's channel tile fits a thread-block cluster's shared
+memory (the resident kernel), else two (a per-channel reduction, then one
+elementwise pass).
 
 The kernels are ``cocodet_tpu_torch/csrc/bn_act.cu``, whose header gives the
 arithmetic in full: flax ``nn.BatchNorm(use_running_average=False,
@@ -20,7 +22,13 @@ the kernel's order of rounding:
 - ``grad_reduce``: ``gsums = [sum gz, sum gz (x - mean)]`` with ``gz`` the
   activation's VJP at the recomputed BN output, and from them ``bvec = [c1,
   c2, dscale, dbias]``; ``grad_finish`` likewise after a sum over ranks;
-- ``grad_apply``: ``dx = T((gz * mul + c1) + c2 * x)``.
+- ``grad_apply``: ``dx = T((gz * mul + c1) + c2 * x)``, ``gz`` recomputed
+  or read back where ``grad_reduce`` wrote it (``backward`` keeps it for a
+  channels-last map);
+- ``resident_forward`` and ``resident_backward``: a map's reduce and apply
+  in one launch (``bn_act_resident_kernel``), the map read once; ``forward``
+  and ``backward`` take them where ``resident_plan`` gives the map a plan,
+  the two stages otherwise.
 
 Given the same sums, the vectors and the running statistics of a kernel equal
 the plain version's bit for bit (``inv`` is computed in f64 from the f32
@@ -57,7 +65,7 @@ _APPLY_TILE = 256         # channels a tile of the apply
 _MAX_TRIPS = 8            # the apply's most trips of a thread (each the kernel's unroll rows)
 
 _POINTERS = ("x", "g", "y", "fvec", "bias", "bvec", "partials", "counters", "sums", "local",
-             "weight", "running_mean", "running_var", "count", "vec_out")
+             "weight", "running_mean", "running_var", "count", "vec_out", "gz")
 _INTS = ("C", "dtype", "act", "backward", "vec", "nchw", "groups", "lanes", "grid_x", "tiles",
          "trips", "finish")
 
@@ -140,6 +148,13 @@ def apply_plain(x: torch.Tensor, fvec: torch.Tensor, bias: torch.Tensor,
     return hs.hard_swish_plain(z) if act == "hard_swish" else z
 
 
+def grad_z(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor, bias: torch.Tensor,
+           act: str = "hard_swish") -> torch.Tensor:
+    """``gz``, the cotangent of the BN output, in x's dtype: what
+    ``grad_reduce(..., gz=)`` writes."""
+    return _grad_z(x, g, fvec, bias, act).to(x.dtype)
+
+
 def _grad_z(x, g, fvec, bias, act) -> torch.Tensor:
     """The cotangent of the BN output, ``act_vjp(z, g)`` in the map's dtype,
     as the statistics' dtype."""
@@ -186,10 +201,12 @@ def grad_reduce_plain(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor,
 
 def grad_apply_plain(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor,
                      bias: torch.Tensor, bvec: torch.Tensor,
-                     act: str = "hard_swish") -> torch.Tensor:
-    """``dx = T((gz * mul + c1) + c2 * x)``."""
+                     act: str = "hard_swish", gz: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """``dx = T((gz * mul + c1) + c2 * x)``; ``gz`` (``grad_z``'s values in
+    x's dtype) in place of the activation's VJP of ``g`` where given."""
     _check_act(act)
-    gz = _grad_z(x, g, fvec, bias, act)
+    gz = _grad_z(x, g, fvec, bias, act) if gz is None else gz.to(_acc(x))
     dx = (gz * _chan(fvec[3]) + _chan(bvec[0])) + _chan(bvec[1]) * x.to(_acc(x))
     return dx.to(x.dtype)
 
@@ -202,13 +219,18 @@ def grad_apply_plain(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor,
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load(_SOURCE)
-    for name in ("cocodet_bn_act_reduce", "cocodet_bn_act_apply", "cocodet_bn_act_finish"):
+    for name in ("cocodet_bn_act_reduce", "cocodet_bn_act_apply", "cocodet_bn_act_finish",
+                 "cocodet_bn_act_resident"):
         fn = getattr(lib, name)
         fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
         fn.restype = ctypes.c_int
-    for name in ("cocodet_bn_act_unroll", "cocodet_bn_act_min_blocks"):
+    for name in ("cocodet_bn_act_unroll", "cocodet_bn_act_min_blocks",
+                 "cocodet_bn_act_resident_scratch"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_int
+    lib.cocodet_bn_act_resident_clusters.argtypes = [ctypes.POINTER(_Args),
+                                                     ctypes.POINTER(ctypes.c_int)]
+    lib.cocodet_bn_act_resident_clusters.restype = ctypes.c_int
     return lib
 
 
@@ -297,6 +319,13 @@ def _plan(x: torch.Tensor, maps, backward: bool, act: str, what: str) -> _Args:
                        math.ceil(blocks / c))
     else:
         a.groups, a.lanes, a.tiles = _cl_tiles(c, v, _REDUCE_TILE)
+        if vec and a.groups > 1 and a.groups % 2:
+            # an even count of 16-byte groups: whole 32-byte sectors of a
+            # row a tile, so the gz a backward reduce may write is no
+            # partial sector that two tiles' blocks write apart
+            a.groups -= 1
+            a.tiles = math.ceil(c // v / a.groups)
+            a.lanes = _THREADS // a.groups
         a.grid_x = min(math.ceil(outer / (a.lanes * _ROWS_A_THREAD)),
                        math.ceil(blocks / a.tiles))
     a.grid_x = max(1, a.grid_x)
@@ -416,17 +445,25 @@ def apply(x: torch.Tensor, fvec: torch.Tensor, bias: torch.Tensor,
 
 def grad_reduce(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor, bias: torch.Tensor,
                 weight: torch.Tensor, count: torch.Tensor, act: str = "hard_swish",
-                finish: bool = True) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                finish: bool = True, gz: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The backward's reduce stage: ``(gsums, bvec)``; with ``finish=False``
     ``(gsums, None)`` (then an all-reduce and ``grad_finish``). ``count`` is
-    the forward's, ``sums[2C:]``."""
+    the forward's, ``sums[2C:]``. ``gz``, a tensor like a channels-last
+    ``x``, receives ``grad_z`` (for ``grad_apply``)."""
+    if gz is not None and (gz.shape != x.shape or gz.dtype != x.dtype
+                           or gz.device != x.device or gz.stride() != x.stride()
+                           or not x.is_contiguous(memory_format=torch.channels_last)):
+        raise ValueError("bn_act grad_reduce: gz must be laid out as a channels-last x")
     if x.device.type == "cpu":
+        if gz is not None:
+            gz.copy_(grad_z(x, g, fvec, bias, act))
         gsums = grad_stats_plain(x, g, fvec, bias, act)
         if not finish:
             return gsums, None
         return gsums, grad_finish_plain(gsums, fvec, weight, count)
     g = _cotangent(x, g)
-    a = _plan(x, (x, g), True, act, "bn_act grad_reduce")
+    a = _plan(x, (x, g) if gz is None else (x, g, gz), True, act, "bn_act grad_reduce")
     c = x.shape[1]
     for t, shape, name in ((fvec, (4, c), "fvec"), (bias, (c,), "bias"),
                            (weight, (c,), "weight"), (count, (1,), "count")):
@@ -435,6 +472,8 @@ def grad_reduce(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor, bias: torc
     partials = torch.empty(a.grid_x * 2 * c, dtype=torch.float32, device=x.device)
     a.x, a.g, a.fvec, a.bias = x.data_ptr(), g.data_ptr(), fvec.data_ptr(), bias.data_ptr()
     a.partials, a.sums = partials.data_ptr(), gsums.data_ptr()
+    if gz is not None:
+        a.gz = gz.data_ptr()
     a.counters = _ticket_counters(x.device, a.tiles).data_ptr()
     bvec = None
     if finish:
@@ -468,11 +507,13 @@ def grad_finish(gsums: torch.Tensor, local: torch.Tensor, fvec: torch.Tensor,
 
 
 def grad_apply(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor, bias: torch.Tensor,
-               bvec: torch.Tensor, act: str = "hard_swish") -> torch.Tensor:
-    """``dx = T((gz * mul + c1) + c2 * x)``, in ``x``'s layout."""
+               bvec: torch.Tensor, act: str = "hard_swish",
+               gz: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``dx = T((gz * mul + c1) + c2 * x)``, in ``x``'s layout; ``gz`` as
+    ``grad_reduce(..., gz=)`` wrote it, in place of ``g``, where given."""
     if x.device.type == "cpu":
-        return grad_apply_plain(x, g, fvec, bias, bvec, act)
-    g = _cotangent(x, g)
+        return grad_apply_plain(x, g, fvec, bias, bvec, act, gz)
+    g = _cotangent(x, g if gz is None else gz)
     dx = torch.empty_like(x)
     a = _plan(x, (x, g, dx), True, act, "bn_act grad_apply")
     c = x.shape[1]
@@ -482,12 +523,197 @@ def grad_apply(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor, bias: torch
     _apply_grid(a, x.device)
     a.x, a.g, a.y = x.data_ptr(), g.data_ptr(), dx.data_ptr()
     a.fvec, a.bias, a.bvec = fvec.data_ptr(), bias.data_ptr(), bvec.data_ptr()
+    if gz is not None:
+        if g is not gz or a.nchw:
+            raise ValueError("bn_act grad_apply: gz must be laid out as a channels-last x")
+        a.gz = gz.data_ptr()
     _call("cocodet_bn_act_apply", a, x.device)
     grad_apply.launches += 1
     return dx
 
 
-WRAPPERS = (reduce, finish, apply, grad_reduce, grad_finish, grad_apply)
+def resident_plan(rows: int, c: int, elem: int, backward: bool, *, sms: int, slab_bytes: int,
+                  max_cluster: int) -> Optional[Tuple[int, int]]:
+    """``(groups, cluster)`` of the resident kernel for a channels-last map
+    of ``rows`` rows (N*H*W) and ``c`` channels of ``elem`` bytes, or None:
+    the map takes the two passes. A tile is ``groups`` 16-byte groups of
+    channels (2: 32 bytes of a row, a whole sector; else 1), a cluster
+    ``cluster`` CTAs (at most ``max_cluster``), each an even chunk of the
+    rows whose slab (x, and g backward) must fit ``slab_bytes``; an SM
+    holds one such CTA. The map takes the resident kernel only where all
+    its CTAs run at once (at most ``sms``; a second wave would wait for the
+    first's loads and arithmetic in turn) and, forward, where a CTA's slab
+    is at most half of ``slab_bytes``: on a 640 px step the two passes were
+    faster on every other map (PERF.md §6; the forward's second pass reads
+    a map of this size again from L2). The widest tile, and the fewest CTAs
+    a cluster that still give half the SMs a CTA (fewer, larger CTAs were
+    faster on the small maps). ``c`` must hold whole 16-byte groups."""
+    v = 16 // elem
+    if c % v:
+        return None
+    tensors = 2 if backward else 1
+    limit = slab_bytes if backward else slab_bytes // 2
+    for gt in (2, 1):
+        tiles = math.ceil(c / (gt * v))
+        fits = [cs for cs in (1, 2, 4, 8, 16)
+                if cs <= max_cluster and math.ceil(rows / cs) * gt * 16 * tensors <= limit
+                and tiles * cs <= sms]
+        if fits:
+            half = [cs for cs in fits if 2 * tiles * cs >= sms]
+            return gt, half[0] if half else fits[-1]
+    return None
+
+
+@functools.cache
+def _resident_limits(device: torch.device) -> Tuple[int, int, int]:
+    """(slab bytes a CTA, the largest cluster the card launches with such a
+    slab, SMs) of ``device``: its shared memory a block less the kernel's
+    scratch, and its SMs."""
+    lib = _lib()
+    props = torch.cuda.get_device_properties(device)
+    slab = props.shared_memory_per_block_optin - lib.cocodet_bn_act_resident_scratch()
+    for cs in (16, 8, 4, 2, 1):
+        # bf16 backward, 32-byte tiles: a row takes 64 bytes of the slab
+        a = _Args(outer=cs * (slab // 64), inner=1, C=16, dtype=1, act=1, backward=1, vec=1,
+                  groups=2, grid_x=cs, tiles=1)
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.cocodet_bn_act_resident_clusters(ctypes.byref(a), ctypes.byref(n))
+        if rc != 0:
+            raise RuntimeError(f"cocodet_bn_act_resident_clusters: CUDA error {rc}")
+        if n.value >= 1:
+            return slab, cs, props.multi_processor_count
+    raise RuntimeError("no cluster of bn_act_resident_kernel fits the card")
+
+
+def shape_plan(shape, dtype: torch.dtype, backward: bool, device: torch.device
+               ) -> Optional[Tuple[int, int]]:
+    """``resident_plan`` of a channels-last (N, C, H, W) map of ``dtype``
+    with ``device``'s own numbers (its SMs, shared memory and largest
+    cluster)."""
+    if dtype not in _DTYPES:
+        return None
+    slab, max_cluster, sms = _resident_limits(device)
+    n, c, h, w = shape
+    return resident_plan(n * h * w, c, dtype.itemsize, backward, sms=sms, slab_bytes=slab,
+                         max_cluster=max_cluster)
+
+
+def plan_for(x: torch.Tensor, backward: bool, maps=()) -> Optional[Tuple[int, int]]:
+    """The resident plan of map ``x`` on the card (``shape_plan``), or None:
+    the two passes. Only a channels-last f32 or bf16 map whose pointers
+    (``x`` and ``maps``) are 16-byte aligned has one."""
+    if x.device.type != "cuda" or x.dim() != 4 or x.numel() == 0 \
+            or not x.is_contiguous(memory_format=torch.channels_last) \
+            or any(m.data_ptr() % 16 for m in (x, *maps)):
+        return None
+    return shape_plan(tuple(x.shape), x.dtype, backward, x.device)
+
+
+def _resident_args(x: torch.Tensor, maps, backward: bool, act: str, plan, what: str) -> _Args:
+    _check_act(act)
+    nchw, outer, _ = _check_map(x, what)
+    plan = plan_for(x, backward, maps) if plan is None else plan
+    c, v = x.shape[1], 16 // x.element_size()
+    if nchw or plan is None or c % v or any(m.data_ptr() % 16 for m in maps):
+        raise ValueError(f"{what}: the map {tuple(x.shape)} {x.dtype} has no resident plan "
+                         f"(channels-last, 16-byte aligned, C a multiple of {v}, a channel "
+                         f"tile within a cluster's shared memory): it takes the two passes")
+    groups, cluster = plan
+    return _Args(outer=outer, inner=1, C=c, dtype=_DTYPES[x.dtype], act=ACTS[act],
+                 backward=int(backward), vec=1, nchw=0, groups=groups, grid_x=cluster,
+                 tiles=math.ceil(c / (groups * v)))
+
+
+def resident_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor, eps: float = 1e-3,
+                     momentum: float = 0.03, act: str = "hard_swish", plan=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward in one launch: ``(y, sums, fvec)``, the running
+    statistics updated in place; ``plan`` as ``plan_for`` gives it (by
+    default ``plan_for(x)``). Raises for a map without one."""
+    if x.device.type == "cpu":
+        sums, fvec = reduce_plain(x, weight, running_mean, running_var, eps, momentum)
+        return apply_plain(x, fvec, bias, act), sums, fvec
+    y = torch.empty_like(x)
+    a = _resident_args(x, (x, y), False, act, plan, "bn_act resident_forward")
+    c = x.shape[1]
+    _forward_finish_args(a, weight, running_mean, running_var, eps, momentum, x.device)
+    _check_vec(bias, (c,), x.device, "bn_act bias")
+    sums = torch.empty(2 * c + 1, dtype=torch.float32, device=x.device)
+    fvec = torch.empty((4, c), dtype=torch.float32, device=x.device)
+    a.x, a.y, a.bias, a.sums, a.vec_out = (x.data_ptr(), y.data_ptr(), bias.data_ptr(),
+                                           sums.data_ptr(), fvec.data_ptr())
+    _call("cocodet_bn_act_resident", a, x.device)
+    resident_forward.launches += 1
+    return y, sums, fvec
+
+
+def resident_backward(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor, bias: torch.Tensor,
+                      weight: torch.Tensor, count: torch.Tensor, act: str = "hard_swish",
+                      plan=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward in one launch: ``(dx, gsums, bvec)``; ``plan`` as
+    ``plan_for(x, True)`` gives it. Raises for a map without one."""
+    if x.device.type == "cpu":
+        gsums, bvec = grad_reduce_plain(x, g, fvec, bias, weight, count, act)
+        return grad_apply_plain(x, g, fvec, bias, bvec, act), gsums, bvec
+    g = _cotangent(x, g)
+    dx = torch.empty_like(x)
+    a = _resident_args(x, (x, g, dx), True, act, plan, "bn_act resident_backward")
+    c = x.shape[1]
+    for t, shape, name in ((fvec, (4, c), "fvec"), (bias, (c,), "bias"),
+                           (weight, (c,), "weight"), (count, (1,), "count")):
+        _check_vec(t, shape, x.device, f"bn_act {name}")
+    gsums = torch.empty(2 * c, dtype=torch.float32, device=x.device)
+    bvec = torch.empty((4, c), dtype=torch.float32, device=x.device)
+    a.x, a.g, a.y, a.fvec, a.bias = (x.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                                     fvec.data_ptr(), bias.data_ptr())
+    a.weight, a.count, a.sums, a.vec_out = (weight.data_ptr(), count.data_ptr(),
+                                            gsums.data_ptr(), bvec.data_ptr())
+    _call("cocodet_bn_act_resident", a, x.device)
+    resident_backward.launches += 1
+    return dx, gsums, bvec
+
+
+def forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            running_mean: torch.Tensor, running_var: torch.Tensor, eps: float = 1e-3,
+            momentum: float = 0.03, act: str = "hard_swish"
+            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The map's forward, ``(y, sums, fvec)``: the resident kernel where
+    ``plan_for`` gives the map a plan, else ``reduce`` then ``apply``; the
+    plain stages on the CPU."""
+    plan = plan_for(x, False)
+    if plan is not None:
+        return resident_forward(x, weight, bias, running_mean, running_var, eps, momentum, act,
+                                plan)
+    sums, fvec = reduce(x, weight, running_mean, running_var, eps, momentum)
+    return apply(x, fvec, bias, act), sums, fvec
+
+
+def backward(x: torch.Tensor, g: torch.Tensor, fvec: torch.Tensor, bias: torch.Tensor,
+             weight: torch.Tensor, count: torch.Tensor, act: str = "hard_swish"
+             ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The map's backward, ``(dx, gsums, bvec)``, as ``forward`` chooses;
+    a cotangent in another layout than ``x`` is copied into it first. The
+    two passes of a channels-last map keep ``gz``: the reduce writes it and
+    the apply reads it back instead of computing the activation's VJP again
+    (the apply's arithmetic, not its bytes, bounded it; on a 640 px step
+    2-21% faster on every two-pass map but the 157 MB stem, 4% slower,
+    PERF.md §6)."""
+    if x.device.type != "cpu":
+        g = _cotangent(x, g)
+    plan = plan_for(x, True, (g,))
+    if plan is not None:
+        return resident_backward(x, g, fvec, bias, weight, count, act, plan)
+    keep = x.device.type == "cuda" and x.dim() == 4 \
+        and x.is_contiguous(memory_format=torch.channels_last)
+    gz = torch.empty_like(x) if keep else None
+    gsums, bvec = grad_reduce(x, g, fvec, bias, weight, count, act, gz=gz)
+    return grad_apply(x, g, fvec, bias, bvec, act, gz), gsums, bvec
+
+
+WRAPPERS = (reduce, finish, apply, grad_reduce, grad_finish, grad_apply, resident_forward,
+            resident_backward)
 
 
 def reset_launch_counts() -> None:

@@ -1,10 +1,13 @@
 // A CPU stand-in for the subset of CUDA that cocodet_tpu_torch/csrc/
-// train_aug.cu's and fake_quant.cu's kernels use, so that g++ can compile them and the tests can
-// run them on the CPU (tests/torch_cuda_emu.py): a block is 256 std::threads
-// that meet at a barrier; shared memory is one buffer (blocks run one after
-// another); cp.async is a plain copy; the f32 intrinsics are IEEE operations
-// (compile with -ffp-contract=off). Not a model of the card's timing or of
-// its memory ordering beyond what the barriers give.
+// train_aug.cu's, fake_quant.cu's and bn_act.cu's kernels use, so that g++
+// can compile them and the tests can run them on the CPU
+// (tests/torch_cuda_emu.py): a block is 256 std::threads that meet at a
+// barrier; shared memory is one buffer (blocks run one after another), or
+// for bn_act.cu's resident kernel one a CTA (emu_dynamic_smem; the CTAs of a
+// cluster run at once, cooperative_groups.h); cp.async is a plain copy; the
+// f32 and f64 intrinsics are IEEE operations (compile with
+// -ffp-contract=off). Not a model of the card's timing or of its memory
+// ordering beyond what the barriers give.
 #pragma once
 #include <algorithm>
 #include <cmath>
@@ -56,6 +59,20 @@ inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fdiv_rn(float a, float b) { return a / b; }
+inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
+inline double __dsqrt_rn(double a) { return std::sqrt(a); }
+inline double __drcp_rn(double a) { return 1.0 / a; }
+inline float __double2float_rn(double a) { return static_cast<float>(a); }
+template <class T>
+inline T __ldcg(const T* p) {
+  return *p;
+}
+inline unsigned atomicAdd(unsigned* p, unsigned v) {
+  const unsigned old = *p;
+  *p += v;
+  return old;
+}
+inline void __threadfence() {}
 template <class T>
 inline T __ldg(const T* p) {
   return *p;
@@ -89,3 +106,5 @@ inline uint32_t __vhaddu4(uint32_t a, uint32_t b) {
 void __syncthreads();
 int __syncthreads_count(int pred);
 void __syncwarp();
+double __shfl_xor_sync(unsigned mask, double v, int lane_mask);
+uint8_t* emu_dynamic_smem();

@@ -10,9 +10,15 @@ _flax's: the statistics are f32 sums in another order (XLA against ATen), so
 f32 agrees to 1e-5 and the parameter gradients to 1e-4; in bf16 the output
 and the input gradient may round one bf16 step apart (2**-7 relative); f64
 agrees to 1e-10.
+
+The resident kernel's plan (``bn_act.resident_plan``, pure Python, given
+an H100's numbers: H100 below) is held at a training step's BN+act maps at 640, 768 and
+832 px; the kernel itself, from its CUDA source on a CPU stand-in, in
+tests/test_torch_bn_act_emulated.py.
 """
 
 import ctypes
+import math
 import re
 from pathlib import Path
 
@@ -222,6 +228,32 @@ def test_plain_stages_compose_to_the_module(dtype):
                                            cpu.weight.detach(), s3[-1:], act)[1], act), dx)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_backward_keeping_gz_is_the_same_backward(dtype):
+    """The two-pass backward that keeps gz (``grad_reduce(..., gz=)``
+    writes ``grad_z``, ``grad_apply(..., gz=)`` reads it in g's place, as
+    the card's kernels do on a channels-last map) gives the same sums,
+    vectors and dx, bit for bit; gz must be laid out as x."""
+    x, g, variables = _case((2, 6, 7, 13), seed=11)
+    ref = _module(variables, dtype)
+    xt, gt = nchw(x, dtype), nchw(g, dtype)
+    args = (ref.weight.detach(), ref.running_mean, ref.running_var, ref.eps, ref.momentum)
+    sums, fvec = bnk.reduce_plain(xt, *args)
+    bias, weight, count = ref.bias.detach(), ref.weight.detach(), sums[-1:]
+    for act in ACTS:
+        gsums, bvec = bnk.grad_reduce(xt, gt, fvec, bias, weight, count, act)
+        dx = bnk.grad_apply(xt, gt, fvec, bias, bvec, act)
+        gz = torch.empty_like(xt)
+        gsums_z, bvec_z = bnk.grad_reduce(xt, gt, fvec, bias, weight, count, act, gz=gz)
+        assert torch.equal(gz, bnk.grad_z(xt, gt, fvec, bias, act))
+        assert torch.equal(gsums_z, gsums) and torch.equal(bvec_z, bvec)
+        assert torch.equal(bnk.grad_apply(xt, gt, fvec, bias, bvec, act, gz=gz), dx)
+        assert torch.equal(bnk.grad_apply_plain(xt, gt, fvec, bias, bvec, act, gz=gz), dx)
+        with pytest.raises(ValueError, match="gz"):
+            bnk.grad_reduce(xt, gt, fvec, bias, weight, count, act, gz=torch.empty(
+                xt.shape, dtype=dtype))
+
+
 def test_conv_bn_act_routes_the_activation():
     """A train-mode ConvBnAct with hard-swish runs it inside its BN (the
     standalone hard-swish is not called); another activation follows the
@@ -255,7 +287,7 @@ def test_args_mirror_the_kernel_struct():
     sizes = {"int64_t": 8, "int": 4, "float": 4}
     want = [(name, 8 if star else sizes[ty]) for ty, star, name in
             re.findall(r"^\s*(?:const )?(\w+)(\*?) (\w+);", body, re.M)]
-    assert len(want) == 32
+    assert len(want) == 33
     assert [(n, ctypes.sizeof(t)) for n, t in bnk._Args._fields_] == want
 
 
@@ -271,3 +303,110 @@ def test_grid_plan_covers_every_channel(c, v, width):
     assert groups * v <= max(width, v) and groups * lanes <= 256 and lanes >= 1
     assert groups * v <= groups * lanes
     assert tiles * groups * v >= c > (tiles - 1) * groups * v
+
+
+def _kernel_constants() -> dict:
+    """csrc/bn_act.cu's kRes* constants, evaluated."""
+    src = (Path(bnk.__file__).resolve().parents[2] / "csrc" / "bn_act.cu").read_text()
+    env = {}
+    for name, expr in re.findall(r"constexpr int (kRes\w+)\s*=\s*([^;]+);", src):
+        env[name] = eval(expr, {}, dict(env))
+    return env
+
+
+# An H100 as the plan sees it on the card (bn_act._resident_limits): its
+# SMs, its shared memory a block (opt-in) less the kernel's scratch, and
+# the largest cluster it launches with such a slab.
+H100 = dict(sms=132, slab_bytes=232448 - _kernel_constants()["kResScratch"], max_cluster=16)
+
+
+# A 640 px training step's BN+act maps (C, side at 640 px, maps), B=16: the
+# ConvBnAct outputs of build_model("yolox-p6", depth=0.67, width=0.75)
+# (chip_smoke.py's g3_bn_shapes); every side scales with the input size.
+STEP_MAPS = [(48, 320, 1), (96, 160, 2), (48, 160, 6), (288, 80, 1), (192, 80, 8), (96, 80, 19),
+             (576, 40, 1), (384, 40, 4), (192, 40, 32), (864, 20, 1), (576, 20, 4), (480, 20, 1),
+             (384, 20, 2), (288, 20, 16), (192, 20, 5), (768, 10, 5), (576, 10, 2),
+             (384, 10, 12), (192, 10, 5)]
+# the maps (C, side at 640 px) that take the two passes at 640 px, each way
+TWO_PASS_640 = {
+    False: {(48, 320), (96, 160), (48, 160), (288, 80), (192, 80), (96, 80), (576, 40),
+            (384, 40)},
+    True: {(48, 320), (96, 160), (48, 160), (288, 80), (192, 80), (96, 80), (576, 40),
+           (384, 40)},
+}
+
+
+@pytest.mark.parametrize("size", [640, 768, 832])
+@pytest.mark.parametrize("backward", [False, True], ids=["forward", "backward"])
+@pytest.mark.parametrize("c,side,maps", STEP_MAPS, ids=[f"{c}x{s}" for c, s, _ in STEP_MAPS])
+def test_resident_plan_at_a_steps_maps(c, side, maps, backward, size):
+    """bn_act.resident_plan (the H100's numbers) at each BN+act map of a
+    B=16 step at 640 px (g3) and at k3's 768 and 832 px: a plan's slab fits
+    a CTA's shared memory (half of it forward), its CTAs all run at once,
+    its tiles cover C, and its cluster is the smallest that gives half the
+    SMs a CTA; a map without one is too large for that. At 640 px the
+    maps measured faster on two passes (PERF.md §6) take them."""
+    rows = 16 * (side * size // 640) ** 2
+    plan = bnk.resident_plan(rows, c, 2, backward, **H100)
+    tensors = 2 if backward else 1
+    limit = H100["slab_bytes"] // (1 if backward else 2)
+
+    def fits(gt, cs):
+        return (math.ceil(rows / cs) * gt * 16 * tensors <= limit
+                and math.ceil(c / (gt * 8)) * cs <= H100["sms"])
+
+    if plan is None:
+        assert not any(fits(gt, cs) for gt in (1, 2) for cs in (1, 2, 4, 8, 16))
+    else:
+        gt, cs = plan
+        tiles = math.ceil(c / (gt * 8))
+        assert fits(gt, cs) and tiles * gt * 8 >= c
+        larger = [k for k in (1, 2, 4, 8, 16) if k > cs and fits(gt, k)]
+        assert 2 * tiles * cs >= H100["sms"] or not larger
+        assert not any(fits(gt, k) and 2 * tiles * k >= H100["sms"] for k in (1, 2, 4, 8, 16)
+                       if k < cs)
+        assert gt == 2 or not any(fits(2, k) for k in (1, 2, 4, 8, 16))
+    if size == 640:
+        assert (plan is None) == ((c, side) in TWO_PASS_640[backward])
+
+
+@pytest.mark.parametrize("size,resident", [(640, 85), (768, 48), (832, 48)])
+def test_resident_plan_launches_a_step(size, resident):
+    """A step's BN+act launches under the plan: one a way on a resident map,
+    two on a two-pass map; 640 px: 85 of 127 maps resident each way, 338
+    launches against the two passes' 508."""
+    got = {}
+    for backward in (False, True):
+        got[backward] = sum(n for c, side, n in STEP_MAPS if bnk.resident_plan(
+            16 * (side * size // 640) ** 2, c, 2, backward, **H100) is not None)
+    assert got == {False: resident, True: resident}
+    assert sum(n for _, _, n in STEP_MAPS) == 127
+    assert 4 * 127 - got[False] - got[True] == {640: 338, 768: 412, 832: 412}[size]
+
+
+def test_resident_plan_refuses_what_the_kernel_cannot_take():
+    """C not a multiple of the 16-byte group, a map whose tile is larger
+    than a cluster's shared memory even at 16 CTAs, and one with more tiles
+    than the card runs CTAs at once take the two passes; f32 maps plan
+    with 4-channel groups; a card with smaller clusters gets them."""
+    plan = bnk.resident_plan
+    assert plan(100, 13, 2, False, **H100) is None
+    assert plan(100, 12, 4, False, **H100) == (2, 16)  # 2 tiles of 8 channels
+    assert plan(16 * 320 * 320, 48, 2, False, **H100) is None
+    assert plan(16 * 320 * 320, 48, 2, True, **(H100 | {"slab_bytes": 1 << 40})) == (2, 16)
+    assert plan(16, 2112, 2, False, **H100) == (2, 1)  # 132 tiles
+    assert plan(16, 2128, 2, False, **H100) is None    # 133
+    assert plan(100, 16, 2, True, **(H100 | {"max_cluster": 1})) == (2, 1)
+
+
+def test_resident_constants_mirror_the_kernel():
+    """csrc/bn_act.cu's kResScratch, which H100's slab bytes subtract as
+    the card's library reports it to the plan, covers the resident
+    kernel's scratch (a warp's and the CTA's f64 partials of a tile's
+    channels, two f32 vectors of the tile) and keeps the slab after it
+    16-byte aligned; a warp is 32 threads."""
+    env = _kernel_constants()
+    assert env["kResWarps"] * 32 == env["kResThreads"]
+    tile = env["kResMaxTile"]
+    assert env["kResScratch"] >= (2 * env["kResWarps"] + 2) * tile * 8 + 2 * tile * 4
+    assert env["kResScratch"] % 16 == 0

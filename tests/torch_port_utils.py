@@ -18,6 +18,13 @@ from flax.traverse_util import flatten_dict
 
 from cocodet_tpu_torch.utils.convert import jax_layout, random_variables
 
+# One intra-op thread for torch in a test process. The tier-1 run spreads
+# the test files over several xdist workers, each of which imports this
+# module while it collects; torch's default pool (a thread a core in every
+# worker, beside XLA's own) oversubscribed the machine's cores many times
+# over. The spawned ranks of tests/torch_dist_utils.py do the same.
+torch.set_num_threads(1)
+
 
 @contextlib.contextmanager
 def private_native_builds(tmp_dir, coco_eval: bool = False):
