@@ -246,7 +246,30 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      cut to 1e-5 an image (M3_LR): each stage's seconds,
      pipeline_results.json with JAX's keys, the slim parameter count. Its
      NMS and int8 conv checks' worst errors join the kernels line's rows,
-     and the line gains the fake_quant entry.
+     and the line gains the fake_quant entry;
+  n. the training runtime's leftovers at full width (YOLOX-M-P6, f32
+     parameters, bf16 compute) on 64 synthetic train and 16 val JPEGs:
+     (n1) tools/train.py's main() on exps/p6/yolox_m_p6_spatial.py with -d
+     2 -b 16: 2 ranks sharing the card over gloo as a (1 data x 2 space)
+     mesh, the device mosaic, buckets 640/768/896, 1 epoch of 4
+     iterations, then a sharded evaluation (8 val images a rank, under
+     cudnn_deterministic) and rank 0's checkpoints: each rank's device ms a
+     step, host ms in collectives, peak memory and largest |wh logit| a
+     step; the ranks' states (parameters, BN statistics, EMA, optimizer)
+     bit for bit one; K1-K4, the BN+act mesh path's reduce, finish and
+     apply each way, and the NMS pair launched on each rank (counts zeroed
+     in each rank before it trains); rank 0's checkpoint loaded into a
+     one-rank trainer (--resume), whose evaluation of the same EMA weights
+     on the whole val set under cudnn_deterministic gives the gathered
+     evaluation's AP50 within N_AP50_TOL; (n2) the phase-1 exp with
+     device_aug True, device_mosaic False, num_accumulate 2, multiscale
+     step 64 on a (2 data x 1 space) mesh (-d 2): K4 launched and K1-K3
+     not, gradient_step 2 and mini_step 0 after 4 iterations, the
+     checkpoint's opt_state optax.MultiSteps' tree, the ranks holding one
+     state; (n3) g3's step (B=16, 640 px) from one seed with and without
+     remat under cudnn_deterministic: the BN running statistics bit for
+     bit, the parameters within N_REMAT_TOL of each leaf's largest value,
+     the peak memory and ms of each.
 
     python3 chip_smoke.py --step TREE
 
@@ -277,6 +300,10 @@ runs phase a and phase l alone (without the kernels and ``ok`` lines).
 
 runs phase a and phase m alone and prints the fake_quant entry as one
 ``m: {...}`` JSON line (without the kernels and ``ok`` lines).
+
+    python3 chip_smoke.py --phase n
+
+runs phase a and phase n alone (without the kernels and ``ok`` lines).
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -4698,6 +4725,349 @@ def phase_m(device, card, flags):
     return entry, worst
 
 
+# phase n: the training runtime's leftovers (several ranks, accumulation,
+# device_aug without mosaic, remat) at full width
+N_TRAIN, N_VAL = 64, 16  # the synthetic set's train and val JPEGs (256-512 px)
+N_SPATIAL_EXP = os.path.join("cocodet_tpu_torch", "exps", "p6", "yolox_m_p6_spatial.py")
+N_AP50_TOL = 1e-3  # the gathered evaluation's AP50 against one process's
+# the gathered records against one process's, row for row (image and category exact):
+# score and box coordinates (px) bit for bit, as both evaluate batches of 16 of the same
+# weights under cudnn_deterministic (0 and 0 measured on an H100)
+N_SCORE_TOL, N_BOX_TOL = 0.0, 0.0
+N_REMAT_TOL = 1e-6  # remat's parameters after a step, to each leaf's largest value
+
+
+def n_counts():
+    """Every launch counter of phase n's kernels."""
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+
+    return ({fn.__name__: fn.launches for fn in ta.WRAPPERS}
+            | {f"bn_act.{fn.__name__}": fn.launches for fn in bnk.WRAPPERS}
+            | {"overlap_matrix": nk.overlap_matrix.launches,
+               "greedy_keep": nk.greedy_keep.launches, "hard_swish": hs.hard_swish.launches})
+
+
+def n_rank_hook(trainer, stage):
+    """tools/train.py's rank hook of n1 and n2, in each rank: at "start" the
+    launch counts and the peak memory zeroed (the collectives' after
+    ``before_train``, whose broadcast of rank 0's state is set-up), each
+    step timed by CUDA events and
+    the host clock, the largest |wh logit| of each step kept on the card
+    (a forward hook on the trained model), the evaluation run under
+    cudnn_deterministic, and the first device-aug batch's K4 output held
+    against its plain version on the same inputs; at "end" what they
+    measured, with the evaluation's gathered records."""
+    import torch
+
+    import cocodet_tpu_torch.core.trainer as trainer_module
+    from cocodet_tpu_torch.data.device_aug import aug_inputs
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.cuda import train_aug as ta
+    from cocodet_tpu_torch.parallel import collectives
+
+    if stage == "end":
+        torch.cuda.synchronize()
+        steps = [(a.elapsed_time(b), h) for a, b, h in trainer._n_steps]
+        return {"launches": n_counts(), "steps": steps,
+                "wh": [float(w) for w in trainer._n_wh],
+                "host_ms": {k: v * 1e3 for k, v in collectives.host_seconds.items()},
+                "calls": dict(collectives.calls), "staged": dict(collectives.host_staged),
+                "peak_gib": torch.cuda.max_memory_allocated(trainer.device) / 2**30,
+                "every_k": trainer.optimizer.every_k, "count": trainer.optimizer.count,
+                "mini_step": trainer.optimizer.mini_step, "k4": trainer._n_k4,
+                "records": getattr(trainer.evaluator, "records", None)}
+    for mod in (ta, bnk, hs, nk):
+        mod.reset_launch_counts()
+    collectives.reset_counts()
+    torch.cuda.reset_peak_memory_stats(trainer.device)
+    trainer._n_steps, trainer._n_wh, trainer._n_k4 = [], [], None
+    before_train, evaluate = trainer.before_train, trainer.evaluate_and_save_model
+    preproc = trainer_module.apply_device_preproc
+
+    def held_preproc(exp, size, batch):
+        out = preproc(exp, size, batch)
+        if trainer._n_k4 is None and "images_u8" in batch:
+            # the plain K4 on the batch the main path gave it (launches nothing)
+            a = aug_inputs(batch["hw"], batch["boxes_xyxy"], batch["nvalid"], batch["randoms"],
+                           size, exp.flip_prob, exp.hsv_prob)
+            want = ta.PLAIN[ta.train_aug](batch["images_u8"], batch["hw"], batch["nhw"],
+                                          a["gains"], a["flip"], a["fallback"], size)
+            trainer._n_k4 = (*bit_diff(out[0], want), tuple(out[0].shape))
+        return out
+    trainer_module.apply_device_preproc = held_preproc
+
+    def widest(module, inputs, outputs):
+        if module.training:
+            trainer._n_wh.append(torch.stack([lvl["reg"][..., 2:4].detach().abs().amax()
+                                              for lvl in outputs]).amax().float())
+
+    def hooked_before_train():
+        before_train()
+        collectives.reset_counts()  # the steps' collectives, not the state's broadcast
+        trainer.model.register_forward_hook(widest)
+        step = trainer.train_step
+
+        def timed(*a, **kw):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = step(*a, **kw)
+            end.record()
+            torch.cuda.synchronize()
+            trainer._n_steps.append((start, end, (time.perf_counter() - t0) * 1e3))
+            return out
+        trainer.train_step = timed
+
+    def deterministic_evaluate():
+        with cudnn_deterministic():
+            evaluate()
+    trainer.before_train = hooked_before_train
+    trainer.evaluate_and_save_model = deterministic_evaluate
+    return None
+
+
+def n_report(label, run, card):
+    """Each rank's numbers of a run of n1 or n2; fails unless the ranks hold
+    one state and every loss was finite."""
+    for r in run.ranks:
+        h = r["hook"]
+        n = max(len(h["steps"]), 1)
+        print(f"{label} rank {r['rank']} of {len(run.ranks)} on {card}: device ms a step "
+              + ", ".join(f"{d:.2f}" for d, _ in h["steps"]) + " (host ms "
+              + ", ".join(f"{v:.2f}" for _, v in h["steps"])
+              + f"); host ms in collectives a step {sum(h['host_ms'].values()) / n:.2f} ("
+              + ", ".join(f"{k} {v / n:.2f}" for k, v in sorted(h["host_ms"].items()))
+              + f"); collectives {h['calls']}, staged through the host {h['staged']}; peak "
+              f"device memory {h['peak_gib']:.2f} GiB; largest |wh logit| a step "
+              + ", ".join(f"{w:.3f}" for w in h["wh"]) + f"; launches {h['launches']}",
+              flush=True)
+        for st in r["epoch_stats"]:
+            print(f"{label} rank {r['rank']} epoch {st['epoch']}: {st['iterations']} iterations, "
+                  f"{st['img_per_s']:.2f} img/s by the host clock (data included), sizes "
+                  f"{st['size_sequence']}, data wait {st['data_wait_ms']:.2f} ms a step, "
+                  f"non-finite losses {st['nonfinite_losses']}", flush=True)
+        for ev in r["eval_stats"]:
+            print(f"{label} rank {r['rank']} evaluation: images {ev['images']}, gathered records "
+                  f"{ev['records']}, AP50 {ev['AP50']:.4f}, AP {ev['AP']:.4f}, "
+                  f"{ev['seconds']:.2f} s", flush=True)
+        for ck in r["ckpt_stats"]:
+            print(f"{label} rank {r['rank']} checkpoint {ck['name']}: {ck['bytes'] / 2**20:.1f} "
+                  f"MiB in {ck['seconds']:.2f} s", flush=True)
+    digests = {r["digest"] for r in run.ranks}
+    bad = sum(st["nonfinite_losses"] for r in run.ranks for st in r["epoch_stats"])
+    print(f"{label} the ranks hold one state (parameters, BN statistics, EMA, optimizer) bit "
+          f"for bit: {len(digests) == 1}", flush=True)
+    if len(digests) != 1 or bad:
+        raise AssertionError(f"{label} the ranks' states differ ({len(digests)} digests) or "
+                             f"{bad} losses were non-finite")
+
+
+def record_rows(records):
+    """An evaluation's records as sorted rows (image_id, category_id,
+    score, x, y, w, h)."""
+    return sorted((r["image_id"], r["category_id"], r["score"], *r["bbox"]) for r in records)
+
+
+def n_argv(exp, device, root, out_dir, extra=()):
+    """The CLI line of n1 and n2: 2 ranks on this host, B=16, 1 epoch (4
+    iterations on the set) with its mosaic (``no_aug_epochs`` -1: the
+    trainer's switch comes at ``max_epoch - no_aug_epochs``), the images
+    cached."""
+    return ["-f", os.path.join(REPO, exp), "-d", "2", "-b", str(J_BATCH), "--cache",
+            "--device", device.type, "data_dir", root, "output_dir", out_dir, "max_epoch", "1",
+            "no_aug_epochs", "-1", "print_interval", "1", *extra]
+
+
+def phase_n1(device, card, root, out_dir):
+    """n1: the spatial exp on a (1 data x 2 space) mesh of 2 ranks through
+    the CLI; then rank 0's checkpoint in a one-rank trainer."""
+    import torch
+
+    from cocodet_tpu_torch.core.trainer import Trainer
+    from cocodet_tpu_torch.entry import Predictor
+    from cocodet_tpu_torch.tools import train
+
+    t0 = time.perf_counter()
+    run = train.main(n_argv(N_SPATIAL_EXP, device, root, out_dir, ["eval_interval", "1"]),
+                     rank_hook=n_rank_hook)
+    seconds = time.perf_counter() - t0
+    n_report("n1.", run, card)
+    want = {"mosaic_canvas", "affine_warp", "mixup", "train_aug", "bn_act.reduce",
+            "bn_act.finish", "bn_act.apply", "bn_act.grad_reduce", "bn_act.grad_finish",
+            "bn_act.grad_apply", "overlap_matrix", "greedy_keep"}
+    for r in run.ranks:
+        zero = sorted(k for k in want if not r["hook"]["launches"][k])
+        if zero:
+            raise AssertionError(f"n1: rank {r['rank']} launched no {zero}")
+    evals = [r["eval_stats"][0] for r in run.ranks]
+    if len({(e["records"], e["AP50"], e["AP"]) for e in evals}) != 1:
+        raise AssertionError(f"n1: the ranks' gathered evaluations differ: {evals}")
+    if [e["images"] for e in evals] != [(0, N_VAL // 2), (N_VAL // 2, N_VAL)]:
+        raise AssertionError(f"n1: the val shards are {[e['images'] for e in evals]}")
+
+    # rank 0's checkpoint in a one-rank trainer, its EMA weights evaluated in one process
+    torch.cuda.empty_cache()
+    argv = n_argv(N_SPATIAL_EXP, device, root, out_dir)
+    del argv[2:4]  # -d 2
+    exp, args = train.build(["--resume"] + argv)
+    one = Trainer(exp, args, device=device)
+    one.before_train()
+    try:
+        model = exp.get_model(device=device, variables=one.eval_variables())
+        with cudnn_deterministic():
+            ap, ap50, _ = one.evaluator.evaluate(Predictor(model))
+        records = one.evaluator.records
+    finally:
+        one.after_train()
+    rows = [record_rows(r["hook"]["records"]) for r in run.ranks]
+    one_rows = record_rows(records)
+    same_keys = len(rows[0]) == len(one_rows) and all(
+        a[:2] == b[:2] for a, b in zip(rows[0], one_rows))
+    score_err = max((abs(a[2] - b[2]) for a, b in zip(rows[0], one_rows)), default=0.0)
+    box_err = max((abs(x - y) for a, b in zip(rows[0], one_rows) for x, y in zip(a[3:], b[3:])),
+                  default=0.0)
+    per_image = sorted({r[0] for r in one_rows})
+    print(f"n1. rank 0's latest checkpoint resumed by a one-rank trainer (start epoch "
+          f"{one.start_epoch}, mesh {one.mesh}); its EMA weights on all {N_VAL} val images in one "
+          f"process: AP50 {ap50:.4f}, AP {ap:.4f}, {len(one_rows)} records of {len(per_image)} "
+          f"images; the ranks' gathered evaluation: AP50 {evals[0]['AP50']:.4f}, AP "
+          f"{evals[0]['AP']:.4f}, {evals[0]['records']} records; row for row (sorted by image, "
+          f"category, score, box) the same image and category: {same_keys}, largest score "
+          f"difference {score_err:.3e}, largest box difference {box_err:.3e} px (tolerances "
+          f"{N_AP50_TOL} on AP50, {N_SCORE_TOL} on scores, {N_BOX_TOL} px on boxes); the CLI "
+          f"run {seconds:.1f} s", flush=True)
+    if one.start_epoch != 1 or one.mesh is not None or abs(ap50 - evals[0]["AP50"]) > N_AP50_TOL:
+        raise AssertionError("n1: the one-rank trainer's evaluation disagrees with the ranks'")
+    if (any(r != rows[0] for r in rows) or evals[0]["records"] != len(one_rows)
+            or not one_rows or not same_keys or score_err > N_SCORE_TOL or box_err > N_BOX_TOL):
+        raise AssertionError("n1: the gathered records are not the one process's records")
+
+
+def phase_n2(device, card, root, out_dir):
+    """n2: device_aug without the mosaic on the card, num_accumulate 2, a
+    (2 data x 1 space) mesh."""
+    from cocodet_tpu_torch.tools import train
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    run = train.main(n_argv(J_EXP, device, root, out_dir, [
+        "device_aug", "True", "device_mosaic", "False", "num_accumulate", "2",
+        "multiscale_step", "64"]), rank_hook=n_rank_hook)
+    seconds = time.perf_counter() - t0
+    n_report("n2.", run, card)
+    iters = run.epoch_stats[0]["iterations"]
+    for r in run.ranks:
+        h = r["hook"]
+        if h["k4"] is None:
+            raise AssertionError(f"n2: rank {r['rank']} preprocessed no device-aug batch")
+        differ, err, shape = h["k4"]
+        print(f"n2. rank {r['rank']}: its first device-aug batch {shape} through train_aug_batch, "
+              f"K4 against its plain version on the same inputs: {differ} values differ (max "
+              f"|difference| {err:.3e}; held bit for bit, as j1)", flush=True)
+        if differ:
+            raise AssertionError(f"n2: rank {r['rank']}: K4 differs from its plain version")
+        k13 = [h["launches"][k] for k in ("mosaic_canvas", "affine_warp", "mixup")]
+        if h["launches"]["train_aug"] != iters or any(k13) or (
+                h["every_k"], h["count"], h["mini_step"]) != (2, iters // 2, iters % 2):
+            raise AssertionError(f"n2: rank {r['rank']}: launches {h['launches']}, optimizer "
+                                 f"every_k {h['every_k']} count {h['count']} mini_step "
+                                 f"{h['mini_step']} (want K4 alone, once an iteration, and 2, "
+                                 f"{iters // 2}, {iters % 2} after {iters} iterations)")
+    opt = load_checkpoint(os.path.join(run.file_name, "latest_ckpt.msgpack"))["opt_state"]
+    keys = sorted(opt)
+    print(f"n2. the checkpoint's opt_state keys {keys}, mini_step {int(opt['mini_step'])}, "
+          f"gradient_step {int(opt['gradient_step'])}, inner count "
+          f"{int(opt['inner_opt_state']['1']['1']['count'])}; the CLI run {seconds:.1f} s",
+          flush=True)
+    if keys != ["acc_grads", "gradient_step", "inner_opt_state", "mini_step", "skip_state"] or (
+            int(opt["mini_step"]), int(opt["gradient_step"])) != (iters % 2, iters // 2):
+        raise AssertionError("n2: the checkpoint's opt_state is not optax.MultiSteps' tree")
+
+
+def phase_n3(device, card):
+    """n3: g3's step with and without remat, from one seed, under
+    cudnn_deterministic."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.entry import build_trainer
+    from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree
+
+    images, labels = (torch.from_numpy(a).to(device) for a in training_batch(BATCH, SIZE, 12))
+    out = {}
+    with cudnn_deterministic():
+        for remat in (False, True):
+            model, step = build_trainer(0.67, 0.75, torch.bfloat16, device, seed=0, remat=remat)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(device)
+            step(images, labels)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(device) / 2**30
+            state = flatten_tree(export_variables(model))
+            ms = []
+            for _ in range(3):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                step(images, labels)
+                end.record()
+                torch.cuda.synchronize()
+                ms.append(start.elapsed_time(end))
+            out[remat] = (state, peak, ms)
+            del model, step
+            torch.cuda.empty_cache()
+    plain, remat = out[False][0], out[True][0]
+    stats_equal = all(same_bits(remat[k], v) for k, v in plain.items() if k[0] == "batch_stats")
+    worst = max(float(np.abs(remat[k] - v).max() / max(np.abs(v).max(), 1e-30))
+                for k, v in plain.items() if k[0] == "params")
+    for flag, name in ((False, "plain"), (True, "remat")):
+        print(f"n3. {name} step (YOLOX-M-P6, B={BATCH}, {SIZE} px, bf16 compute, cuDNN "
+              f"deterministic) on {card}: peak device memory over the first step "
+              f"{out[flag][1]:.2f} GiB; device ms a step " + ", ".join(f"{v:.2f}" for v in
+                                                                     out[flag][2]), flush=True)
+    print(f"n3. after one step: the BN running statistics bit for bit equal: {stats_equal}; "
+          f"parameters, largest difference to the leaf's largest value {worst:.3e} (tolerance "
+          f"{N_REMAT_TOL})", flush=True)
+    if not stats_equal or worst > N_REMAT_TOL:
+        raise AssertionError("n3: the remat step differs from the plain step")
+
+
+def phase_n(device, card, flags):
+    """n: phase n's three parts on one synthetic set, with the backend
+    ``flags`` a new process starts with."""
+    import tempfile
+
+    import torch
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    print(f"n. cuts: full width kept (YOLOX-M-P6, depth 0.67, width 0.75); weights random from "
+          f"numpy seeds; {N_TRAIN} synthetic train and {N_VAL} val JPEGs (no COCO in the "
+          f"repo); 1 epoch of 4 iterations a run, with its mosaic (no no-aug epoch); 2 ranks "
+          f"share the one card over gloo, every collective staged through the host (no NCCL "
+          f"across cards here)", flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_n_") as tmp, backend_flags(flags):
+        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=N_TRAIN, n_val=N_VAL,
+                                   size_range=(256, 512), seed=0, variant="default")
+        t = time.perf_counter()
+        phase_n1(device, card, root, os.path.join(tmp, "n1"))
+        n1_s = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_n2(device, card, root, os.path.join(tmp, "n2"))
+        n2_s = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_n3(device, card)
+        n3_s = time.perf_counter() - t
+    print(f"n. phase n: {time.perf_counter() - t_start:.1f} s (n1 {n1_s:.1f} s, n2 {n2_s:.1f} s, "
+          f"n3 {n3_s:.1f} s) ({card})", flush=True)
+
+
 def fake_quant_kernel(entry):
     """The kernels line's entry of the fake-quant kernel."""
     return {"name": "fake_quant", "route": "cuda", "source": "cocodet_tpu_torch/csrc/fake_quant.cu",
@@ -4728,9 +5098,9 @@ def main():
     if args and (len(args) != 2 or args not in (["--step", args[1]], ["--bn", args[1]],
                                                  ["--phase", "j"], ["--phase", "j1"],
                                                  ["--phase", "k"], ["--phase", "l"],
-                                                 ["--phase", "m"])):
+                                                 ["--phase", "m"], ["--phase", "n"])):
         print("usage: python3 chip_smoke.py [--step TREE | --bn TREE | --phase j | --phase j1 "
-              "| --phase k | --phase l | --phase m]", file=sys.stderr)
+              "| --phase k | --phase l | --phase m | --phase n]", file=sys.stderr)
         return 2
     tree = os.path.abspath(args[1]) if args[:1] in (["--step"], ["--bn"]) else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
@@ -4765,6 +5135,9 @@ def main():
         entry, _ = phase_m(device, card, flags)
         print("m: " + json.dumps(fake_quant_kernel(entry)))
         return 0
+    if args == ["--phase", "n"]:
+        phase_n(device, card, flags)
+        return 0
     if args:
         # --phase j
         print(json.dumps({"kernels": train_aug_kernels(phase_j(device, card, flags))}))
@@ -4796,6 +5169,8 @@ def main():
     l_worst = phase_l(device, card, flags)
     torch.cuda.empty_cache()
     fq_entry, m_worst = phase_m(device, card, flags)
+    torch.cuda.empty_cache()
+    phase_n(device, card, flags)
     for name in ("overlap_matrix", "greedy_keep", "int8_conv"):
         l_worst[name] = max(l_worst[name], m_worst[name])
     for name, st in bn_stats.items():

@@ -39,7 +39,7 @@ from ..ops.losses import yolox_losses
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import export_variables, flatten_tree, load_masks, unflatten_tree
 from .train_state import TrainState, create_train_state
-from .trainer import Trainer
+from .trainer import TODO, Trainer
 
 logger = logging.getLogger("cocodet_tpu_torch")
 
@@ -330,10 +330,20 @@ def distill_epoch(trainer: Trainer, step: Callable, step_optimizer: bool,
 
 class Pruner(Trainer):
     """Trainer + teacher distillation + periodic channel pruning
-    (pruner.py:307-424). ``prune_events`` holds each event's numbers."""
+    (pruner.py:307-424). ``prune_events`` holds each event's numbers. Its
+    optimizer takes no ``num_accumulate``: JAX's Pruner builds
+    ``exp.get_optimizer`` with no ``optax.MultiSteps`` (pruner.py:340).
+    One rank only: the distill and score steps on several ranks raise."""
+
+    @classmethod
+    def trains_on_ranks(cls, exp) -> bool:
+        return False
 
     def __init__(self, exp, args, device: Any = "cuda"):
         super().__init__(exp, args, device)
+        if self.world > 1:
+            raise NotImplementedError(f"the Pruner's distill and score steps on several ranks "
+                                      f"are not ported {TODO}")
         self.prune_interval = getattr(exp, "prune_interval", 0.5)
         self.prune_channels = getattr(exp, "prune_channels", 64)
         self.prune_start_epoch = getattr(exp, "prune_start_epoch", 0)

@@ -25,13 +25,35 @@ model (``exp.use_mask``, or an init checkpoint whose ``model`` carries a
 ``masks`` collection, a Pruner's output) is built with its ChannelMask
 gates (trainer.py:74-117); the gates stay fixed, are loaded from the init
 checkpoint (its leaves the model lacks dropped, as ``load_matched`` does)
-and go into the evaluated and saved ``model`` variables (:376-383). Raise,
-by design (ROADMAP Queue 1 item 1): gradient accumulation
-(``num_accumulate > 1``), ``remat``, a spatial mesh or more than one rank.
+and go into the evaluated and saved ``model`` variables (:376-383).
+
+``num_accumulate > 1`` wraps the optimizer in ``multi_steps``
+(``optax.MultiSteps``, trainer.py:106-110); ``remat`` recomputes the
+forward in the backward (``core/train_state.py::make_forward``).
+
+Several ranks. When ``torch.distributed`` is up with more than one rank,
+each rank is one process with one device, and the trainer trains on the
+``Mesh`` of them (trainer.py:154-219): a data mesh, or a (data x space)
+mesh with ``exp.spatial_devices > 1``. The global batch is ``batch_size``
+whatever the number of ranks: every rank runs the single-process sampler
+and item-seed stream and fetches only its data row's contiguous slice of
+each batch; the space ranks of a row fetch and preprocess the same slice
+and each keeps its rows of the images (JAX's reshard, :339-350), after the
+multiscale resize. So the ranks train on the images one process would.
+Rank 0 writes the checkpoints and the TensorBoard scalars, a barrier after
+each save (:395-407); every rank loads ``resume`` and ``init_ckpt``, then
+rank 0's state is broadcast. The evaluation is sharded over every rank, its
+records gathered and scored on rank 0 (``evaluators/coco_evaluator.py``).
+A batch the data rows do not divide raises before the first step: JAX
+shrinks its mesh to the gcd (:206-210), but a rank is a process that cannot
+drop out. ``spatial_devices > 1`` on one rank trains unsharded, with JAX's
+warning (:172-178). The Pruner's and the Tuner's distillation steps on
+several ranks raise (ROADMAP Queue 1 item 1).
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 import random
 import time
@@ -39,22 +61,37 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..data.device_aug import apply_device_preproc
 from ..data.samplers import DevicePrefetcher
 from ..entry import Predictor
+from ..parallel.collectives import broadcast
+from ..parallel.mesh import (Mesh, check_spatial_sizes, make_mesh, make_mesh_2d, replicate,
+                             sync_global_devices)
 from ..utils.checkpoint import load_checkpoint, load_matched, save_checkpoint
 from ..utils.convert import (ema_variables, export_masks, export_variables, load_ema,
                              load_optimizer_state, load_variables, optimizer_state_dict)
 from ..utils.ema import ModelEMA
 from ..utils.logger import logger, setup_logger
 from ..utils.metric import MeterBuffer, device_mem_usage_mb
-from .train_state import create_train_state, make_train_step, resize_batch
+from .train_state import create_train_state, make_train_step, multi_steps, resize_batch
 
 TODO = "(ROADMAP Queue 1 item 1)"
 
 
+def world_size() -> int:
+    """The ranks of the default process group (1 when there is none)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
 class Trainer:
+    @classmethod
+    def trains_on_ranks(cls, exp) -> bool:
+        """Whether this trainer's steps run on several ranks;
+        ``tools/train.py`` starts one rank by default where they do not."""
+        return True
+
     def __init__(self, exp, args, device: Any = "cuda"):
         self.exp = exp
         self.args = args
@@ -67,8 +104,12 @@ class Trainer:
         self.best_ap = 0.0
         self.meter = MeterBuffer(window_size=exp.print_interval)
         self.file_name = os.path.join(exp.output_dir, exp.exp_name)
-        os.makedirs(self.file_name, exist_ok=True)
-        setup_logger(self.file_name, filename="train_log.txt")
+        self.world = world_size()
+        self.rank = dist.get_rank() if self.world > 1 else 0
+        self.mesh: Optional[Mesh] = None
+        if self.rank == 0:
+            os.makedirs(self.file_name, exist_ok=True)
+        setup_logger(self.file_name, rank=self.rank, filename="train_log.txt")
         self.epoch = 0
         self.start_epoch = 0
         self.use_l1 = False
@@ -81,18 +122,6 @@ class Trainer:
 
     def _check_supported(self):
         exp = self.exp
-        if exp.num_accumulate > 1:
-            raise NotImplementedError(f"gradient accumulation (num_accumulate > 1, "
-                                      f"optax.MultiSteps) is not ported {TODO}")
-        if getattr(exp, "remat", False):
-            raise NotImplementedError(f"remat (torch.utils.checkpoint of the forward) is not "
-                                      f"ported {TODO}")
-        if int(getattr(exp, "spatial_devices", 1) or 1) > 1:
-            raise NotImplementedError(f"the trainer's spatial mesh (spatial_devices > 1) is not "
-                                      f"ported {TODO}")
-        if torch.distributed.is_initialized() and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(f"the trainer's data-parallel wiring over several ranks "
-                                      f"is not ported {TODO}")
         # a size the deepest stride does not divide breaks the PAFPN's concat
         # of the upsampled map, in JAX as here: refuse it before the first step
         stride = max(exp.strides)
@@ -103,6 +132,92 @@ class Trainer:
                              f"model's largest stride {stride}: the PAFPN cannot concatenate "
                              f"its upsampled maps there (set multiscale_step to {stride}; "
                              f"ROADMAP Queue 3)")
+        spatial = self.spatial_devices
+        if spatial > 1 and self.world == 1:
+            # don't die, but never drop the setting silently (trainer.py:172-178)
+            logger.warning("exp.spatial_devices=%d requested but only 1 rank runs: training "
+                           "UNSHARDED (the operating point this exp targets may not fit one "
+                           "device)", spatial)
+        if self.world == 1:
+            return
+        if self.world % spatial:
+            raise ValueError(f"spatial_devices={spatial} must divide the {self.world} ranks")
+        rows = self.world // spatial
+        batch_size = self.args.batch_size
+        if batch_size % rows:
+            raise ValueError(f"batch_size {batch_size} does not split over {rows} data rows: a "
+                             f"rank is a process that cannot drop out of the mesh, as JAX's "
+                             f"devices do (set a batch size that {rows} divides)")
+        if spatial > 1:
+            self._check_spatial_sizes(spatial)
+
+    @property
+    def spatial_devices(self) -> int:
+        return int(getattr(self.exp, "spatial_devices", 1) or 1)
+
+    def _check_spatial_sizes(self, spatial: int):
+        """Every training size (input_size and the multiscale buckets) keeps
+        the deepest map evenly divided with at least two rows a space rank
+        (``parallel/mesh.py::check_spatial_sizes``), and the test size's
+        height divides over the space axis (trainer.py:221-252)."""
+        exp = self.exp
+        sizes = list(map(tuple, exp.multiscale_sizes()))
+        if tuple(exp.input_size) not in sizes:
+            sizes.append(tuple(exp.input_size))
+        check_spatial_sizes(sizes, spatial, max(exp.strides))
+        th = exp.test_size[0]
+        if th % spatial:
+            raise ValueError(f"spatial_devices={spatial}: test_size height {th} must be "
+                             f"divisible by the space axis for sharded eval")
+
+    def _setup_mesh(self) -> Optional[Mesh]:
+        """The mesh of the default group's ranks (trainer.py:154-219), None on
+        one rank. Collective: every rank builds its groups."""
+        if self.world == 1:
+            return None
+        spatial = self.spatial_devices
+        if spatial > 1:
+            mesh = make_mesh_2d(spatial, self.device)
+            logger.info("training over a (%d data x %d space) mesh of ranks", mesh.n_data,
+                        mesh.n_space)
+        else:
+            mesh = make_mesh(self.device)
+            logger.info("training over a %d-rank data mesh", mesh.n_data)
+        return mesh
+
+    def _replicate_state(self):
+        """Rank 0's parameters, BN statistics and EMA shadow on every rank."""
+        if self.mesh is None:
+            return
+        replicate(self.mesh, self.model)
+        if self.state.ema is not None:
+            for t in self.state.ema.shadow.values():
+                broadcast(t, 0, self.mesh.world)
+
+    def state_digest(self) -> str:
+        """sha256 of the state's bytes (parameters, buffers, EMA shadow,
+        momentum and accumulated gradients), in a fixed order: ranks that
+        hold one state give one digest."""
+        h = hashlib.sha256()
+
+        def add(name, t):
+            h.update(name.encode())
+            h.update(t.detach().reshape(-1).contiguous().cpu().view(torch.uint8).numpy().tobytes())
+
+        for name, t in list(self.model.named_parameters()) + list(self.model.named_buffers()):
+            add(name, t)
+        if self.state.ema is not None:
+            for name, t in self.state.ema.shadow.items():
+                add("ema." + name, t)
+        opt = self.optimizer
+        for name, p in self.model.named_parameters():
+            buf = opt.state.get(p, {}).get("momentum_buffer")
+            if buf is not None:
+                add("trace." + name, buf)
+            if p in getattr(opt, "acc", {}):
+                add("acc." + name, opt.acc[p])
+        h.update(f"{opt.count} {getattr(opt, 'mini_step', 0)}".encode())
+        return h.hexdigest()
 
     # ------------------------------------------------------------------
     def train(self):
@@ -137,34 +252,45 @@ class Trainer:
         ckpt_model = (self._init_tree or {}).get("model", self._init_tree)
         # a pruned init checkpoint builds the ChannelMask model (trainer.py:74-92)
         self.use_mask = bool(getattr(exp, "use_mask", False) or (ckpt_model or {}).get("masks"))
+        self.mesh = self._setup_mesh()
         self.model = exp.get_model(device=self.device, use_mask=self.use_mask)
+        # the single-process stream on every rank, each fetching its data row
         self.train_loader = exp.get_data_loader(
             batch_size=batch_size, is_distributed=False,
             no_aug=self.start_epoch >= self.max_epoch - exp.no_aug_epochs,
             cache_img=getattr(args, "cache", False), seed=exp.seed or 0)
+        if self.mesh is not None:
+            self.train_loader.rows = (self.mesh.data_index, self.mesh.n_data)
         self.iters_per_epoch = max(len(self.train_loader.dataset) // batch_size, 1)
         lr = exp.basic_lr_per_img * batch_size
         self.lr_schedule = exp.get_lr_scheduler(lr, self.iters_per_epoch)
         self.optimizer = exp.get_optimizer(batch_size, self.model, self.lr_schedule)
+        if exp.num_accumulate > 1:
+            multi_steps(self.optimizer, exp.num_accumulate)
         self.state = create_train_state(self.model, self.optimizer, use_ema=exp.ema,
                                         ema_decay=exp.ema_momentum)
         if init_ckpt:
             self._load_init_ckpt(init_ckpt)
         self.resume_train()
+        self._replicate_state()
         self.train_step = make_train_step(self.state, exp.strides, num_classes=exp.num_classes,
                                           iou_type=exp.iou_type,
-                                          simota_bf16=getattr(exp, "simota_bf16", False))
+                                          simota_bf16=getattr(exp, "simota_bf16", False),
+                                          mesh=self.mesh, remat=getattr(exp, "remat", False))
         self.evaluator = exp.get_evaluator(batch_size=batch_size)
+        if self.world > 1:
+            self.evaluator.shard = (self.rank, self.world)
         self.size_rng = random.Random((exp.seed or 0) + 1234)
         self.prefetcher = DevicePrefetcher(self.train_loader, self.device)
         self.data_iter = self.prefetcher
         self.tblogger = None
-        try:  # TensorBoard scalars, when the package is there (ref trainer.py:207-209)
-            from torch.utils.tensorboard import SummaryWriter
+        if self.rank == 0:
+            try:  # TensorBoard scalars, when the package is there (ref trainer.py:207-209)
+                from torch.utils.tensorboard import SummaryWriter
 
-            self.tblogger = SummaryWriter(self.file_name)
-        except Exception:
-            logger.info("tensorboard unavailable; skipping TB logs")
+                self.tblogger = SummaryWriter(self.file_name)
+            except Exception:
+                logger.info("tensorboard unavailable; skipping TB logs")
         logger.info("init done; %d iters/epoch, device mem %.0f MB", self.iters_per_epoch,
                     device_mem_usage_mb(self.device))
 
@@ -182,12 +308,20 @@ class Trainer:
         load_variables(self.model, new)
 
     def _next_batch(self):
-        """The next (images, labels) on the device, preprocessed on the card
-        on the device-mosaic path."""
+        """The next (images, labels) of this rank on the device, preprocessed
+        on the card on the device paths."""
         imgs, labels, _, _ = self.data_iter.next()
         if isinstance(imgs, dict):
             imgs, labels = apply_device_preproc(self.exp, tuple(self.input_size), imgs)
-        return imgs, labels
+        return self._space_rows(imgs), labels
+
+    def _space_rows(self, imgs: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of its data row's images on a space mesh."""
+        mesh = self.mesh
+        if mesh is None or mesh.n_space == 1:
+            return imgs
+        rows = imgs.shape[1] // mesh.n_space
+        return imgs.narrow(1, mesh.space_index * rows, rows).contiguous()
 
     def _load_init_ckpt(self, path: str):
         ckpt = self._init_tree
@@ -243,7 +377,7 @@ class Trainer:
                 labels = labels * scale
             sizes.append(tuple(cur_size))
 
-            metrics = self.train_step(imgs, labels, use_l1=self.use_l1)
+            metrics = self.train_step(self._space_rows(imgs), labels, use_l1=self.use_l1)
             bad += (~torch.isfinite(torch.stack([metrics[k] for k in (
                 "loss", "iou_loss", "obj_loss", "cls_loss", "l1_loss")]))).sum()
             if cuda:
@@ -312,6 +446,8 @@ class Trainer:
         ap, ap50, summary = self.evaluator.evaluate(Predictor(model))
         del model
         self.eval_stats.append({"epoch": self.epoch + 1, "AP": ap, "AP50": ap50,
+                                "records": len(self.evaluator.records),
+                                "images": self.evaluator.shard_range(),
                                 "seconds": time.perf_counter() - t0})
         logger.info("epoch %d eval: %s", self.epoch + 1, summary)
         if self.tblogger is not None:
@@ -330,10 +466,13 @@ class Trainer:
                 "best_ap": self.best_ap}
 
     def save_ckpt(self, name: str, is_best: bool = False):
-        t0 = time.perf_counter()
-        path = save_checkpoint(self.checkpoint_state(), is_best, self.file_name, name)
-        self.ckpt_stats.append({"name": name, "path": path, "bytes": os.path.getsize(path),
-                                "seconds": time.perf_counter() - t0})
+        """Rank 0 writes; every rank waits for it (trainer.py:395-397)."""
+        if self.rank == 0:
+            t0 = time.perf_counter()
+            path = save_checkpoint(self.checkpoint_state(), is_best, self.file_name, name)
+            self.ckpt_stats.append({"name": name, "path": path, "bytes": os.path.getsize(path),
+                                    "seconds": time.perf_counter() - t0})
+        sync_global_devices(f"save {name}")
 
     def resume_train(self):
         args = self.args

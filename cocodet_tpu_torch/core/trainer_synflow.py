@@ -32,7 +32,7 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 import torch
 from torch import nn
 
-from .trainer import Trainer
+from .trainer import TODO, Trainer
 
 logger = logging.getLogger("cocodet_tpu_torch")
 MAPS = ("reg", "obj", "cls")
@@ -114,10 +114,18 @@ def synflow_update_masks(model: nn.Module, scores: Mapping[str, torch.Tensor],
 
 class TrainerSynFlow(Trainer):
     """The trainer that runs the SynFlow schedule at ``prune_epoch``
-    (trainer_synflow.py:81-136)."""
+    (trainer_synflow.py:81-136). One rank only: the score pass and the mask
+    selection on several ranks raise."""
+
+    @classmethod
+    def trains_on_ranks(cls, exp) -> bool:
+        return False
 
     def __init__(self, exp, args, device: Any = "cuda"):
         super().__init__(exp, args, device)
+        if self.world > 1:
+            raise NotImplementedError(f"SynFlow's score pass and mask selection on several "
+                                      f"ranks are not ported {TODO}")
         self.prune_iters = getattr(exp, "prune_iters", 100)
         self.prune_ratio = getattr(exp, "prune_ratio", 0.5)
         self.prune_epoch = getattr(exp, "prune_epoch", 10)

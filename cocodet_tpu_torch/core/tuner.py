@@ -6,7 +6,9 @@ masks when it carries them (a pruned student's teacher computes the
 function the checkpoint describes). The optimizer steps from
 ``tune_start_epoch`` on; the EMA runs as the exp says. A masked init
 checkpoint builds the ChannelMask student, its gates fixed
-(``core/trainer.py``).
+(``core/trainer.py``). It inherits the Trainer's ``num_accumulate`` (the
+distill step's ``optimizer.step()`` accumulates) and, without distillation,
+its ranks; the distill step on several ranks raises.
 """
 
 from __future__ import annotations
@@ -17,16 +19,23 @@ from typing import Any
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import export_variables
 from .pruner import distill_epoch, make_distill_train_step
-from .trainer import Trainer
+from .trainer import TODO, Trainer
 
 logger = logging.getLogger("cocodet_tpu_torch")
 
 
 class Tuner(Trainer):
+    @classmethod
+    def trains_on_ranks(cls, exp) -> bool:
+        return getattr(exp, "distill_coefficient", 0.0) <= 0
+
     def __init__(self, exp, args, device: Any = "cuda"):
         super().__init__(exp, args, device)
         self.distill_coefficient = getattr(exp, "distill_coefficient", 0.0)
         self.tune_start_epoch = getattr(exp, "tune_start_epoch", 0)
+        if not self.trains_on_ranks(exp) and self.world > 1:
+            raise NotImplementedError(f"the Tuner's distillation step (distill_coefficient > 0) "
+                                      f"on several ranks is not ported {TODO}")
 
     def before_train(self):
         super().before_train()

@@ -1,23 +1,27 @@
 """HSV jitter, flip, letterbox and label padding on the card
 (cocodet_tpu/data/device_aug.py): the TrainTransform stage of the
-device-mosaic path.
+device-mosaic and device-aug paths.
 
 ``draw_randoms`` draws each item's random vector on the host in the host
 TrainTransform's call order. ``train_aug_batch`` runs the pixels as one CUDA
-kernel (``ops/cuda/train_aug.py::train_aug``) and the labels as plain tensor
-ops before it (the flip, the degenerate-aug fallback, the stable compaction
-into the (max_labels, 5) layout the loss takes), with no host sync.
-``mosaic_preproc_batch`` is the production composition the trainer runs:
-``device_mosaic.mosaic_mixup_batch`` feeding ``train_aug_batch``.
-
-Not ported: ``DeviceAugDataset`` and ``make_device_collate`` (``device_aug``
-without ``device_mosaic``, which needs the host mosaic), ``mixup_batch`` and
-``DeviceTrainAug`` (ROADMAP Queue 1 item 1).
+kernel (``ops/cuda/train_aug.py::train_aug``, K4) and the labels as plain
+tensor ops before it (the flip, the degenerate-aug fallback, the stable
+compaction into the (max_labels, 5) layout the loss takes), with no host
+sync. ``apply_device_preproc`` is what the trainer runs on a collated batch
+dict: on the device-mosaic path ``device_mosaic.mosaic_mixup_batch``
+feeding ``train_aug_batch`` (``mosaic_preproc_batch``), and on the
+device-aug path (``device_aug`` without ``device_mosaic``) K4 alone, on the
+images the host mosaic composed without its TrainTransform
+(``DeviceAugDataset``), packed into static uint8 buffers by
+``make_device_collate``. ``DeviceTrainAug`` is the same packing and K4 for
+a caller's own (image, boxes) items; ``mixup_batch`` the 0.5/0.5 mixup of
+two letterboxed batches, which no trainer calls, in JAX as here.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+import random
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -130,12 +134,161 @@ def mosaic_preproc_batch(batch: Mapping[str, torch.Tensor], out_size: Tuple[int,
                            hsv_prob=hsv_prob)
 
 
+def mixup_batch(images_a: torch.Tensor, labels_a: torch.Tensor, images_b: torch.Tensor,
+                labels_b: torch.Tensor):
+    """0.5/0.5 mixup of two letterboxed batches with the union of their
+    labels (device_aug.py:298-311): (B, L, 5) zero-padded labels, a's live
+    rows then b's, stably front-compacted and cut to L."""
+    imgs = 0.5 * images_a + 0.5 * images_b
+    both = torch.cat([labels_a, labels_b], dim=1)
+    live = (both[..., 3] > 0) & (both[..., 4] > 0)
+    order = torch.argsort((~live).to(torch.int8), dim=1, stable=True)
+    both = torch.gather(both, 1, order[..., None].expand(-1, -1, both.shape[-1]))
+    return imgs, both[:, :labels_a.shape[1]]
+
+
 def apply_device_preproc(exp, input_size: Tuple[int, int], batch: Mapping[str, torch.Tensor]):
     """The trainer's device preprocessing of a collated batch dict
-    (device_aug.py:343-359). Only the device-mosaic dict is ported."""
-    if "mosaic_tiles" not in batch:
-        raise NotImplementedError(
-            "device_aug without device_mosaic (DeviceAugDataset, make_device_collate) is not "
-            "ported (ROADMAP Queue 1 item 1)")
-    return mosaic_preproc_batch(batch, tuple(input_size), max_labels=exp.max_labels_mosaic,
-                                flip_prob=exp.flip_prob, hsv_prob=exp.hsv_prob)
+    (device_aug.py:343-359): the device-mosaic dict of
+    ``make_mosaic_collate``, or the device-aug dict of
+    ``make_device_collate`` (K4 alone)."""
+    if "mosaic_tiles" in batch:
+        return mosaic_preproc_batch(batch, tuple(input_size), max_labels=exp.max_labels_mosaic,
+                                    flip_prob=exp.flip_prob, hsv_prob=exp.hsv_prob)
+    if "nhw" not in batch:
+        raise ValueError("the device-aug batch carries no host extents nhw: collate it with "
+                         "make_device_collate(..., out_size=input_size)")
+    return train_aug_batch(batch["images_u8"], batch["hw"], batch["boxes_xyxy"], batch["classes"],
+                           batch["nvalid"], batch["randoms"], batch["nhw"],
+                           out_size=tuple(input_size), max_labels=exp.max_labels_mosaic,
+                           flip_prob=exp.flip_prob, hsv_prob=exp.hsv_prob)
+
+
+class DeviceAugDataset:
+    """A ``MosaicDetection`` built with ``preproc=None``, whose ``fetch``
+    returns the composed uint8 image, its xyxy + class labels and the item's
+    random vector, drawn after the mosaic's draws from the same ``rng``
+    (device_aug.py:362-398). An item with no labels draws nothing, as the
+    host TrainTransform returns before its first draw, and carries
+    ``[1, 0, 0, 0, 0, 0, 0, 1]``: gates of 1 turn HSV and the flip off."""
+
+    def __init__(self, inner, hsv_prob: float = 1.0):
+        self._inner = inner
+        self._hsv_prob = hsv_prob
+
+    def __len__(self):
+        return len(self._inner)
+
+    def close_mosaic(self):
+        self._inner.close_mosaic()
+
+    def __getattr__(self, name):
+        if name.startswith("__") or name in ("_inner", "_hsv_prob"):
+            raise AttributeError(name)  # (unpickling, before __init__'s attributes)
+        return getattr(self._inner, name)
+
+    def fetch(self, index, rng=None):
+        rng = rng or getattr(self._inner, "rng", None) or random
+        img, labels, info, img_id = self._inner.fetch(index, rng)
+        if len(labels) == 0:
+            randoms = np.asarray([1, 0, 0, 0, 0, 0, 0, 1], np.float32)
+        else:
+            randoms = draw_randoms(rng, 1, self._hsv_prob)[0]
+        return img, labels, randoms, info, img_id
+
+
+_PACK_WARNED = [False]
+
+
+def pack_items(items: Sequence, src_size: Tuple[int, int], max_boxes: int,
+               out_size: Optional[Tuple[int, int]] = None):
+    """(uint8 image, (n, 5) xyxy + class) items -> ``train_aug_batch``'s
+    static numpy buffers (device_aug.py:402-440): images (B, sh, sw, 3)
+    uint8 in the top-left corner, hw (B, 2) int32, boxes (B, max_boxes, 4)
+    and classes (B, max_boxes) f32, nvalid (B,) int32, and the letterbox
+    extents nhw = (int(h r), int(w r)) (B, 2) int32 in host f64, r = min(oh
+    / h, ow / w), when ``out_size`` is given (zeros otherwise). An image
+    larger than the buffer is cropped, with one warning a process."""
+    b = len(items)
+    sh, sw = src_size
+    imgs = np.zeros((b, sh, sw, 3), np.uint8)
+    hw = np.zeros((b, 2), np.int32)
+    boxes = np.zeros((b, max_boxes, 4), np.float32)
+    classes = np.zeros((b, max_boxes), np.float32)
+    nvalid = np.zeros((b,), np.int32)
+    nhw = np.zeros((b, 2), np.int32)
+    for i, (img, tg) in enumerate(items):
+        if (img.shape[0] > sh or img.shape[1] > sw) and not _PACK_WARNED[0]:
+            _PACK_WARNED[0] = True
+            print(f"[device_aug] WARNING: {img.shape[0]}x{img.shape[1]} image cropped to the "
+                  f"{sh}x{sw} static buffer (raise exp.device_aug_src_scale to keep host "
+                  f"parity)", flush=True)
+        h = min(img.shape[0], sh)
+        w = min(img.shape[1], sw)
+        imgs[i, :h, :w] = img[:h, :w]
+        hw[i] = (h, w)
+        n = min(len(tg), max_boxes)
+        if n:
+            boxes[i, :n] = tg[:n, :4]
+            classes[i, :n] = tg[:n, 4]
+        nvalid[i] = n
+        if out_size is not None:
+            r = min(out_size[0] / h, out_size[1] / w)
+            nhw[i] = (int(h * r), int(w * r))
+    return imgs, hw, boxes, classes, nvalid, nhw
+
+
+def make_device_collate(src_size: Tuple[int, int], max_boxes: int = 120,
+                        out_size: Optional[Tuple[int, int]] = None):
+    """The collate of ``DeviceAugDataset`` items (device_aug.py:443-463):
+    (batch dict, None, infos, ids), the dict's uint8 images a quarter of the
+    host path's f32 bytes on their way to the card. The dict carries
+    ``nhw`` when ``out_size`` is given."""
+
+    def collate(items):
+        randoms = np.stack([it[2] for it in items]).astype(np.float32)
+        infos = [it[3] for it in items]
+        ids = [it[4] for it in items]
+        imgs, hw, boxes, classes, nvalid, nhw = pack_items(
+            [(it[0], it[1]) for it in items], src_size, max_boxes, out_size=out_size)
+        batch = {"images_u8": imgs, "hw": hw, "boxes_xyxy": boxes, "classes": classes,
+                 "nvalid": nvalid, "randoms": randoms}
+        if out_size is not None:
+            batch["nhw"] = nhw
+        return batch, None, infos, ids
+
+    return collate
+
+
+class DeviceTrainAug:
+    """Raw (uint8 image, xyxy + class labels) items -> the TrainTransform's
+    (images, labels) on ``device`` (device_aug.py:466-498): packed by
+    ``pack_items``, their randoms drawn from ``rng`` in the host order, and
+    K4 with the label math on the card (the plain versions on the CPU)."""
+
+    def __init__(self, input_size: Tuple[int, int], src_size: Tuple[int, int],
+                 max_labels: int = 50, max_boxes: int = 120, flip_prob: float = 0.5,
+                 hsv_prob: float = 1.0, device: Union[str, torch.device] = "cuda"):
+        self.input_size = tuple(input_size)
+        self.src_size = tuple(src_size)
+        self.max_labels = max_labels
+        self.max_boxes = max_boxes
+        self.flip_prob = flip_prob
+        self.hsv_prob = hsv_prob
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: DeviceTrainAug runs on the card unless it is "
+                               "asked for the CPU (device='cpu')")
+
+    def collate(self, items, rng):
+        """The host's numpy buffers: (imgs, hw, boxes, classes, nvalid,
+        randoms, nhw)."""
+        imgs, hw, boxes, classes, nvalid, nhw = pack_items(
+            items, self.src_size, self.max_boxes, out_size=self.input_size)
+        randoms = draw_randoms(rng, len(items), self.hsv_prob)
+        return imgs, hw, boxes, classes, nvalid, randoms, nhw
+
+    def __call__(self, items, rng):
+        arrays = [torch.from_numpy(a).to(self.device) for a in self.collate(items, rng)]
+        return train_aug_batch(*arrays, out_size=self.input_size, max_labels=self.max_labels,
+                               flip_prob=self.flip_prob, hsv_prob=self.hsv_prob)

@@ -3,10 +3,12 @@ samplers.py).
 
 ``InfiniteSampler`` is the seeded numpy permutation stream, strided by rank;
 ``YoloBatchSampler`` yields batches of (mosaic flag, index);
-``DetectionLoader`` fetches each item on a thread pool with its own
-``random.Random`` seeded from (loader seed, stream position), so the
-augmentation stream does not depend on the worker count or the scheduling,
-and hands the items to a collate function.
+``DetectionLoader`` fetches each item on a pool of threads (or of worker
+processes) with its own ``random.Random`` seeded from (loader seed, stream
+position), so the augmentation stream does not depend on the worker count,
+the kind of worker or the scheduling, and hands the items to a collate
+function. A data-parallel rank fetches only its data row's contiguous slice
+of each batch (``rows``), with the seeds of the whole batch's positions.
 
 ``DevicePrefetcher`` keeps the next batch on its way to the card while the
 current one trains: once a batch is taken, a thread collates the next, copies each numpy array into
@@ -21,11 +23,12 @@ as tensors.
 from __future__ import annotations
 
 import itertools
+import multiprocessing
 import queue
 import random
 import threading
-from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Iterator, Mapping, Optional
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor, wait
+from typing import Any, Iterator, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -81,63 +84,136 @@ def collate_items(items):
     return imgs, labels, [it[2] for it in items], [it[3] for it in items]
 
 
+# a process worker's dataset, set once by the pool's initializer
+_WORKER_DATASET = None
+
+
+def _init_worker(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _fetch_item(dataset, item, seed: int):
+    rng = random.Random(seed)
+    if hasattr(dataset, "fetch"):
+        return dataset.fetch(item, rng)
+    return dataset[item]
+
+
+def _process_fetch(item, seed: int):
+    return _fetch_item(_WORKER_DATASET, item, seed)
+
+
 class DetectionLoader:
     """Batch assembler over a dataset with a ``fetch(item, rng)`` (or
-    ``__getitem__``) on thread workers, yielding ``collate_fn(items)``
-    (``collate_items`` by default). ``close_mosaic()`` flips the batch
-    sampler's flag and the dataset's own switch (ref dataloading.py:42-114).
-    The JAX loader's process workers are not ported: the host C++ of the
-    decode, resize, warp and HSV releases the GIL, so threads run it in
-    parallel."""
+    ``__getitem__``), yielding ``collate_fn(items)`` (``collate_items`` by
+    default). ``close_mosaic()`` flips the batch sampler's flag and the
+    dataset's own switch (ref dataloading.py:42-114).
+
+    ``mode="thread"`` (the default, and what the exp builds) fetches on
+    threads: the host C++ of the decode, resize, warp and HSV releases the
+    GIL, so they run in parallel. ``mode="process"`` fetches in worker
+    processes (cocodet_tpu/data/samplers.py:72-146), spawned, not forked
+    as JAX's are: a fork after CUDA is up and while ``DevicePrefetcher``'s
+    thread runs may deadlock. Each worker
+    takes the dataset once, pickled, through the pool's initializer, and
+    loads the host libraries anew; ``close_mosaic`` restarts the pool so
+    the workers see the flag (JAX's ``_restart_pool``). Both modes give the
+    same items bit for bit.
+
+    ``rows = (row, n_rows)`` fetches only the ``row``-th of ``n_rows``
+    contiguous slices of each batch (a data-parallel rank's share); the item
+    seeds count every position of the whole batch, so the rows' items,
+    concatenated, are the whole batch's.
+
+    ``close_mosaic`` first waits for the items already submitted: they were
+    sampled with mosaic on and read the dataset's mixup switch, which the
+    dataset's ``close_mosaic`` turns off. Fetched late on a thread, JAX's
+    items see it off or on as the threads happen to run (JAX's
+    samplers.py:98-104); here they all see it on, so every run, every kind
+    of worker and every rank gets the same items."""
 
     def __init__(self, dataset, batch_sampler: YoloBatchSampler, num_workers: int = 2,
-                 seed: int = 0, prefetch: int = 2, collate_fn=None):
+                 seed: int = 0, prefetch: int = 2, collate_fn=None, mode: str = "thread"):
+        if mode not in ("thread", "process"):
+            raise ValueError(f"mode must be 'thread' or 'process', not {mode!r}")
         self.dataset = dataset
         self.batch_sampler = batch_sampler
         self.num_workers = max(num_workers, 1)
         self.seed = seed
         self.prefetch = prefetch
         self.collate_fn = collate_fn or collate_items
+        self.mode = mode
+        self.rows: Tuple[int, int] = (0, 1)  # (row, n_rows): see the class docstring
         self._counter = 0
+        self._restart_pool = False
+        self._inflight: list = []  # submitted futures, not yet known to be done
 
     def close_mosaic(self):
         self.batch_sampler.mosaic = False
+        wait(list(self._inflight))
         if hasattr(self.dataset, "close_mosaic"):
             self.dataset.close_mosaic()
+        # process workers hold a copy of the dataset: restart them
+        self._restart_pool = True
 
     def _item_seed(self, counter: int) -> int:
         return (self.seed + 1) * 1_000_003 + counter
 
     def _fetch(self, item, counter):
-        rng = random.Random(self._item_seed(counter))
-        if hasattr(self.dataset, "fetch"):
-            return self.dataset.fetch(item, rng)
-        return self.dataset[item]
+        return _fetch_item(self.dataset, item, self._item_seed(counter))
+
+    def _row_slice(self, n: int) -> Tuple[int, int]:
+        row, n_rows = self.rows
+        if n % n_rows:
+            raise ValueError(f"a batch of {n} does not split over {n_rows} data rows")
+        per = n // n_rows
+        return row * per, (row + 1) * per
+
+    def _make_pool(self):
+        if self.mode == "process":
+            return ProcessPoolExecutor(max_workers=self.num_workers,
+                                       mp_context=multiprocessing.get_context("spawn"),
+                                       initializer=_init_worker, initargs=(self.dataset,))
+        return ThreadPoolExecutor(max_workers=self.num_workers)
+
+    def _submit(self, pool, item, counter):
+        if self.mode == "process":
+            return pool.submit(_process_fetch, item, self._item_seed(counter))
+        return pool.submit(self._fetch, item, counter)
 
     def __iter__(self):
+        self._restart_pool = False
+        pool = self._make_pool()
         batches = iter(self.batch_sampler)
         pending = queue.Queue()
-        with ThreadPoolExecutor(max_workers=self.num_workers) as pool:
 
-            def submit_next():
-                batch = next(batches)
-                futs = []
-                for it in batch:
-                    futs.append(pool.submit(self._fetch, it, self._counter))
-                    self._counter += 1
-                pending.put(futs)
+        def submit_next():
+            nonlocal pool
+            if self._restart_pool and self.mode == "process":
+                pool.shutdown(wait=True)
+                pool = self._make_pool()
+                self._restart_pool = False
+            batch = next(batches)
+            lo, hi = self._row_slice(len(batch))
+            futs = [self._submit(pool, it, self._counter + k)
+                    for k, it in enumerate(batch) if lo <= k < hi]
+            self._counter += len(batch)
+            self._inflight = [f for f in self._inflight if not f.done()] + futs
+            pending.put(futs)
 
+        try:
             for _ in range(self.prefetch):
                 submit_next()
-            try:
-                while True:
-                    futures = pending.get()
-                    submit_next()
-                    yield self.collate_fn([f.result() for f in futures])
-            finally:
-                while not pending.empty():
-                    for f in pending.get():
-                        f.cancel()
+            while True:
+                futures = pending.get()
+                submit_next()
+                yield self.collate_fn([f.result() for f in futures])
+        finally:
+            while not pending.empty():
+                for f in pending.get():
+                    f.cancel()
+            pool.shutdown(wait=True, cancel_futures=True)
 
 
 def _to_tensors(tree: Any, fn) -> Any:

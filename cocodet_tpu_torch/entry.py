@@ -182,7 +182,8 @@ def evaluate(data_dir: str, predictor: Optional[Predictor] = None,
 def build_trainer(depth: float = 0.67, width: float = 0.75,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Union[str, torch.device] = "cuda",
-                  seed: int = 0, mesh: Optional[Mesh] = None) -> Tuple[YOLOX, Callable]:
+                  seed: int = 0, mesh: Optional[Mesh] = None,
+                  remat: bool = False) -> Tuple[YOLOX, Callable]:
     """(model, step): the unfused YOLOX-P6 at ``depth``/``width`` in train
     mode, f32 parameters computing in ``dtype``, weights drawn from numpy
     ``seed`` with the head's cls and obj biases at the prior 0.01, and its
@@ -192,7 +193,8 @@ def build_trainer(depth: float = 0.67, width: float = 0.75,
     0.9998, the iou loss, 80 classes, strides (8, 16, 32, 64). On a
     ``mesh`` (``parallel.make_mesh``, ``make_mesh_2d``) the model lives on
     the mesh's device, starts from rank 0's weights, and the step is the
-    data-parallel step over the global batch."""
+    data-parallel step over the global batch. ``remat`` recomputes the
+    forward in the backward (``core/train_state.py::make_forward``)."""
     if mesh is not None:
         device = mesh.device
     with torch.device("meta"):
@@ -201,7 +203,7 @@ def build_trainer(depth: float = 0.67, width: float = 0.75,
                         variables=random_variables(shapes, seed, prior_prob=0.01))
     state = create_train_state(model, build_optimizer(model, 0.01), mesh=mesh)
     return model, make_train_step(state, model.strides, num_classes=model.num_classes,
-                                  mesh=mesh)
+                                  mesh=mesh, remat=remat)
 
 
 def _dryrun_rank(rank: int, device: torch.device) -> dict:

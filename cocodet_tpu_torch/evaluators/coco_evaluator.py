@@ -8,8 +8,13 @@ postprocess set to the evaluator's point (conf, NMS IoU, pre-NMS top-K,
 threads assemble the next batches (read, resize, letterbox) while the card
 computes the current one. The records are scaled back to the original
 image, mapped to the 91-id COCO space and scored by ``COCOMeanAP``.
-Gathering detections across hosts is the caller's ``gather_fn``; the
-port's torch.distributed gather comes with the trainer.
+
+With ``shard = (rank, world)`` (a data-parallel trainer's ranks) each rank
+evaluates its contiguous share of the val set, ``ceil(n / world)`` whole
+images (cocodet_tpu/evaluators/coco_evaluator.py:86-91); the records are
+gathered over the ranks (``parallel.process_allgather_detections``, or the
+caller's ``gather_fn``), rank 0 scores them and broadcasts the 12 stats, so
+every rank returns the same AP.
 """
 
 from __future__ import annotations
@@ -22,8 +27,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+import torch.distributed as dist
+
 from ..data.coco import COCO_CLASS_ID
 from ..ops.postprocess import PostprocessConfig
+from ..parallel.mesh import process_allgather_detections
 from .coco_metric import COCOMeanAP
 
 logger = logging.getLogger(__name__)
@@ -48,6 +56,7 @@ class COCOEvaluator:
         self.batch_size = batch_size
         self.max_det = max_det
         self.pre_nms_topk = pre_nms_topk
+        self.shard = (0, 1)  # (rank, world) of a data-parallel run
 
     @property
     def postprocess_config(self) -> PostprocessConfig:
@@ -59,25 +68,34 @@ class COCOEvaluator:
     def _batches(self):
         """Threaded batch assembly: batch k+1's read and letterbox overlap
         batch k's compute on the card. A ragged last batch is padded with
-        zero images (their detections are never read)."""
+        zero images (their detections are never read). A rank of a sharded
+        run reads only its share of the images."""
         ds = self.dataset
-        n = len(ds)
+        lo, hi = self.shard_range()
 
         def build(start):
-            items = [ds[i] for i in range(start, min(start + self.batch_size, n))]
+            items = [ds[i] for i in range(start, min(start + self.batch_size, hi))]
             imgs = np.stack([np.asarray(it[0], np.float32) for it in items])
             pad = self.batch_size - len(items)
             if pad:
                 imgs = np.concatenate([imgs, np.zeros((pad,) + imgs.shape[1:], np.float32)])
             return imgs, [it[2] for it in items], [it[3] for it in items]
 
-        starts = list(range(0, n, self.batch_size))
+        starts = list(range(lo, hi, self.batch_size))
         with ThreadPoolExecutor(max_workers=2) as pool:
             futures = [pool.submit(build, s) for s in starts[:2]]
             for k in range(len(starts)):
                 if k + 2 < len(starts):
                     futures.append(pool.submit(build, starts[k + 2]))
                 yield futures[k].result()
+
+    def shard_range(self) -> Tuple[int, int]:
+        """[lo, hi) of this rank's images: ``ceil(n / world)`` a rank."""
+        rank, world = self.shard
+        n = len(self.dataset)
+        per = (n + world - 1) // world
+        lo = min(rank * per, n)
+        return lo, min(lo + per, n)
 
     def convert_to_coco_format(self, result, infos, ids) -> List[dict]:
         """Scale detections back to original image space and emit COCO
@@ -130,7 +148,10 @@ class COCOEvaluator:
             t_host += t3 - t2
             n_batches += 1
 
-        if gather_fn is not None:  # multi-host: concat per-process shards
+        rank, world = self.shard
+        if gather_fn is None and world > 1:
+            gather_fn = process_allgather_detections
+        if gather_fn is not None:  # several ranks: concatenate their shares
             data_list = gather_fn(data_list)
 
         if output_json:
@@ -149,7 +170,10 @@ class COCOEvaluator:
         logger.info(summary)
 
         self.records = data_list
-        self.stats = self.evaluate_prediction(data_list)
+        stats = [self.evaluate_prediction(data_list) if rank == 0 else None]
+        if world > 1:
+            dist.broadcast_object_list(stats, src=0)
+        self.stats = stats[0]
         summary += f" | AP={self.stats['AP']:.4f} AP50={self.stats['AP50']:.4f}"
         return self.stats["AP"], self.stats["AP50"], summary
 

@@ -10,11 +10,13 @@ with nesterov momentum and weight decay on the conv kernels only
 (``utils/lr_scheduler.py``); the multiscale buckets, drawn from a seeded host
 ``random.Random``; and the ``COCOEvaluator`` at ``test_size``,
 ``test_conf`` and ``nms_threshold``. The loader is the host mosaic path by
-default (``data/mosaic.py``, as the JAX package's default exp) and the
-device-mosaic path with ``device_mosaic True``. ``get_model(use_mask=True)``
-builds the ChannelMask model of the Pruner and Tuner, ``weight_mask=True``
-SynFlow's (``SynFlowExp``). ``device_aug`` alone and the yolov3 model raise
-``NotImplementedError``.
+default (``data/mosaic.py``, as the JAX package's default exp), the
+device-mosaic path with ``device_mosaic True``, and with ``device_aug True``
+alone the host mosaic without its TrainTransform, whose HSV, flip and
+letterbox then run on the card (``data/device_aug.py``).
+``get_model(use_mask=True)`` builds the ChannelMask model of the Pruner and
+Tuner, ``weight_mask=True`` SynFlow's (``SynFlowExp``). The yolov3 model
+raises ``NotImplementedError``.
 
 ``bn_momentum`` is an attribute of every exp (0.01 in the phase-2 exp) that
 no ``get_model`` reads, in JAX as here: the BN momentum stays the blocks'
@@ -31,9 +33,6 @@ import torch
 
 from .base_exp import BaseExp
 
-DEVICE_AUG_TODO = ("device_aug without device_mosaic (DeviceAugDataset, make_device_collate) "
-                   "is not ported (ROADMAP Queue 1 item 1): unset device_aug for the host "
-                   "mosaic path, or set device_mosaic True")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
@@ -145,12 +144,14 @@ class Exp(BaseExp):
         mosaic path: ``MosaicDetection`` with ``TrainTransform`` on the
         loader's threads, batches of float32 images and padded labels. With
         ``device_mosaic``: the host decodes and draws, ``data/device_mosaic.py``
-        collates raw uint8 tiles for the card."""
+        collates raw uint8 tiles for the card. With ``device_aug`` alone:
+        ``MosaicDetection`` without its TrainTransform, the composed uint8
+        images and their draws collated into ``data/device_aug.py``'s static
+        buffers for K4 on the card."""
         from ..data.samplers import DetectionLoader, InfiniteSampler, YoloBatchSampler
 
         device_mosaic = getattr(self, "device_mosaic", False)
-        if getattr(self, "device_aug", False) and not device_mosaic:
-            raise NotImplementedError(DEVICE_AUG_TODO)
+        device_aug = getattr(self, "device_aug", False)
         dataset = self.get_dataset(cache=cache_img)
         item_rng = random.Random(1_000_003 * (seed + 1) + rank)
         sampler = InfiniteSampler(len(dataset), seed=seed, rank=rank, world_size=world_size)
@@ -161,13 +162,24 @@ class Exp(BaseExp):
 
             wrapped = MosaicDetection(
                 dataset, mosaic=not no_aug, img_size=self.input_size,
-                preproc=TrainTransform(max_labels=self.max_labels_mosaic,
-                                       flip_prob=self.flip_prob, hsv_prob=self.hsv_prob),
+                preproc=None if device_aug else TrainTransform(
+                    max_labels=self.max_labels_mosaic, flip_prob=self.flip_prob,
+                    hsv_prob=self.hsv_prob),
                 degrees=self.degrees, translate=self.translate, mosaic_scale=self.mosaic_scale,
                 mixup_scale=self.mixup_scale, shear=self.shear, enable_mixup=self.enable_mixup,
                 mosaic_prob=self.mosaic_prob, mixup_prob=self.mixup_prob, rng=item_rng)
+            collate = None
+            if device_aug:
+                from ..data.device_aug import DeviceAugDataset, make_device_collate
+
+                scale = getattr(self, "device_aug_src_scale", 1.0)
+                src_size = (int(self.input_size[0] * scale), int(self.input_size[1] * scale))
+                wrapped = DeviceAugDataset(wrapped, hsv_prob=self.hsv_prob)
+                collate = make_device_collate(
+                    src_size, max_boxes=getattr(self, "device_aug_max_boxes", 120),
+                    out_size=self.input_size)
             return DetectionLoader(wrapped, batch_sampler, num_workers=self.data_num_workers,
-                                   seed=seed)
+                                   seed=seed, collate_fn=collate)
 
         from ..data.device_mosaic import DeviceMosaicDataset, make_mosaic_collate
 

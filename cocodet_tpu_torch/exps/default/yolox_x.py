@@ -1,0 +1,16 @@
+"""Standard YOLOX-X (registry twin of ref exps/default/yolox_x.py).
+
+The port's copy of exps/default/yolox_x.py, on the port's experiment classes.
+"""
+
+import os
+
+from cocodet_tpu_torch.exp import Exp as BaseE
+
+
+class Exp(BaseE):
+    def __init__(self):
+        super().__init__()
+        self.depth = 1.33
+        self.width = 1.25
+        self.exp_name = os.path.split(os.path.realpath(__file__))[1].split(".")[0]

@@ -15,15 +15,13 @@ from typing import Optional, Sequence
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Parse ``argv`` (default: the command line), build the exp and prune;
-    returns the Pruner."""
+    """Parse ``argv`` (default: the command line), build the exp and run
+    the Pruner (``tools/train.py::launch``: ``-d`` ranks on this host);
+    returns it, or the ``TrainRun`` of several ranks."""
     from cocodet_tpu_torch.core.pruner import Pruner
-    from cocodet_tpu_torch.tools.train import build
+    from cocodet_tpu_torch.tools.train import launch
 
-    exp, args = build(argv)
-    pruner = Pruner(exp, args, device=args.device)
-    pruner.train()
-    return pruner
+    return launch(Pruner, argv)
 
 
 if __name__ == "__main__":

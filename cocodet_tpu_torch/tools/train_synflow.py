@@ -14,15 +14,13 @@ from typing import Optional, Sequence
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Parse ``argv`` (default: the command line), build the exp and train
-    with SynFlow pruning; returns the TrainerSynFlow."""
+    """Parse ``argv`` (default: the command line), build the exp and run
+    the TrainerSynFlow (``tools/train.py::launch``: ``-d`` ranks on this host);
+    returns it, or the ``TrainRun`` of several ranks."""
     from cocodet_tpu_torch.core.trainer_synflow import TrainerSynFlow
-    from cocodet_tpu_torch.tools.train import build
+    from cocodet_tpu_torch.tools.train import launch
 
-    exp, args = build(argv)
-    trainer = TrainerSynFlow(exp, args, device=args.device)
-    trainer.train()
-    return trainer
+    return launch(TrainerSynFlow, argv)
 
 
 if __name__ == "__main__":

@@ -15,15 +15,13 @@ from typing import Optional, Sequence
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    """Parse ``argv`` (default: the command line), build the exp and tune;
-    returns the Tuner."""
+    """Parse ``argv`` (default: the command line), build the exp and run
+    the Tuner (``tools/train.py::launch``: ``-d`` ranks on this host);
+    returns it, or the ``TrainRun`` of several ranks."""
     from cocodet_tpu_torch.core.tuner import Tuner
-    from cocodet_tpu_torch.tools.train import build
+    from cocodet_tpu_torch.tools.train import launch
 
-    exp, args = build(argv)
-    tuner = Tuner(exp, args, device=args.device)
-    tuner.train()
-    return tuner
+    return launch(Tuner, argv)
 
 
 if __name__ == "__main__":

@@ -297,24 +297,52 @@ def optimizer_state_dict(optimizer, model: nn.Module) -> Dict[str, Any]:
     nesterov=True))`` (flax ``to_state_dict``): ``{"0": {"inner_state": {}},
     "1": {"0": {"trace": params}, "1": {"count": int32}}}``. optax's trace
     and torch's ``momentum_buffer`` both hold ``g + momentum * buf``; a
-    parameter that has taken no step has a zero trace."""
+    parameter that has taken no step has a zero trace.
+
+    Under ``multi_steps`` (``every_k > 1``) it is ``optax.MultiStepsState``'s
+    dict around that one: ``{"mini_step": int32, "gradient_step": int32,
+    "inner_opt_state": <the dict above>, "acc_grads": <params tree, f32>,
+    "skip_state": {}}``."""
     buffers = {}
     for name, p in model.named_parameters():
         buf = optimizer.state.get(p, {}).get("momentum_buffer")
         buffers[name] = torch.zeros_like(p) if buf is None else buf
     trace = export_tensors(buffers)["params"]
-    return {"0": {"inner_state": {}},
-            "1": {"0": {"trace": trace}, "1": {"count": np.asarray(optimizer.count, np.int32)}}}
+    inner = {"0": {"inner_state": {}},
+             "1": {"0": {"trace": trace}, "1": {"count": np.asarray(optimizer.count, np.int32)}}}
+    if getattr(optimizer, "every_k", 1) == 1:
+        return inner
+    acc = {name: optimizer.acc.get(p, torch.zeros_like(p, dtype=torch.float32))
+           for name, p in model.named_parameters()}
+    return {"mini_step": np.asarray(optimizer.mini_step, np.int32),
+            "gradient_step": np.asarray(optimizer.count, np.int32),
+            "inner_opt_state": inner, "acc_grads": export_tensors(acc)["params"],
+            "skip_state": {}}
 
 
 def load_optimizer_state(optimizer, model: nn.Module, state: Mapping[str, Any]) -> None:
     """Set the SGD's momentum buffers and step count from optax's state dict
-    (``optimizer_state_dict``'s layout, as a JAX checkpoint holds it)."""
+    (``optimizer_state_dict``'s layout, as a JAX checkpoint holds it), and
+    under ``multi_steps`` its running mean and ``mini_step`` from the
+    ``MultiStepsState`` around it. The two layouts do not mix: an
+    accumulating optimizer takes only the second, a plain one the first."""
+    multi = "inner_opt_state" in state
+    if multi != (getattr(optimizer, "every_k", 1) > 1):
+        raise ValueError(f"the optimizer state is {'' if multi else 'not '}optax.MultiSteps', "
+                         f"the optimizer accumulates every {optimizer.every_k} steps")
+    inner = state["inner_opt_state"] if multi else state
     named = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in model.named_parameters()}
-    load_tensors(named, {"params": state["1"]["0"]["trace"]})
+    load_tensors(named, {"params": inner["1"]["0"]["trace"]})
     for name, p in model.named_parameters():
         optimizer.state[p]["momentum_buffer"] = named[name].to(p.dtype)
-    optimizer.count = int(np.asarray(state["1"]["1"]["count"]))
+    optimizer.count = int(np.asarray(inner["1"]["1"]["count"]))
+    if multi:
+        acc = {n: torch.zeros_like(p, dtype=torch.float32) for n, p in model.named_parameters()}
+        load_tensors(acc, {"params": state["acc_grads"]})
+        optimizer.acc = {p: acc[n] for n, p in model.named_parameters()}
+        optimizer.mini_step = int(np.asarray(state["mini_step"]))
+        if int(np.asarray(state["gradient_step"])) != optimizer.count:
+            raise ValueError("MultiStepsState: gradient_step differs from the inner count")
 
 
 def ema_variables(ema) -> Dict[str, Any]:

@@ -201,8 +201,15 @@ def test_load_matched_equals_jax(caplog):
                              "bias": rs.rand(5).astype(np.float32)},
                        "q": {"kernel": rs.randint(-9, 9, (2, 2)).astype(np.int8)},
                        "extra": {"kernel": np.zeros(3, np.float32)}}}
-    with caplog.at_level(logging.WARNING):
-        got = pck.load_matched(target, ckpt)
+    # the port's (and JAX's) logger stops propagating once a trainer in this
+    # process has set it up (utils/logger.py): capture on the port's directly
+    port_logger = logging.getLogger("cocodet_tpu_torch")
+    port_logger.addHandler(caplog.handler)
+    try:
+        with caplog.at_level(logging.WARNING):
+            got = pck.load_matched(target, ckpt)
+    finally:
+        port_logger.removeHandler(caplog.handler)
     want = jax.tree_util.tree_map(np.asarray, jck.load_matched(target, ckpt))
     _same(_sorted(got), _sorted(want))
     text = caplog.text

@@ -108,15 +108,29 @@ def test_model_and_evaluator_follow_the_exp(tmp_path):
     assert len(pe.dataset) == len(je.dataset) == 2
 
 
-def test_host_mosaic_path_raises():
-    """The host mosaic path runs (tests/test_torch_host_mosaic.py); what
-    still raises is device_aug without device_mosaic, before any file is
-    read. Masked models no longer raise: get_model(use_mask=True) builds the
-    ChannelMask model, every gate open (tests/test_torch_channel_mask.py)."""
+def test_host_mosaic_path_raises(tmp_path):
+    """Named when device_aug without device_mosaic raised; now the exp
+    builds JAX's device-aug loader for it (yolox_exp.py:196-227): the host
+    mosaic without its TrainTransform, wrapped in DeviceAugDataset, collated
+    into K4's static uint8 buffers with the host extents
+    (tests/test_torch_device_aug.py holds them against JAX). Masked models
+    no longer raise: get_model(use_mask=True) builds the ChannelMask model,
+    every gate open (tests/test_torch_channel_mask.py)."""
+    from cocodet_tpu_torch.data.device_aug import DeviceAugDataset
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    root = make_synthetic_coco(str(tmp_path), n_train=2, n_val=1, size_range=(64, 96))
     exp = pexp.get_exp_by_file(PORT_FILE)
-    exp.device_aug = True
-    with pytest.raises(NotImplementedError, match="device_aug without device_mosaic"):
-        exp.get_data_loader(batch_size=2)
+    exp.merge(["device_aug", "True", "input_size", "(128, 128)", "data_num_workers", "1",
+               "data_dir", root])
+    loader = exp.get_data_loader(batch_size=2)
+    assert isinstance(loader.dataset, DeviceAugDataset) and loader.dataset.preproc is None
+    it = iter(loader)
+    batch, labels, _, _ = next(it)
+    it.close()
+    assert labels is None and batch["images_u8"].shape == (2, 128, 128, 3)
+    assert sorted(batch) == ["boxes_xyxy", "classes", "hw", "images_u8", "nhw", "nvalid",
+                             "randoms"]
     exp.merge(["depth", "0.33", "width", "0.125", "compute_dtype", "float32"])
     model = exp.get_model(device="cpu", use_mask=True)
     gates = [m.mask for m in model.modules() if getattr(m, "mask", None) is not None]

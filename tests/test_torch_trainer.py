@@ -41,6 +41,7 @@ from cocodet_tpu_torch.core import trainer as ptr
 from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
 from cocodet_tpu_torch.exp import get_exp_by_file as port_exp
 from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX
+from cocodet_tpu_torch.tools import train as ptrain
 from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cocodet_tpu_torch.utils.convert import flatten_tree, random_variables
 
@@ -239,14 +240,47 @@ def test_resume_bookkeeping_matches_jax(runs):
 
 @pytest.mark.parametrize("attr, value", [("num_accumulate", 2), ("remat", True),
                                          ("spatial_devices", 2)])
-def test_unported_training_paths_raise(tmp_path, attr, value):
-    """Gradient accumulation, remat and the trainer's spatial mesh raise
-    (ROADMAP Queue 1), before anything is built."""
-    exp = port_exp(os.path.join(REPO, "cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py"))
-    exp.output_dir = str(tmp_path)
+def test_unported_training_paths_raise(runs, tmp_path, attr, value):
+    """Named when gradient accumulation, remat and the trainer's spatial
+    mesh raised (ROADMAP Queue 1 item 1); now each trains an epoch of the
+    tiny exp on one rank. Accumulation: the optimizer is optax.MultiSteps'
+    (the parameters move every second iteration, the lr's count with them)
+    and the checkpoint's ``opt_state`` is the ``MultiStepsState`` tree,
+    which JAX's ``from_state_dict`` reads into ``optax.MultiSteps(
+    exp.get_optimizer(2), 2).init`` (trainer.py:106-110). remat: the
+    step's forward recomputed, the losses finite. ``spatial_devices`` on
+    one rank: JAX's warning and an unsharded run (trainer.py:172-178)."""
+    import optax
+    from flax import serialization
+
+    exp = make_exp(port_exp, os.path.join(REPO, "cocodet_tpu_torch", "exps", "p6",
+                                          "yolox_m_p6.py"), runs["root"], str(tmp_path),
+                   runs["init"])
     setattr(exp, attr, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        ptr.Trainer(exp, Args(), device="cpu")
+    t = ptr.Trainer(exp, Args(), device="cpu")
+    t.before_train()
+    try:
+        t.train_in_iter()
+        if attr == "num_accumulate":
+            t.save_ckpt("latest")
+    finally:
+        t.after_train()
+    assert t.epoch_stats[0]["iterations"] == 4 and t.epoch_stats[0]["nonfinite_losses"] == 0
+    assert t.mesh is None
+    if attr == "num_accumulate":
+        assert (t.optimizer.every_k, t.optimizer.count, t.optimizer.mini_step) == (2, 2, 0)
+        tree = load_checkpoint(os.path.join(t.file_name, "latest_ckpt.msgpack"))
+        jexp = make_exp(jax_exp, os.path.join(REPO, "exps", "p6", "yolox_m_p6.py"),
+                        runs["root"], str(tmp_path), None)
+        params = jax.tree_util.tree_map(jax.numpy.asarray, tree["raw_model"]["params"])
+        jexp.get_lr_scheduler(jexp.basic_lr_per_img * 2, t.iters_per_epoch)
+        target = optax.MultiSteps(jexp.get_optimizer(2), every_k_schedule=2).init(params)
+        restored = serialization.from_state_dict(target, tree["opt_state"])
+        assert (int(restored.mini_step), int(restored.gradient_step)) == (0, 2)
+        assert int(restored.inner_opt_state[1][1].count) == 2
+    if attr == "spatial_devices":
+        with open(os.path.join(t.file_name, "train_log.txt")) as f:
+            assert "training UNSHARDED" in f.read()
 
 
 def test_masked_exp_builds_the_trainer(tmp_path):
@@ -261,7 +295,108 @@ def test_masked_exp_builds_the_trainer(tmp_path):
 
 
 def test_cli_refuses_several_hosts():
-    from cocodet_tpu_torch.tools.train import build
+    """Named when ``--num-hosts > 1`` raised; now the CLI joins several
+    hosts (tests/test_torch_trainer_hosts.py) and refuses only what cannot
+    form a world: no ``--coordinator``, or a ``--host-id`` that is not one
+    of the hosts. ``-d`` counts this host's ranks (1 on the CPU unless
+    given)."""
+    from cocodet_tpu_torch.tools.train import build, launch, local_ranks
 
-    with pytest.raises(NotImplementedError, match="multi-host"):
-        build(["-n", "yolox-m-p6", "--num-hosts", "2"])
+    exp, args = build(["-n", "yolox-m-p6", "--num-hosts", "2", "--device", "cpu"])
+    assert (args.num_hosts, args.host_id, local_ranks(args)) == (2, 0, 1)
+    assert local_ranks(build(["-n", "yolox-m-p6", "-d", "3"])[1]) == 3
+    with pytest.raises(ValueError, match="--coordinator"):
+        launch(ptr.Trainer, ["-n", "yolox-m-p6", "--num-hosts", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="--host-id 2"):
+        launch(ptr.Trainer, ["-n", "yolox-m-p6", "--num-hosts", "2", "--host-id", "2",
+                             "--device", "cpu"])
+
+
+def fake_world(monkeypatch, world=2, rank=0):
+    """The trainer's view of a process group of ``world`` ranks, for the
+    guards that run before anything is built."""
+    monkeypatch.setattr(ptr, "world_size", lambda: world)
+    monkeypatch.setattr(ptr.dist, "get_rank", lambda: rank)
+
+
+def test_ranks_refuse_what_they_cannot_shard(tmp_path, monkeypatch):
+    """A batch the data rows do not divide raises before the first step (a
+    rank cannot drop out of the mesh, as JAX's devices do); so do a space
+    axis that does not divide the ranks, a training size in the unsafe
+    sharding regime, and a test size the space axis does not divide
+    (trainer.py:183-187, :221-252)."""
+    fake_world(monkeypatch, world=4)
+    path = os.path.join(REPO, "cocodet_tpu_torch", "exps", "p6", "yolox_m_p6_spatial.py")
+    cases = [({}, 3, "does not split over 2 data rows"),
+             ({"spatial_devices": 3}, 4, "must divide the 4 ranks"),
+             ({"multiscale_step": 64}, 4, "training size 704 is in the unsafe"),
+             ({"test_size": (641, 640)}, 4, "test_size height 641")]
+    for over, batch, match in cases:
+        exp = port_exp(path)
+        exp.output_dir = str(tmp_path)
+        for k, v in over.items():
+            setattr(exp, k, v)
+
+        class A(Args):
+            batch_size = batch
+        with pytest.raises(ValueError, match=match):
+            ptr.Trainer(exp, A(), device="cpu")
+    exp = port_exp(path)
+    exp.output_dir = str(tmp_path)
+
+    class B(Args):
+        batch_size = 4
+    t = ptr.Trainer(exp, B(), device="cpu")  # 2 data rows of 2 images, 2 space ranks
+    assert (t.world, t.rank, t.spatial_devices) == (4, 0, 2)
+
+
+RANKLESS = {"pruner": ("prune", "yolox_m_p6_prune.py"),
+            "tuner_distill": ("tune", "yolox_m_p6_tune_distill.py"),
+            "synflow": ("synflow", "yolox_m_synflow.py")}
+
+
+def rankless_trainer(kind):
+    from cocodet_tpu_torch.core.pruner import Pruner
+    from cocodet_tpu_torch.core.trainer_synflow import TrainerSynFlow
+    from cocodet_tpu_torch.core.tuner import Tuner
+
+    return {"pruner": Pruner, "tuner_distill": Tuner, "synflow": TrainerSynFlow}[kind]
+
+
+@pytest.mark.parametrize("kind", sorted(RANKLESS))
+def test_pruner_and_distillation_on_several_ranks_raise(tmp_path, monkeypatch, kind):
+    """The Pruner's distill and score steps, the Tuner's distillation step
+    and SynFlow's score pass and mask selection on several ranks stay
+    unported (ROADMAP Queue 1 item 1); the Tuner without distillation runs
+    the Trainer's step on them."""
+    from cocodet_tpu_torch.core.tuner import Tuner
+
+    fake_world(monkeypatch)
+    exp = port_exp(os.path.join(REPO, "cocodet_tpu_torch", "exps", *RANKLESS[kind]))
+    exp.output_dir = str(tmp_path)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
+        rankless_trainer(kind)(exp, Args(), device="cpu")
+    if kind == "tuner_distill":
+        exp.distill_coefficient = 0.0
+        assert Tuner(exp, Args(), device="cpu").world == 2
+
+
+@pytest.mark.parametrize("kind", ["trainer", "tuner", *sorted(RANKLESS)])
+def test_cli_starts_one_rank_where_ranks_are_unported(monkeypatch, kind):
+    """``-d``'s default on a host of 2 cards: a rank a card for the Trainer
+    and the Tuner without distillation, one rank for the Pruner, the
+    distilling Tuner and SynFlow, whose steps on several ranks raise; an
+    explicit ``-d`` is taken as given."""
+    from cocodet_tpu_torch.core.tuner import Tuner
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    rel = RANKLESS.get(kind, ("p6", "yolox_m_p6.py" if kind == "trainer"
+                              else "yolox_m_p6_tune.py"))
+    exp_file = os.path.join(REPO, "cocodet_tpu_torch", "exps", *rel)
+    cls = {"trainer": ptr.Trainer, "tuner": Tuner}.get(kind) or rankless_trainer(kind)
+    exp, args = ptrain.build(["-f", exp_file])
+    want = 2 if kind in ("trainer", "tuner") else 1
+    assert cls.trains_on_ranks(exp) == (want == 2)
+    assert ptrain.local_ranks(args, cls, exp) == want
+    exp, args = ptrain.build(["-f", exp_file, "-d", "3"])
+    assert ptrain.local_ranks(args, cls, exp) == 3
