@@ -269,7 +269,27 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      state; (n3) g3's step (B=16, 640 px) from one seed with and without
      remat under cudnn_deterministic: the BN running statistics bit for
      bit, the parameters within N_REMAT_TOL of each leaf's largest value,
-     the peak memory and ms of each.
+     the peak memory and ms of each;
+  o. the evaluation family's leftovers at full width on phase i's
+     generated val set (128 JPEGs): (o1) the 49% magnitude chain's fused
+     tree (numpy seed 0) written as the reference's merged_49.pth (the
+     backbone's kernels sparse COO) and as msgpack, each served with
+     harness/config/yolox_m_p6_sparse.json (832 px, B=16, f32): the records
+     equal row for row, bit for bit; (o2) tools.quantize_model on the
+     committed slim plan's tree, its output served with
+     harness/config/yolox_m_p6_int8.json (B=128, K=1024): 127 int8 conv
+     launches a batch, the records equal entry.build_w8a8_predictor's; (o3)
+     the soft-NMS kernel (csrc/soft_nms.cu) bit for bit against its plain
+     version on a served batch's candidates at K = 1024, 2000, 2048 and a
+     ragged 1111, an all-invalid image and a cluster whose products leave
+     the normal range, timed held beside its bound and its plain version,
+     then the harness served with "soft": true; (o4) the harness's
+     data_parallel on 2 ranks, spatial_partition 2 on 2 and both on 4, on
+     32 of the images in f32, every rank on the one card over gloo, each
+     run's records against the one-process run; (o5) the eval CLI
+     (tools.eval) from the .pth with --fuse, its AP equal to the
+     evaluator's on the same weights, then --speed. The kernels line gains
+     the soft_nms entry.
 
     python3 chip_smoke.py --step TREE
 
@@ -304,6 +324,11 @@ runs phase a and phase m alone and prints the fake_quant entry as one
     python3 chip_smoke.py --phase n
 
 runs phase a and phase n alone (without the kernels and ``ok`` lines).
+
+    python3 chip_smoke.py --phase o
+
+runs phase a and phase o alone and prints the soft_nms entry as one
+``o: {...}`` JSON line (without the kernels and ``ok`` lines).
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -5068,6 +5093,415 @@ def phase_n(device, card, flags):
           f"n3 {n3_s:.1f} s) ({card})", flush=True)
 
 
+# phase o: the evaluation family's leftovers: reference .pth checkpoints,
+# w8a8 checkpoints from tools.quantize_model, soft-NMS (csrc/soft_nms.cu),
+# the harness on several ranks and the eval CLI
+O_RANK_IMAGES = 32  # o4: the images the ranks serve
+O_SOFT_K = (1024, 2000, 2048, 1111)  # o3: the int8 config's, the evaluator's, the harness's, ragged
+O_SCORE_TOL, O_BOX_TOL = 1e-4, 0.02  # o4: ranks against one process (score, px)
+O_EXP = os.path.join("cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py")
+
+
+def o_config(name, root, **over):
+    """harness/config/<name>.json on the generated val set, with ``over``."""
+    with open(os.path.join(REPO, "harness", "config", name)) as f:
+        cfg = json.load(f)
+    cfg.update(data_dir=os.path.join(root, "val2017"),
+               annotation=os.path.join(root, "annotations", "instances_val2017.json"))
+    cfg.update(over)
+    return cfg
+
+
+def o_counts():
+    """The launch counts of every kernel a served batch can run."""
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.cuda import soft_nms as sk
+
+    return {"overlap_matrix": nk.overlap_matrix.launches, "greedy_keep": nk.greedy_keep.launches,
+            "soft_decay": sk.soft_decay.launches, "hard_swish": hs.hard_swish.launches,
+            "int8_conv": ic.conv2d_w8a8.launches}
+
+
+def o_reset():
+    from cocodet_tpu_torch.ops.cuda import hard_swish as hs
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+    from cocodet_tpu_torch.ops.cuda import nms_kernels as nk
+    from cocodet_tpu_torch.ops.cuda import soft_nms as sk
+
+    for mod in (hs, ic, nk, sk):
+        mod.reset_launch_counts()
+
+
+def phase_o1(device, card, root, tmp):
+    """o1: the 49% magnitude chain's fused tree at full width (numpy seed 0,
+    serving_variables' biases) written as the reference's merged_49.pth
+    (export_state_dict, the backbone's kernels sparse COO) and as msgpack,
+    each served with harness/config/yolox_m_p6_sparse.json (832 px, B=16,
+    f32): the records of the two equal row for row, bit for bit."""
+    import torch
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.compress import (count_effective_params, generate_magnitude_masks,
+                                            inject_masks, merge_for_deployment)
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+    from cocodet_tpu_torch.utils.torch_import import export_state_dict
+
+    variables = serving_variables(seed=0)
+    masks = generate_magnitude_masks(variables["params"], prune_ratio=0.49, verbose=False)
+    merged = merge_for_deployment(inject_masks(variables, masks))
+    sd = {k: (v.to_sparse() if k.startswith("backbone.backbone.") and v.dim() == 4 else v)
+          for k, v in export_state_dict(merged).items()}
+    pth = os.path.join(tmp, "merged_49.pth")
+    torch.save(sd, pth)
+    msgpack = save_checkpoint({"model": merged}, False, tmp, "merged_49")
+    records = {}
+    for kind, path in (("pth", pth), ("msgpack", msgpack)):
+        report = {}
+        o_reset()
+        with cudnn_deterministic():
+            records[kind] = harness.run(o_config("yolox_m_p6_sparse.json", root, ckpt=path),
+                                        os.path.join(tmp, f"o1_{kind}.json"), device=device,
+                                        report=report)
+        launches = o_counts()
+        batches = len(report["shapes"]) + 1  # and the warm-up
+        if (launches["overlap_matrix"], launches["greedy_keep"], launches["hard_swish"]) != (
+                batches, batches, CONVS * batches):
+            raise AssertionError(f"o1: launches {launches} for {batches} batches")
+        print(f"o1. {kind} {os.path.getsize(path) / 2 ** 20:.1f} MiB "
+              f"({sum(v.is_sparse for v in sd.values())} sparse COO tensors in the .pth): "
+              f"{len(records[kind])} records for {report['images']} images, mAP@0.5 "
+              f"{report['stats']['AP50']:.4f}, phase seconds "
+              f"{json.dumps({k: round(v, 3) for k, v in report['phases'].items()})}, launches "
+              f"{launches} ({card})", flush=True)
+    nonzero, total = count_effective_params(merged)
+    same = records["pth"] == records["msgpack"]
+    print(f"o1. the .pth's records equal the msgpack's row for row: {same} "
+          f"({len(records['pth'])} records); effective parameters {nonzero:,} of {total:,}",
+          flush=True)
+    if not same or not records["pth"]:
+        raise AssertionError("o1: the .pth route served other records than the msgpack route")
+    return merged, pth, msgpack
+
+
+def phase_o2(device, card, root, tmp):
+    """o2: tools.quantize_model on the committed slim plan's fused tree
+    (numpy seed 0), calibrated on --synth images on the card; its output
+    served with harness/config/yolox_m_p6_int8.json (832 px, B=128, K=1024):
+    127 int8 conv launches a batch, and the records equal the same tree
+    served through entry.build_w8a8_predictor."""
+    import torch
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.data.folder import FolderLoader, ImageFolderDataset
+    from cocodet_tpu_torch.entry import SLIM_SPEC, build_w8a8_predictor
+    from cocodet_tpu_torch.tools import quantize_model
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    slim, fused = headline_variables(seed=0)
+    ckpt = save_checkpoint({"model": fused}, False, tmp, "slim")
+    out = os.path.join(tmp, "int8_ckpt.msgpack")
+    t0 = time.perf_counter()
+    rep = quantize_model.main(["-c", ckpt, "-o", out, "--slim-spec", str(SLIM_SPEC), "--synth",
+                               "--img-size", "640", "-b", "8", "--calib-batches", "2"])
+    quant_s = time.perf_counter() - t0
+    cfg = o_config("yolox_m_p6_int8.json", root, ckpt=out, slim_spec=str(SLIM_SPEC))
+    report = {}
+    o_reset()
+    with cudnn_deterministic():
+        results = harness.run(cfg, os.path.join(tmp, "o2.json"), device=device, report=report)
+    launches = o_counts()
+    batches = len(report["shapes"]) + 1
+    if launches["int8_conv"] != CONVS * batches or launches["overlap_matrix"] != batches:
+        raise AssertionError(f"o2: launches {launches} for {batches} batches")
+    tree = load_checkpoint(out)
+    predictor = build_w8a8_predictor(tree, slim, dtype=torch.bfloat16, device=device,
+                                     cfg=harness.postprocess_config(cfg))
+    loader = FolderLoader(ImageFolderDataset(cfg["data_dir"], cfg["img_size"]),
+                          cfg["dataloader"]["batch_size"], pad_multiple=64)
+    direct = []
+    with cudnn_deterministic(), torch.inference_mode():
+        for imgs, infos in loader:
+            res = predictor(torch.from_numpy(imgs).to(device) * 0.9 + 11.4)
+            direct += harness.batch_records(cfg["img_size"], tuple(
+                t.cpu().numpy() for t in (res.boxes, res.scores, res.classes, res.valid)), infos)
+    same = direct == results
+    print(f"o2. quantize_model: {rep['quantized_convs']} int8 convs, {rep['total_mb']:.2f} MB, "
+          f"{os.path.getsize(out) / 2 ** 20:.2f} MiB written in {quant_s:.1f} s; harness B="
+          f"{cfg['dataloader']['batch_size']}, K={harness.postprocess_config(cfg).pre_nms_topk}: "
+          f"{len(results)} records for {report['images']} images, mAP@0.5 "
+          f"{report['stats']['AP50']:.4f}, launches {launches} ({CONVS} int8 convs a batch, "
+          f"{batches} batches with the warm-up); records equal entry.build_w8a8_predictor's on "
+          f"the same tree: {same} ({card})", flush=True)
+    if not same or not results:
+        raise AssertionError("o2: the harness's w8a8 records differ from build_w8a8_predictor's")
+
+
+def o_cluster(device, k=80):
+    """One image of ``k`` near-copies of one box, one class, all valid, its
+    scores falling from 0.9: the products of the later rows leave the
+    normal f32 range (the flush decides them)."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(0)
+    boxes = (np.array([[10, 10, 50, 50]], np.float32)
+             + rs.uniform(0, 3, (k, 4)).astype(np.float32))[None]
+    scores = np.sort(rs.uniform(0.3, 0.9, k).astype(np.float32))[::-1][None].copy()
+    return (torch.from_numpy(boxes).to(device), torch.ones((1, k), dtype=torch.bool, device=device),
+            torch.from_numpy(scores).to(device))
+
+
+def check_soft(label, boxes, valid, scores):
+    """The soft-NMS kernel against its plain version, bit for bit; returns
+    (differing elements, zeros in the result)."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import soft_nms as sk
+
+    got = sk.soft_decay(boxes, valid, scores)
+    want = sk.soft_decay_plain(boxes, valid, scores)
+    torch.cuda.synchronize()
+    n, err = bit_diff(got, want)
+    zeros = int((want == 0).sum())
+    print(f"{label}: {n} of {got.numel()} decayed scores differ from the plain version "
+          f"(max |d| {err}); {zeros} flushed to 0, {int((want < scores).sum())} decayed",
+          flush=True)
+    if n:
+        raise AssertionError(f"o3: the soft-NMS kernel disagrees with its plain version: {label}")
+    return n, zeros
+
+
+def phase_o3(device, card, root, tmp, merged):
+    """o3: the soft-NMS kernel bit for bit against its plain version on a
+    served batch's candidates (the o1 tree, a 16-image bucket batch of the
+    val set at 832 px, f32) at K = 1024, 2000, 2048 and a ragged 1111, with
+    one image all invalid, and on a cluster that leaves the normal range;
+    timed held at K = 2048, B=16 beside its bound and its plain version;
+    then harness/config/yolox_m_p6.json served with "soft": true."""
+    import torch
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.data.folder import FolderLoader, ImageFolderDataset
+    from cocodet_tpu_torch.models import build_model
+    from cocodet_tpu_torch.ops.cuda import soft_nms as sk
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+    from cocodet_tpu_torch.ops.postprocess import PostprocessConfig, _select_topk_fused
+
+    model = build_model("yolox-p6", depth=0.67, width=0.75, fused=True, device=device,
+                        variables=merged)
+    loader = FolderLoader(ImageFolderDataset(os.path.join(root, "val2017"), 832), 16,
+                          pad_multiple=64)
+    batch = next((b for b, _ in loader if b.shape[1] != b.shape[2]), None)
+    batch = next(iter(loader))[0] if batch is None else batch
+    with torch.inference_mode():
+        maps = model(torch.from_numpy(batch).to(device) * 0.9 + 11.4)
+        cands = {}
+        for k in O_SOFT_K:
+            boxes, scores, classes, _, valid = _select_topk_fused(
+                maps, STRIDES, PostprocessConfig(pre_nms_topk=k))
+            cands[k] = (class_offset_boxes(boxes, classes, valid).contiguous(),
+                        valid.contiguous(), scores.contiguous())
+            check_soft(f"o3. soft-NMS on the served candidates {tuple(batch.shape)}, K={k}",
+                       *cands[k])
+        boxes, valid, scores = cands[max(O_SOFT_K)]
+        none = valid.clone()
+        none[0] = False
+        check_soft(f"o3. soft-NMS, image 0 all invalid, K={max(O_SOFT_K)}", boxes, none, scores)
+        _, zeros = check_soft("o3. soft-NMS on an 80-row cluster", *o_cluster(device))
+        if zeros == 0:
+            raise AssertionError("o3: the cluster did not leave the normal range")
+        b, k = valid.shape
+        pairs = b * k * (k - 1) // 2
+        ops, nbytes = pairs * 20, b * k * (16 + 1 + 4 + 4)
+        stats = dict(ms=cuda_ms(lambda: sk.soft_decay(boxes, valid, scores), 20),
+                     plain_ms=cuda_ms(lambda: sk.soft_decay_plain(boxes, valid, scores), 2),
+                     bound_ms=max(ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+                     bound_by="operations" if ops / F32_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
+                     else "bytes", library_ms=None, max_abs_err=0.0)
+    print(f"o3. soft_decay at {tuple(valid.shape)}: {stats['ms']:.4f} ms held, bound {stats['bound_ms']:.4f}"
+          f" ms ({stats['bound_by']}: {pairs:,} pairs x 20 f32 operations at 67 TFLOP/s), plain "
+          f"version {stats['plain_ms']:.4f} ms; no PyTorch call computes the fixed-order decay "
+          f"({card})", flush=True)
+    del model
+    report = {}
+    o_reset()
+    cfg = o_config("yolox_m_p6.json", root)
+    cfg["postprocess"]["soft"] = True
+    results = harness.run(cfg, os.path.join(tmp, "o3.json"), device=device, report=report)
+    launches = o_counts()
+    batches = len(report["shapes"]) + 1
+    if (launches["soft_decay"], launches["overlap_matrix"], launches["greedy_keep"]) != (
+            batches, 0, 0):
+        raise AssertionError(f"o3: launches {launches} for {batches} batches")
+    print(f"o3. harness with \"soft\": true ({cfg['img_size']} px, B="
+          f"{cfg['dataloader']['batch_size']}, K=2048): {len(results)} records for "
+          f"{report['images']} images, mAP@0.5 {report['stats']['AP50']:.4f}, launches "
+          f"{launches}", flush=True)
+    stats["launches"] = launches["soft_decay"]
+    return stats
+
+
+def o4_rank(rank, device, cfg, out):
+    """One rank of o4: the harness on the config's mesh, cuDNN deterministic
+    with TF32 off (as the one-process run)."""
+    import torch
+
+    from cocodet_tpu_torch import harness
+
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    report = {}
+    harness.run(cfg, out, mesh=harness.serving_mesh(cfg, device), report=report)
+    return report if rank == 0 else None
+
+
+def phase_o4(device, card, root, tmp, msgpack):
+    """o4: the harness's multi-device modes on O_RANK_IMAGES of the val set,
+    the o1 tree in f32 (cuDNN deterministic, TF32 off): data_parallel on 2
+    ranks, spatial_partition 2 on 2, both on a (2 x 2) mesh of 4; every rank
+    on the one card, gloo. Each run's records against the one-process run:
+    the same images and counts, scores within O_SCORE_TOL and boxes within
+    O_BOX_TOL px (matched as sets in an image), and the largest difference
+    printed."""
+    import shutil
+
+    import numpy as np
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.parallel.launch import run_ranks
+
+    sub = os.path.join(tmp, "val32")
+    os.makedirs(sub)
+    for name in sorted(os.listdir(os.path.join(root, "val2017")))[:O_RANK_IMAGES]:
+        shutil.copy(os.path.join(root, "val2017", name), sub)
+    base = o_config("yolox_m_p6.json", root, data_dir=sub, annotation=None, ckpt=msgpack,
+                    half=False)
+    report = {}
+    with cudnn_deterministic():
+        one = harness.run(base, os.path.join(tmp, "o4_one.json"), device=device, report=report)
+    n_batches = len(report["shapes"])
+
+    def rows(records):
+        return {k: np.asarray(sorted(r["bbox"] + [r["score"], r["category_id"]]
+                                     for r in records if r["image_id"] == k))
+                for k in {r["image_id"] for r in records}}
+
+    want = rows(one)
+    for mode, ranks, over in (("data_parallel", 2, {"data_parallel": True}),
+                              ("spatial_partition 2", 2, {"spatial_partition": 2}),
+                              ("both, (2 x 2)", 4, {"data_parallel": True, "spatial_partition": 2})):
+        cfg = dict(base, **over)
+        out = os.path.join(tmp, f"o4_{ranks}_{len(over)}.json")
+        t0 = time.perf_counter()
+        rep = run_ranks(o4_rank, ranks, cfg, out, device=device, timeout=600)[0]
+        wall = time.perf_counter() - t0
+        with open(out) as f:
+            got = json.load(f)
+        g = rows(got)
+        same_ids = [r["image_id"] for r in got] == [r["image_id"] for r in one]
+        counts = same_ids and all(len(g[k]) == len(want[k]) for k in want)
+        exact = counts and all(np.array_equal(g[k], want[k]) for k in want)
+        ok = counts and (exact or all(
+            same_set(g[k][:, :5], want[k][:, :5], g[k][:, 5], want[k][:, 5],
+                     (O_BOX_TOL, 0.0), O_SCORE_TOL) for k in want))
+        # each one-process row against its closest row of the same class
+        diff = max((float(np.where(g[k][:, None, 5] == want[k][None, :, 5],
+                                   np.abs(g[k][:, None, :5] - want[k][None, :, :5]).max(-1),
+                                   np.inf).min(0).max())
+                    for k in want if len(want[k])), default=0.0) if counts else float("nan")
+        per_rank = "; ".join(
+            f"rank {r}: {1e3 * p['loop_s'] / n_batches:.1f} ms a batch, "
+            f"{1e3 * sum(p['collective_s'].values()):.1f} ms in {sum(p['collectives'].values())} "
+            f"collectives" for r, p in enumerate(rep["ranks"]))
+        print(f"o4. {mode} on {ranks} ranks: {len(got)} records for {rep['images']} images "
+              f"(one process {1e3 * report['loop_s'] / n_batches:.1f} ms a batch), the "
+              f"same images and counts as one process: {counts}, bit for bit: {exact}, largest "
+              f"|difference| of a row to its closest (score, px) {diff:.6g}; {wall:.1f} s with the ranks' start; "
+              f"{per_rank} ({card})", flush=True)
+        if not ok:
+            raise AssertionError(f"o4: {mode} served other records than one process")
+
+
+def phase_o5(device, card, root, pth, merged):
+    """o5: the eval CLI (tools.eval) on the val set from the o1 .pth with
+    --fuse, B=16 at the exp's 768 px; its AP equal to the port's evaluator
+    on the same weights; then --speed."""
+    import torch
+
+    from cocodet_tpu_torch.entry import Predictor
+    from cocodet_tpu_torch.exp import get_exp
+    from cocodet_tpu_torch.tools import eval as teval
+
+    argv = ["-f", os.path.join(REPO, O_EXP), "-c", pth, "-b", "16", "--fuse"]
+    with cudnn_deterministic():
+        got = teval.main(argv + ["data_dir", root])
+        exp = get_exp(os.path.join(REPO, O_EXP), None)
+        exp.merge(["data_dir", root])
+        model = exp.get_model(device=device, fused=True, variables=merged)
+        ap, ap50, _ = exp.get_evaluator(batch_size=16).evaluate(Predictor(model))
+    del model
+    speed = teval.main(argv + ["--speed"])
+    same = (got["ap"], got["ap50"]) == (ap, ap50)
+    print(f"o5. eval CLI from the .pth with --fuse: AP50:95 {got['ap']:.4f}, AP50 "
+          f"{got['ap50']:.4f}, {len(got['records'])} records; the evaluator on the same weights "
+          f"{ap:.4f}, {ap50:.4f}: equal {same}; --speed B=16 at {exp.test_size[0]} px: "
+          f"{speed['img_s']:.2f} img/s, {speed['ms_batch']:.3f} ms a batch on {speed['device']} "
+          f"({card})", flush=True)
+    if not same:
+        raise AssertionError("o5: the eval CLI's AP differs from the evaluator's")
+
+
+def phase_o(device, card, flags):
+    """o: the evaluation family's leftovers on phase i's generated val set
+    (EVAL_IMAGES JPEGs, 256-512 px), at full width; returns the soft-NMS
+    kernel's entry of the kernels line."""
+    import tempfile
+
+    import torch
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    print(f"o. cuts: full width kept (YOLOX-M-P6, depth 0.67, width 0.75); weights random from "
+          f"numpy seeds (no merged_49.pth in the repo: o1 writes its own); {EVAL_IMAGES} "
+          f"synthetic val JPEGs (no COCO); o4 on {O_RANK_IMAGES} of them, its ranks sharing the "
+          f"one card over gloo", flush=True)
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_o_") as tmp, backend_flags(flags):
+        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=0, n_val=EVAL_IMAGES,
+                                   size_range=(256, 512), seed=0, variant="default")
+        t = time.perf_counter()
+        merged, pth, msgpack = phase_o1(device, card, root, tmp)
+        seconds["o1"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_o2(device, card, root, tmp)
+        seconds["o2"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        stats = phase_o3(device, card, root, tmp, merged)
+        seconds["o3"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        phase_o4(device, card, root, tmp, msgpack)
+        seconds["o4"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_o5(device, card, root, pth, merged)
+        seconds["o5"] = time.perf_counter() - t
+    print(f"o. phase o: {time.perf_counter() - t_start:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}) ({card})", flush=True)
+    return stats
+
+
+def soft_nms_kernel(stats):
+    """The kernels line's entry of the soft-NMS kernel."""
+    return {"name": "soft_nms", "route": "cuda", "source": "cocodet_tpu_torch/csrc/soft_nms.cu",
+            "replaces": "cocodet_tpu/ops/nms.py:157",
+            **{k: stats[k] for k in ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms")}}
+
+
 def fake_quant_kernel(entry):
     """The kernels line's entry of the fake-quant kernel."""
     return {"name": "fake_quant", "route": "cuda", "source": "cocodet_tpu_torch/csrc/fake_quant.cu",
@@ -5098,9 +5532,10 @@ def main():
     if args and (len(args) != 2 or args not in (["--step", args[1]], ["--bn", args[1]],
                                                  ["--phase", "j"], ["--phase", "j1"],
                                                  ["--phase", "k"], ["--phase", "l"],
-                                                 ["--phase", "m"], ["--phase", "n"])):
+                                                 ["--phase", "m"], ["--phase", "n"],
+                                                 ["--phase", "o"])):
         print("usage: python3 chip_smoke.py [--step TREE | --bn TREE | --phase j | --phase j1 "
-              "| --phase k | --phase l | --phase m | --phase n]", file=sys.stderr)
+              "| --phase k | --phase l | --phase m | --phase n | --phase o]", file=sys.stderr)
         return 2
     tree = os.path.abspath(args[1]) if args[:1] in (["--step"], ["--bn"]) else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
@@ -5138,6 +5573,9 @@ def main():
     if args == ["--phase", "n"]:
         phase_n(device, card, flags)
         return 0
+    if args == ["--phase", "o"]:
+        print("o: " + json.dumps(soft_nms_kernel(phase_o(device, card, flags))))
+        return 0
     if args:
         # --phase j
         print(json.dumps({"kernels": train_aug_kernels(phase_j(device, card, flags))}))
@@ -5171,6 +5609,8 @@ def main():
     fq_entry, m_worst = phase_m(device, card, flags)
     torch.cuda.empty_cache()
     phase_n(device, card, flags)
+    torch.cuda.empty_cache()
+    soft_stats = phase_o(device, card, flags)
     for name in ("overlap_matrix", "greedy_keep", "int8_conv"):
         l_worst[name] = max(l_worst[name], m_worst[name])
     for name, st in bn_stats.items():
@@ -5205,6 +5645,7 @@ def main():
                         "replaces": "cocodet_tpu/models/blocks.py:403", **st})
     kernels += train_aug_kernels(aug_stats)
     kernels.append(fake_quant_kernel(fq_entry))
+    kernels.append(soft_nms_kernel(soft_stats))
     print(f"build_s={build_s:.2f} total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

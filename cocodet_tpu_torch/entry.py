@@ -89,16 +89,21 @@ def build_predictor(variables: Mapping[str, Any], depth: float = 0.67,
 SLIM_SPEC = Path(__file__).resolve().parents[1] / "artifacts" / "mp6_chain_slim_spec.json"
 
 
-def build_w8a8_predictor(variables: Mapping[str, Any], slim: Mapping[str, Any],
+def build_w8a8_predictor(variables: Mapping[str, Any],
+                         slim: Optional[Mapping[str, Any]] = None,
                          depth: float = 0.67, width: float = 0.75,
                          dtype: torch.dtype = torch.bfloat16,
-                         device: Union[str, torch.device] = "cuda") -> Predictor:
-    """A fused slim YOLOX-P6 built with quant="w8a8", with the quantized
-    ``variables`` (compress.quantize_model) loaded, computing in ``dtype``,
-    at the production point."""
-    model = build_model("yolox-p6", depth=depth, width=width, fused=True,
+                         device: Union[str, torch.device] = "cuda",
+                         cfg: PostprocessConfig = PRODUCTION_CONFIG,
+                         name: str = "yolox-p6") -> Predictor:
+    """A fused YOLOX (``name``), slimmed to ``slim`` where one is given,
+    built with quant="w8a8", with the quantized ``variables``
+    (compress.quantize_model, or a ``tools.quantize_model`` checkpoint's
+    params and ``quant`` collection) loaded, computing in ``dtype``, at the
+    postprocess point ``cfg`` (by default the production point)."""
+    model = build_model(name, depth=depth, width=width, fused=True,
                         slim=slim, quant="w8a8", device=device, variables=variables)
-    return Predictor(cast_parameters(model, dtype))
+    return Predictor(cast_parameters(model, dtype), cfg)
 
 
 def build_headline(spec_path: Union[str, Path] = SLIM_SPEC, depth: float = 0.67,

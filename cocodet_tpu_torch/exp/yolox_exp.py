@@ -232,12 +232,10 @@ class Exp(BaseExp):
         from ..data.coco import COCODataset
         from ..data.transforms import ValTransform
 
-        if legacy:
-            raise NotImplementedError("the legacy ValTransform is not ported")
         return COCODataset(data_dir=self.data_dir,
                            json_file=self.val_ann if not testdev else "instances_test2017.json",
                            name="val2017" if not testdev else "test2017",
-                           img_size=self.test_size, preproc=ValTransform())
+                           img_size=self.test_size, preproc=ValTransform(legacy=legacy))
 
     def get_evaluator(self, batch_size: int, is_distributed: bool = False,
                       testdev: bool = False, legacy: bool = False):

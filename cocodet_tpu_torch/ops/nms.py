@@ -7,6 +7,11 @@ the overlap-matrix kernel, which writes the overlap matrix bit-packed
 ((B, K, W) int64, W = ceil(K / 64) made even; no (B, K, K) tensor), then the
 greedy-keep kernel on those words (``ops/cuda/nms_kernels.py``), then the
 compaction (``compact``), with no host sync.
+
+``soft=True`` is JAX's Gaussian soft-NMS (nms.py:157-175, :201-208): the
+scores decay (``ops/cuda/soft_nms.py``, a kernel of its own), a row is kept
+while its decayed score is above 0, and the rows are re-sorted by it
+(stable) before the same compaction. The IoU threshold plays no part there.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import NamedTuple
 import torch
 
 from .cuda.nms_kernels import greedy_keep, overlap_matrix
+from .cuda.soft_nms import soft_decay, soft_decay_plain  # noqa: F401 (the plain version's home)
 
 
 class NMSResult(NamedTuple):
@@ -53,15 +59,26 @@ def batched_nms(
     """NMS for a batch of (B, K, ...) score-sorted candidates.
 
     Kept rows are compacted to the front in their original order, capped at
-    ``max_det`` and padded with invalid rows (nms.py:217-238).
+    ``max_det`` and padded with invalid rows (nms.py:217-238). With ``soft``
+    the rows are the decayed scores' order and ``scores`` the decayed
+    scores; ``iou_threshold`` is not read.
     """
-    if soft:
-        raise NotImplementedError("soft-NMS is not ported yet")
     if boxes.dim() != 3:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
     valid = valid.contiguous()
     nms_boxes = boxes if class_agnostic else class_offset_boxes(boxes, classes, valid)
-    keep = greedy_keep(overlap_matrix(nms_boxes.contiguous(), valid, iou_threshold), valid)
+    if soft:
+        scores = soft_decay(nms_boxes.contiguous(), valid, scores.float().contiguous())
+        keep = valid & (scores > 0.0)
+        # jnp.argsort(-where(keep, s, -inf)), stable: kept rows by falling
+        # decayed score, then the rest, each tie in index order
+        key = torch.where(keep, -scores, torch.full((), float("inf"), device=scores.device))
+        order = torch.sort(key, dim=1, stable=True).indices
+        boxes = torch.gather(boxes, 1, order[..., None].expand(-1, -1, 4))
+        scores, classes, obj, keep = (torch.gather(t, 1, order)
+                                      for t in (scores, classes, obj, keep))
+    else:
+        keep = greedy_keep(overlap_matrix(nms_boxes.contiguous(), valid, iou_threshold), valid)
     return compact(keep, boxes, scores, classes, obj, max_det)
 
 

@@ -5,7 +5,8 @@ Static bounds as in the JAX package: pre-NMS top-K and ``max_det``. The
 max-class filter ranks on the raw head maps and decodes only the top-K
 rows (``_select_topk_fused``); the multi-class and RMMOP filters decode
 every anchor and select per image (``select_candidates``), batched on the
-device with no host sync. Soft-NMS is not ported yet and raises.
+device with no host sync. ``soft`` takes the Gaussian soft-NMS of
+``ops/nms.py`` in place of the greedy keep.
 """
 
 from __future__ import annotations

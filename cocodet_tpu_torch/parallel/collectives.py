@@ -5,7 +5,9 @@ step, written out for ``torch.distributed``.
   cotangents over the group. (BN's batch statistics are summed with
   ``all_reduce_`` inside BN's own autograd Function, models/blocks.py::
   _BatchNormAct, whose backward sums its cotangent sums the same way.)
-- ``gather_rows``: the whole height from the space ranks' rows; its backward
+- ``gather_rows``: the whole height from the space ranks' rows (equal, or
+  each rank's own count where a serving batch's height does not split
+  evenly); its backward
   keeps this rank's rows of the cotangent, which is right where every rank of
   the group computes the same function of the gathered tensor (the loss).
 - ``halo_exchange``: a rank's rows with ``top`` rows of the ranks above and
@@ -26,10 +28,12 @@ queued before it), by name.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
+import itertools
 import time
-from typing import Iterator, List
+from typing import Iterator, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -115,64 +119,85 @@ def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim, ctx.rows = group, dim, x.shape[dim]
-        return torch.cat(all_gather(x, group), dim)
+    def forward(ctx, x, group, dim, sizes):
+        rows = x.shape[dim]
+        i = dist.get_rank(group)
+        sizes = sizes or (rows,) * dist.get_world_size(group)
+        ctx.group, ctx.dim, ctx.rows, ctx.start = group, dim, rows, sum(sizes[:i])
+        top = max(sizes)
+        if top == rows and min(sizes) == rows:
+            return torch.cat(all_gather(x, group), dim)
+        # uneven rows: every rank sends max(sizes) rows, its own first
+        padded = torch.cat([x, x.new_zeros(x.shape[:dim] + (top - rows,) + x.shape[dim + 1:])],
+                           dim)
+        parts = all_gather(padded, group)
+        return torch.cat([p.narrow(dim, 0, n) for p, n in zip(parts, sizes)], dim)
 
     @staticmethod
     def backward(ctx, g):
-        start = dist.get_rank(ctx.group) * ctx.rows
-        return g.narrow(ctx.dim, start, ctx.rows), None, None
+        return g.narrow(ctx.dim, ctx.start, ctx.rows), None, None, None
 
 
-def gather_rows(x: torch.Tensor, group, dim: int = 2) -> torch.Tensor:
-    """Concatenate the group's ``x`` along ``dim`` in rank order. The
-    backward returns this rank's slice of the cotangent: use it only where
-    every rank of the group computes the same function of the result."""
-    return _GatherRows.apply(x, group, dim)
+def gather_rows(x: torch.Tensor, group, dim: int = 2,
+                sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
+    """Concatenate the group's ``x`` along ``dim`` in rank order; ``sizes``,
+    each rank's rows, where they differ (default: all ``x``'s). The backward
+    returns this rank's slice of the cotangent: use it only where every rank
+    of the group computes the same function of the result."""
+    return _GatherRows.apply(x, group, dim, tuple(sizes) if sizes else None)
 
 
-def _ranges(lo: int, hi: int, rows: int, ranks: int):
-    """(rank, first local row, count) runs covering global rows [lo, hi),
-    and (None, 0, count) for rows outside [0, rows * ranks)."""
+def _ranges(lo: int, hi: int, starts: Sequence[int]):
+    """(rank, first local row, count) runs covering global rows [lo, hi) of
+    a map whose rank q holds rows [starts[q], starts[q + 1]), and (None, 0,
+    count) for rows outside [0, starts[-1])."""
     out, g = [], lo
     while g < hi:
-        if g < 0 or g >= rows * ranks:
+        if g < 0 or g >= starts[-1]:
             end = min(hi, 0) if g < 0 else hi
             out.append((None, 0, end - g))
         else:
-            q = g // rows
-            end = min(hi, (q + 1) * rows)
-            out.append((q, g - q * rows, end - g))
+            q = bisect.bisect_right(starts, g) - 1
+            end = min(hi, starts[q + 1])
+            out.append((q, g - starts[q], end - g))
         g = end
     return out
 
 
 class _HaloExchange(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, top, bottom, group, dim, fill):
+    def forward(ctx, x, top, bottom, group, dim, fill, sizes):
         n, i, h = dist.get_world_size(group), dist.get_rank(group), x.shape[dim]
-        ctx.args = (top, bottom, group, dim, n, i, h)
-        # each rank sends the rows any neighbour's halo can reach: its first
-        # min(bottom, h) rows (for the ranks above) and its last min(top, h)
-        # (for the ranks below)
+        sizes = sizes or (h,) * n
+        starts = [0, *itertools.accumulate(sizes)]
+        ctx.args = (top, bottom, group, dim, i, h, starts)
+        # each rank q sends the rows any neighbour's halo can reach: its first
+        # min(bottom, h_q) rows (for the ranks above) and its last min(top,
+        # h_q) (for the ranks below), each block padded to the largest rank's
+        b_max, t_max = min(bottom, max(sizes)), min(top, max(sizes))
         b, t = min(bottom, h), min(top, h)
-        sent = all_gather(torch.cat([x.narrow(dim, 0, b), x.narrow(dim, h - t, t)], dim),
-                          group)
+
+        def pad(block, rows):
+            shape = list(block.shape)
+            shape[dim] = rows - block.shape[dim]
+            return torch.cat([block, block.new_zeros(shape)], dim) if shape[dim] else block
+
+        sent = all_gather(torch.cat([pad(x.narrow(dim, 0, b), b_max),
+                                     pad(x.narrow(dim, h - t, t), t_max)], dim), group)
 
         def rows(q, first, count, below):
             if q is None:
                 shape = list(x.shape)
                 shape[dim] = count
                 return x.new_full(shape, fill)
-            # a halo above this rank takes from the senders' last t rows
-            offset = first if below else b + first - (h - t)
+            # a halo above this rank takes from the sender's last t_q rows
+            offset = first if below else b_max + first - (sizes[q] - min(top, sizes[q]))
             return sent[q].narrow(dim, offset, count)
 
-        parts = [rows(q, f, c, False) for q, f, c in _ranges(i * h - top, i * h, h, n)]
+        lo, hi = starts[i], starts[i + 1]
+        parts = [rows(q, f, c, False) for q, f, c in _ranges(lo - top, lo, starts)]
         parts.append(x)
-        parts += [rows(q, f, c, True) for q, f, c in _ranges((i + 1) * h, (i + 1) * h + bottom,
-                                                             h, n)]
+        parts += [rows(q, f, c, True) for q, f, c in _ranges(hi, hi + bottom, starts)]
         out = torch.cat(parts, dim)
         if x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last):
             out = out.contiguous(memory_format=torch.channels_last)
@@ -180,27 +205,29 @@ class _HaloExchange(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        top, bottom, group, dim, n, i, h = ctx.args
+        top, bottom, group, dim, i, h, starts = ctx.args
         gx = g.narrow(dim, top, h).clone()
         halos = all_gather(torch.cat([g.narrow(dim, 0, top), g.narrow(dim, top + h, bottom)],
                                      dim), group)
+        lo = starts[i]
         for j, sent in enumerate(halos):
-            # rank j's halos cover global rows [j h - top, j h) and
-            # [(j + 1) h, (j + 1) h + bottom); add what falls on this rank
-            for lo, offset, size in ((j * h - top, 0, top), ((j + 1) * h, top, bottom)):
-                a, z = max(lo, i * h), min(lo + size, (i + 1) * h)
+            # rank j's halos cover global rows [start_j - top, start_j) and
+            # [start_j+1, start_j+1 + bottom); add what falls on this rank
+            for first, offset, size in ((starts[j] - top, 0, top), (starts[j + 1], top, bottom)):
+                a, z = max(first, lo), min(first + size, lo + h)
                 if a < z:
-                    gx.narrow(dim, a - i * h, z - a).add_(
-                        sent.narrow(dim, offset + a - lo, z - a))
-        return gx, None, None, None, None, None
+                    gx.narrow(dim, a - lo, z - a).add_(sent.narrow(dim, offset + a - first, z - a))
+        return gx, None, None, None, None, None, None
 
 
 def halo_exchange(x: torch.Tensor, top: int, bottom: int, group, dim: int = 2,
-                  fill: float = 0.0) -> torch.Tensor:
+                  fill: float = 0.0, sizes: Optional[Sequence[int]] = None) -> torch.Tensor:
     """``x`` with ``top`` rows of the ranks above and ``bottom`` rows of the
     ranks below along ``dim`` (several ranks' rows where a halo is deeper than
     one rank's share), and ``fill`` where the halo passes the map's edge.
-    Every rank of the group holds the same number of rows."""
+    ``sizes``: each rank's rows, where they differ (default: every rank
+    holds as many rows as ``x``)."""
     if top == 0 and bottom == 0:
         return x
-    return _HaloExchange.apply(x, top, bottom, group, dim, fill)
+    return _HaloExchange.apply(x, top, bottom, group, dim, fill,
+                               tuple(sizes) if sizes else None)

@@ -139,6 +139,8 @@ def check_spatial_sizes(sizes: Sequence[Tuple[int, int]], n_space: int,
 
 _ACTIVE: contextvars.ContextVar[Optional[Mesh]] = contextvars.ContextVar(
     "cocodet_mesh", default=None)
+_UNITS: contextvars.ContextVar[Optional[Tuple[int, ...]]] = contextvars.ContextVar(
+    "cocodet_space_units", default=None)
 
 
 def active_mesh() -> Optional[Mesh]:
@@ -147,15 +149,34 @@ def active_mesh() -> Optional[Mesh]:
 
 
 @contextlib.contextmanager
-def use_mesh(mesh: Optional[Mesh]) -> Iterator[None]:
+def use_mesh(mesh: Optional[Mesh],
+             space_units: Optional[Sequence[int]] = None) -> Iterator[None]:
     """Run the model's layers sharded over ``mesh``: BN in train mode on the
     statistics of the global batch, and on a space axis the convs with
-    halos and the pools on the whole height."""
+    halos and the pools on the whole height. ``space_units``: each space
+    rank's share of the deepest map's rows (a served batch's split, which
+    may be uneven where the space ranks do not divide its height); every
+    map then splits in the same proportions (``space_sizes``)."""
     token = _ACTIVE.set(mesh)
+    units = _UNITS.set(tuple(space_units) if space_units else None)
     try:
         yield
     finally:
+        _UNITS.reset(units)
         _ACTIVE.reset(token)
+
+
+def space_sizes(rows: int) -> Optional[Tuple[int, ...]]:
+    """Every space rank's rows of a map of which this rank holds ``rows``,
+    under ``use_mesh(..., space_units=...)``; None without space units (an
+    even split: every rank holds ``rows``)."""
+    units, mesh = _UNITS.get(), _ACTIVE.get()
+    if units is None:
+        return None
+    mine = units[mesh.space_index]
+    if rows % mine:
+        raise ValueError(f"{rows} rows do not split as the space units {units}")
+    return tuple(u * (rows // mine) for u in units)
 
 
 # --------------------------------------------------------------------------

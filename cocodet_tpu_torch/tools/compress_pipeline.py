@@ -15,9 +15,10 @@ port: steps 01 -> 02 -> 03 of the reference in one tool, on the host.
   ``merged_<r>_slim_spec.json``, which ``entry.build_headline(spec_path=...)``
   serves.
 
-Checkpoints are msgpack trees (utils/checkpoint.py); a ``.pth`` checkpoint
-raises (ROADMAP Queue 1 item 2). ``main`` returns what it wrote and the
-parameter counts.
+Checkpoints are msgpack trees (utils/checkpoint.py) or a reference ``.pth``
+state dict (``utils/torch_import.py``, ``--variant``'s names; the P6
+variants have 4 levels, the others 3). ``main`` returns what it wrote and
+the parameter counts.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ logger = logging.getLogger("cocodet_tpu_torch")
 def make_parser():
     ap = argparse.ArgumentParser("compress_pipeline")
     ap.add_argument("-c", "--ckpt", required=True,
-                    help="training checkpoint (.msgpack; a .pth is not ported)")
+                    help="training checkpoint (.msgpack or a reference .pth)")
     ap.add_argument("-o", "--out-dir", default="weights")
     ap.add_argument("--ratio", type=float, default=0.49,
                     help="global magnitude prune ratio (0 disables masking)")
@@ -54,10 +55,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, Any]:
     from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 
     if args.ckpt.endswith(".pth"):
-        raise NotImplementedError("reference .pth checkpoints are not ported "
-                                  "(ROADMAP Queue 1 item 2)")
-    ckpt = load_checkpoint(args.ckpt)
-    variables = ckpt.get("model", ckpt)
+        from cocodet_tpu_torch.utils.torch_import import load_torch_checkpoint
+
+        variables = load_torch_checkpoint(args.ckpt, variant=args.variant,
+                                          num_levels=4 if args.variant.startswith("p6") else 3)
+    else:
+        ckpt = load_checkpoint(args.ckpt)
+        variables = ckpt.get("model", ckpt)
     os.makedirs(args.out_dir, exist_ok=True)
     out: Dict[str, Any] = {"files": {}, "seconds": {}}
     tag = int(args.ratio * 100)

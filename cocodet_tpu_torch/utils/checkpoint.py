@@ -34,17 +34,23 @@ def _as_arrays(tree: Any) -> Any:
     return tree if tree is None else np.asarray(tree)
 
 
-def save_checkpoint(state: Mapping[str, Any], is_best: bool, save_dir: str,
-                    model_name: str = "latest") -> str:
-    """Write ``<model_name>_ckpt.msgpack`` (and the best copy) under
-    ``save_dir``; returns its path."""
-    os.makedirs(save_dir, exist_ok=True)
-    path = os.path.join(save_dir, f"{model_name}_ckpt.msgpack")
-    data = dumps_tree(_as_arrays(state))
+def save_tree(tree: Mapping[str, Any], path: str) -> str:
+    """Write ``tree`` (each leaf as ``np.asarray`` of it) to ``path`` in
+    flax's msgpack bytes, through a temporary file; returns ``path``."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    data = dumps_tree(_as_arrays(tree))
     tmp = f"{path}.tmp"
     with open(tmp, "wb") as f:
         f.write(data)
     os.replace(tmp, path)
+    return path
+
+
+def save_checkpoint(state: Mapping[str, Any], is_best: bool, save_dir: str,
+                    model_name: str = "latest") -> str:
+    """Write ``<model_name>_ckpt.msgpack`` (and the best copy) under
+    ``save_dir``; returns its path."""
+    path = save_tree(state, os.path.join(save_dir, f"{model_name}_ckpt.msgpack"))
     if is_best:
         shutil.copyfile(path, os.path.join(save_dir, "best_ckpt.msgpack"))
     return path

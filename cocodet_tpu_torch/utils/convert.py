@@ -39,7 +39,8 @@ kernels.
 buffers to optax's trace and back, ``ema_variables``/``load_ema`` the EMA
 shadow to flax ``{params, batch_stats}``, for checkpoints JAX reads.
 
-Loading reference-layout (torch YOLOX) state dicts is not ported yet.
+Reference-layout (torch YOLOX) state dicts cross through ``torch_import.py``,
+which turns them into these flax trees.
 """
 
 from __future__ import annotations

@@ -169,27 +169,112 @@ def test_checkpoint_matches_jax(folder, tmp_path):
 
 
 def test_checkpoint_on_disk_raises(folder, tmp_path):
-    """What the port cannot load raises: a .pth state dict, a w8a8
-    checkpoint, a tree that matches no parameter (never random weights
-    under a checkpoint's name)."""
+    """What the port cannot load raises: a corrupt .pth (``torch.load``'s own
+    error), a tree that matches no parameter (never random weights under a
+    checkpoint's name), a w8a8 config on a checkpoint without a ``quant``
+    collection (JAX's ValueError)."""
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+
     cfg = _config(folder)
     pth = tmp_path / "weights.pth"
     pth.write_bytes(b"\x80")
+    with pytest.raises(Exception) as corrupt:
+        torch.load(str(pth), map_location="cpu", weights_only=True)
     cfg["ckpt"] = str(pth)
-    with pytest.raises(NotImplementedError, match=r"\.pth"):
+    with pytest.raises(type(corrupt.value)):
         harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
     empty = tmp_path / "weights.msgpack"
     empty.write_bytes(b"\x80")  # msgpack's empty map
     cfg["ckpt"] = str(empty)
     with pytest.raises(ValueError, match="matches no parameter"):
         harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, fused=True)
+    cfg["ckpt"] = save_checkpoint({"model": {"params": random_variables(shapes, 1)["params"]}},
+                                  False, str(tmp_path), "float")
     cfg["quant"] = "w8a8"
-    with pytest.raises(NotImplementedError, match="w8a8 checkpoint"):
+    with pytest.raises(ValueError, match="no 'quant' collection"):
         harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
 
 
-@pytest.mark.parametrize("over", [{"stem6": True}, {"split_cat": True}, {"quant": "w8a8"},
-                                  {"data_parallel": True}, {"postprocess": {"soft": True}}])
+def test_pth_matches_jax(folder, tmp_path):
+    """A reference ``.pth`` (numpy seed 2 fused weights in the reference's
+    naming, the backbone's kernels as sparse COO tensors, as
+    03_jh_merge.py stores merged_49.pth): the port's harness gives JAX's
+    harness's records on the same file at test_run_matches_jax's
+    tolerances, and exactly its own records of the same tree from msgpack."""
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+    from cocodet_tpu_torch.utils.torch_import import export_state_dict
+
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, fused=True)
+    variables = random_variables(shapes, 2)
+    sd = {k: (v.to_sparse() if k.startswith("backbone.backbone.") and v.dim() == 4 else v)
+          for k, v in export_state_dict(variables).items()}
+    assert sum(v.is_sparse for v in sd.values()) > 20
+    pth = tmp_path / "merged_p6.pth"
+    torch.save(sd, pth)
+    cfg = _config(folder, conf_threshold=0.5)
+    cfg.update(ckpt=str(pth), annotation=None)
+    want = _jax_harness().run(cfg, str(tmp_path / "jax.json"), challenge=True)
+    got = harness.run(cfg, str(tmp_path / "port.json"), challenge=True, device="cpu")
+    assert _assert_records_match(got, want) < len(got) - 1  # some detections
+    cfg["ckpt"] = save_checkpoint({"model": variables}, False, str(tmp_path), "same")
+    assert harness.run(cfg, str(tmp_path / "msgpack.json"), challenge=True, device="cpu") == got
+
+
+@pytest.mark.parametrize("slim", [False, True])
+def test_w8a8_checkpoint_matches_jax(folder, tmp_path, slim):
+    """A w8a8 checkpoint (params with int8 kernels and the ``quant``
+    collection, as tools/quantize_model.py writes it; the port's PTQ of
+    numpy seed 3 fused weights) with and without a slim spec on disk: the
+    port's harness and JAX's serve it to the same records. JAX's jitted
+    step quantizes activations with XLA's division, which moves some
+    quantized inputs by one step (tests/test_torch_headline.py), so boxes
+    are held at 0.5 px + 1% and scores at 1e-3, matched as sets within an
+    image."""
+    from cocodet_tpu_torch.compress import calibrate, build_quant_tree, quantize_weights
+    from cocodet_tpu_torch.compress import load_slim_spec
+    from cocodet_tpu_torch.models import build_model
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+    from torch_port_utils import SMALL_ARCH, write_small_slim_spec
+
+    arch = SMALL_ARCH if slim else dict(depth=0.33, width=0.125)
+    spec_path = write_small_slim_spec(tmp_path) if slim else None
+    spec = load_slim_spec(spec_path) if slim else None
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], fused=True, slim=spec, **arch)
+    variables = random_variables(shapes, 3)
+    calib = build_model("yolox-p6", fused=True, slim=spec, quant="calib", device="cpu",
+                        variables=variables, **arch)
+    stats = calibrate(calib, variables, [np.random.RandomState(1).rand(2, 128, 128, 3) * 255])
+    qvars, quant = quantize_weights(variables, build_quant_tree(stats, per_channel_act=True))
+    ckpt = save_checkpoint({"params": qvars["params"], "quant": quant}, False, str(tmp_path),
+                           "int8")
+    cfg = _config(folder, conf_threshold=0.3)
+    cfg["model"].update(arch)
+    cfg.update(ckpt=ckpt, quant="w8a8", slim_spec=spec_path, annotation=None)
+    want = _jax_harness().run(cfg, str(tmp_path / "jax.json"), challenge=True)
+    got = harness.run(cfg, str(tmp_path / "port.json"), challenge=True, device="cpu")
+    assert got[0]["parameters"] == want[0]["parameters"]
+    g, w = _by_image(got[1:]), _by_image(want[1:])
+    assert list(g) == list(w)
+    n_det = 0
+    for img, wr in w.items():
+        gr = g[img]
+        assert len(gr) == len(wr), img
+        gb = np.asarray([r["bbox"] + [r["score"]] for r in gr])
+        wb = np.asarray([r["bbox"] + [r["score"]] for r in wr])
+        tol = np.concatenate([0.5 + 1e-2 * np.abs(wb[:, :4]), np.full((len(wb), 1), 1e-3)], 1)
+        same_cat = (np.asarray([r["category_id"] for r in gr])[:, None]
+                    == np.asarray([r["category_id"] for r in wr])[None])
+        close = (np.abs(gb[:, None] - wb[None]) <= tol[None]).all(-1) & same_cat
+        assert close.any(1).all() and close.any(0).all(), img
+        n_det += sum(r["score"] > 0 for r in wr)
+    assert n_det > 0
+
+
+@pytest.mark.parametrize("over", [{"stem6": True}, {"split_cat": True}])
 def test_unported_options_raise(folder, tmp_path, over):
     cfg = _config(folder)
     cfg.update(over)

@@ -159,12 +159,6 @@ def test_nms_single_matches_jax():
     _assert_result_equal(got, want)
 
 
-def test_soft_nms_not_ported():
-    boxes, scores, classes, obj, valid = (torch.from_numpy(a) for a in _candidates(1, 16, 0))
-    with pytest.raises(NotImplementedError):
-        tnms.batched_nms(boxes, scores, classes, obj, valid, soft=True)
-
-
 def test_wrappers_refuse_other_devices():
     """Only CPU tensors take the plain version; other devices raise."""
     with pytest.raises(ValueError):

@@ -178,9 +178,32 @@ def test_select_candidates_matches_jax(case):
 
 
 def test_soft_nms_not_ported():
-    maps = [{k: torch.from_numpy(v) for k, v in m.items()} for m in _tie_maps()]
-    with pytest.raises(NotImplementedError, match="soft"):
-        postprocess(maps, STRIDES, PostprocessConfig(soft=True))
+    """Soft-NMS is ported (the name is the test's from before): the dense
+    scene through ``postprocess`` with ``soft`` against JAX's, K=256,
+    max_det 100. The decoded candidates differ by up to 4 ulps and the
+    decay multiplies up to K factors, so the decayed scores are held at
+    2 * 2**-23 * (K + 1) relative on top of ULP4; the kept rows, their
+    order and classes exactly, after a check that no two kept rows' scores
+    lie within twice the largest score difference (no near-tie)."""
+    maps = _scene()
+    jcfg = JaxConfig(conf_threshold=0.001, nms_threshold=0.55, pre_nms_topk=256,
+                     max_det=100, soft=True)
+    want = jax.device_get(jax.jit(lambda o: jax_postprocess(o, STRIDES, jcfg))(
+        [{k: jnp.asarray(v) for k, v in m.items()} for m in maps]))
+    got = postprocess([{k: torch.from_numpy(v) for k, v in m.items()} for m in maps],
+                      STRIDES, PostprocessConfig(conf_threshold=0.001, nms_threshold=0.55,
+                                                 pre_nms_topk=256, max_det=100, soft=True))
+    diff = np.max(np.abs(got.scores.numpy() - want.scores))
+    for b in range(2):
+        s = want.scores[b][want.valid[b]]
+        assert len(s) == 100 and (s[:-1] - s[1:] > 2 * diff).all()
+    np.testing.assert_array_equal(got.valid.numpy(), want.valid)
+    np.testing.assert_array_equal(got.classes.numpy(), want.classes)
+    for field in ("boxes", "obj"):
+        np.testing.assert_allclose(getattr(got, field).numpy(), getattr(want, field),
+                                   err_msg=field, **ULP4)
+    np.testing.assert_allclose(got.scores.numpy(), want.scores,
+                               rtol=ULP4["rtol"] + 2 * 2.0 ** -23 * 257, atol=ULP4["atol"])
 
 
 def test_chip_smoke_scene_is_the_dense_scene():

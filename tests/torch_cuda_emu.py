@@ -1,5 +1,5 @@
-"""Build and run csrc/train_aug.cu's and csrc/bn_act.cu's kernels on the
-CPU, for the tests.
+"""Build and run csrc/train_aug.cu's, csrc/bn_act.cu's and
+csrc/soft_nms.cu's kernels on the CPU, for the tests.
 
 The kernels' own source (without the nvcc launchers, cp.async as a copy) is
 compiled by g++ against ``cuda_emu/cuda_runtime.h``, a CPU stand-in
@@ -7,7 +7,8 @@ for the CUDA it uses, with the f32 operations IEEE and uncontracted, as
 nvcc's ``--fmad=false`` builds them; ``cuda_emu/train_aug_emu.cpp``
 runs a block as 256 threads that meet at its barriers, and
 ``cuda_emu/bn_act_emu.cpp`` a cluster's CTAs at once, each with its own
-shared memory. Each launch runs in a child process (``python
+shared memory; ``cuda_emu/soft_nms_emu.cpp`` a block as 256 threads too.
+Each launch runs in a child process (``python
 torch_cuda_emu.py LIB FUNCTION IN OUT``) with a time limit, so a kernel
 whose barriers deadlock fails its test, not the run.
 """
@@ -37,6 +38,7 @@ SPECS = {
     "emu_affine_warp": (("canvas", "m6", "out"), 3),
     "emu_mixup": (("tiles", "hw5", "nhw5", "warped", "mrand", "out"), 7),
     "emu_train_aug": (("img", "hw", "nhw", "gains", "flip", "fallback", "out"), 5),
+    "emu_soft_decay": (("boxes", "valid", "scores", "out"), 2),
 }
 
 
@@ -48,6 +50,7 @@ STUBS = {
     "bn_act": {"void cp_async16(void* smem, const void* gmem)": "memcpy(smem, gmem, 16);",
                "void cp_async_commit()": "", "void cp_async_wait(int n)": "(void)n;",
                "uint8_t* resident_smem()": "return emu_dynamic_smem();"},
+    "soft_nms": {},
 }
 
 
