@@ -62,9 +62,10 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      B=4, f32 on the card against the same step on the CPU (TF32 off, cuDNN
      deterministic): the SimOTA fg mask equal, the losses, parameters and BN
      statistics within stated limits; (g3) the main path of the slice:
-     build_trainer at full width (YOLOX-M-P6, f32 parameters, bf16 compute),
-     B=16 640 px numpy-seeded images with 5-60 boxes each padded to G=120, 2
-     warm-up steps and 5 timed steps (the last with use_l1), the launch
+     build_trainer at full width (YOLOX-M-P6, f32 parameters, bf16 compute,
+     lr STEP_LR), B=16 640 px numpy-seeded images with 5-60 boxes each
+     padded to G=120, 2 warm-up steps and 5 timed steps (the last with
+     use_l1), each step's largest |wh logit| against exp's range, the launch
      counts zeroed just before and read just after: train-mode BN and the
      hard-swish after it run in csrc/bn_act.cu's kernels as the plan of
      ops/cuda/bn_act.py says (one resident launch a map each way where the
@@ -93,7 +94,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      single-process step on the card: the fg mask and num_fg equal, the
      losses, parameters and BN statistics within stated limits, and both
      ranks holding one state bit for bit; (h2) the main path of the slice:
-     YOLOX-M-P6, f32 parameters, bf16 compute, g3's batch of 16 640 px
+     YOLOX-M-P6, f32 parameters, bf16 compute, g3's lr, g3's batch of 16 640 px
      images on 2 data ranks of 8 images and on 1 data x 2 space ranks of 320
      rows, 2 warm-up and 3 timed steps, counts zeroed just before and read
      just after: each rank's device ms a step, host ms in collectives, the
@@ -281,9 +282,14 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      launches a batch, the records equal entry.build_w8a8_predictor's; (o3)
      the soft-NMS kernel (csrc/soft_nms.cu) bit for bit against its plain
      version on a served batch's candidates at K = 1024, 2000, 2048 and a
-     ragged 1111, an all-invalid image and a cluster whose products leave
-     the normal range, timed held beside its bound and its plain version,
-     then the harness served with "soft": true; (o4) the harness's
+     ragged 1111, an all-invalid image, a cluster whose products leave
+     the normal range, a dense worst case (16 images of 2048 near-copies
+     of three overlapping boxes of one class: no factor is 1) and NaN and
+     inf boxes; timed held at (16, 2048) on the served candidates and the
+     dense case beside the bounds counted from the data (the valid pairs,
+     the factors that are not 1, the longest column's chain) and its plain
+     version; the whole batched_nms(soft=True) beside the greedy path at
+     K = 2048; then the harness served with "soft": true; (o4) the harness's
      data_parallel on 2 ranks, spatial_partition 2 on 2 and both on 4, on
      32 of the images in f32, every rank on the one card over gloo, each
      run's records against the one-process run; (o5) the eval CLI
@@ -297,6 +303,23 @@ runs phase a and g3's step measurement alone on the cocodet_tpu_torch
 package of TREE (an earlier commit unpacked with ``git archive``, or this
 checkout) and prints it as one ``step: {...}`` JSON line: two commits are
 compared in one call by running both, in turns.
+
+    python3 chip_smoke.py --drift LR
+
+runs phase a and g3's trainer at lr LR for DRIFT_STEPS steps on g3's batch
+and prints each step's losses, num_fg and largest |wh logit| as one
+``drift: {...}`` JSON line: how fast the step walks the wh logits toward
+exp's f32 range from random weights (see STEP_LR).
+
+    python3 chip_smoke.py --soft TREE
+
+runs phase a and times the soft-NMS kernel of TREE's package (an earlier
+commit unpacked with ``git archive``, or this checkout) on o3's served
+candidates at (16, 2048) and on the dense worst case, held, with the bounds
+counted from the data, as one ``soft: {...}`` JSON line; this checkout's
+kernel is first held bit for bit against its plain version on both and on
+the NaN and inf case. Two commits are compared in one call by running
+both, in turns (parent, change, change, parent).
 
     python3 chip_smoke.py --phase j
 
@@ -337,6 +360,7 @@ of the repository beside it, it exits non-zero and prints no result.
 """
 
 import contextlib
+import inspect
 import json
 import os
 import re
@@ -352,6 +376,18 @@ BATCH = 16
 SIZE = 640
 N_BATCHES = 4
 TRAIN_STEPS = 5
+DRIFT_STEPS = 10
+# The lr of g3's and h2's full-width steps from random weights. A real run's
+# first steps train at almost 0 (exp/yolox_exp.py: yoloxwarmcos from 0 over 5
+# epochs). At dryrun_multichip's 0.01, g3's batch sent again and again walks
+# the largest |wh logit| from its initial ~15 toward exp's f32 range within a
+# few steps, on a path that cuDNN's algorithm choice changes from run to run
+# (--drift LR prints it). Past that range a background anchor's box gradient
+# is 0 * inf = NaN, in JAX too (tests/test_torch_losses.py), and every
+# parameter is NaN after that step.
+STEP_LR = 1e-4
+# exp overflows f32 above this logit
+EXP_F32_LIMIT = 88.72
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 on the tensor cores
@@ -1461,14 +1497,24 @@ def step_kernel_count(step, images, labels):
     return len(dev) - len(copies), len(copies), busy_ms
 
 
+def widest_wh(outputs):
+    """The largest |wh logit| of a train-mode forward's head maps, on the
+    card (no sync): how far the step's boxes are from exp's f32 range."""
+    import torch
+
+    return torch.stack([lvl["reg"][..., 2:4].detach().abs().amax()
+                        for lvl in outputs]).amax().float()
+
+
 def measure_train_step(device, card):
     """g3's measurement of the training step of the cocodet_tpu_torch
     package on sys.path (this tree's, or an earlier commit's for
     ``--step``): build_trainer at full width (YOLOX-M-P6, depth 0.67, width
-    0.75, f32 parameters, bf16 compute), B=16 640 px numpy-seeded images
-    and 5-60 boxes an image padded to G=120; 2 warm-up steps, then
-    TRAIN_STEPS timed steps (the last with use_l1), the launch counts zeroed
-    just before and read just after; one step under torch.profiler (the
+    0.75, f32 parameters, bf16 compute, lr STEP_LR), B=16 640 px
+    numpy-seeded images and 5-60 boxes an image padded to G=120; 2 warm-up
+    steps, then TRAIN_STEPS timed steps (the last with use_l1), the launch
+    counts zeroed just before and read just after, and each one's largest
+    |wh logit| (widest_wh); one step under torch.profiler (the
     CUDA kernels a step) and one in PyTorch's sync debug mode (a step that
     waits for the card anywhere warns). Returns the numbers, the model's
     BN+act shapes (forward hooks on a warm-up step) and the metrics."""
@@ -1483,7 +1529,9 @@ def measure_train_step(device, card):
     if fused:
         from cocodet_tpu_torch.ops.cuda import bn_act as bnk
     t0 = time.perf_counter()
-    model, step = build_trainer(0.67, 0.75, torch.bfloat16, device, seed=0)
+    # an earlier tree's build_trainer may take no lr: it trains at 0.01
+    lr = {"lr": STEP_LR} if "lr" in inspect.signature(build_trainer).parameters else {}
+    model, step = build_trainer(0.67, 0.75, torch.bfloat16, device, seed=0, **lr)
     setup_s = time.perf_counter() - t0
     images, labels = training_batch(BATCH, SIZE, 12)
     images = torch.from_numpy(images).to(device)
@@ -1500,7 +1548,8 @@ def measure_train_step(device, card):
     if fused:
         bnk.reset_launch_counts()
     parts = ("forward", "losses", "backward", "update")
-    rows, metrics = [], []
+    rows, metrics, wh = [], [], []
+    hook = model.register_forward_hook(lambda mod, args, out: wh.append(widest_wh(out)))
     t_all = time.perf_counter()
     for i in range(TRAIN_STEPS):
         ev = {k: torch.cuda.Event(enable_timing=True) for k in ("start",) + parts}
@@ -1514,6 +1563,7 @@ def measure_train_step(device, card):
         rows.append({p: ev[a].elapsed_time(ev[p]) for a, p in zip(names, parts)}
                     | {"step": ev["start"].elapsed_time(ev["update"]), "queued": queued})
     wall = time.perf_counter() - t_all
+    hook.remove()
     launches = {"hard_swish": hs.hard_swish.launches,
                 "hard_swish_grad": hs.hard_swish_grad.launches}
     if fused:
@@ -1535,8 +1585,29 @@ def measure_train_step(device, card):
             "img/s host": TRAIN_STEPS * BATCH / wall, "peak_gib": peak_gib,
             "launches": launches, "kernels a step": kernels, "copies a step": copies,
             "device busy ms": busy_ms, "host syncs": len(syncs), "first sync": syncs[:1],
-            "params": sum(p.numel() for p in model.parameters()),
+            "params": sum(p.numel() for p in model.parameters()), "lr": lr.get("lr", 0.01),
+            "wh": [float(w) for w in wh],
             "metrics": [{k: float(v) for k, v in m.items()} for m in metrics]}, shapes
+
+
+def phase_drift(device, card, lr):
+    """--drift LR: g3's trainer (build_trainer at full width, seed 0, cuDNN
+    benchmark on) at lr ``lr`` for DRIFT_STEPS steps on g3's batch, use_l1
+    off: each step's metrics and its forward's largest |wh logit|
+    (widest_wh), read after the last step."""
+    import torch
+
+    from cocodet_tpu_torch.entry import build_trainer
+
+    model, step = build_trainer(0.67, 0.75, torch.bfloat16, device, seed=0, lr=lr)
+    images, labels = (torch.from_numpy(a).to(device) for a in training_batch(BATCH, SIZE, 12))
+    torch.backends.cudnn.benchmark = True
+    wh = []
+    model.register_forward_hook(lambda mod, args, out: wh.append(widest_wh(out)))
+    metrics = [step(images, labels) for _ in range(DRIFT_STEPS)]
+    return {"card": card, "lr": lr, "exp_limit": EXP_F32_LIMIT,
+            "steps": [{k: float(v) for k, v in m.items()} | {"wh": float(w)}
+                      for m, w in zip(metrics, wh)]}
 
 
 def resident_fit(x, g, backward):
@@ -2046,9 +2117,11 @@ def phase_train(device, card):
     if res["host syncs"]:
         raise AssertionError(f"the train step synchronizes with the card {res['host syncs']} "
                              f"times, first: {res['first sync'][0]}")
-    for i, vals in enumerate(res["metrics"]):
+    for i, (vals, wh) in enumerate(zip(res["metrics"], res["wh"])):
         print(f"g3. step {i + 1}{' (use_l1)' if i == TRAIN_STEPS - 1 else ''}: "
-              + ", ".join(f"{k}={v:.4f}" for k, v in vals.items()), flush=True)
+              + ", ".join(f"{k}={v:.4f}" for k, v in vals.items())
+              + f"; largest |wh logit| {wh:.3f} (exp's f32 range ends at {EXP_F32_LIMIT})",
+              flush=True)
         if not all(map(lambda v: v == v and abs(v) != float("inf"), vals.values())):
             raise AssertionError(f"non-finite training metrics at step {i + 1}: {vals}")
         if vals["num_fg"] <= 0:
@@ -2059,7 +2132,8 @@ def phase_train(device, card):
                f"{res['kernels a step']} kernels and {res['copies a step']} copies or fills, "
                f"device busy {res['device busy ms']:.2f} ms")
     print(f"g3. train step, YOLOX-M-P6 (depth 0.67, width 0.75, {res['params']} f32 "
-          f"parameters, bf16 compute), B={BATCH} {SIZE}x{SIZE}, G=120, on {card}: setup "
+          f"parameters, bf16 compute, lr {res['lr']}), B={BATCH} {SIZE}x{SIZE}, G=120, on "
+          f"{card}: setup "
           f"{res['setup_s']:.2f} s, 2 warm-up steps {res['warm_s']:.2f} s; {TRAIN_STEPS} timed "
           f"steps, device ms a step " + ", ".join(f"{r['step']:.2f}" for r in res["rows"])
           + f" (mean {mean['step']:.2f}: forward {mean['forward']:.2f}, SimOTA and losses "
@@ -2321,7 +2395,7 @@ def h_rank(rank, device):
     main_batch = training_batch(BATCH, SIZE, 12)
     for name, mesh in meshes.items():
         t0 = time.perf_counter()
-        model, step = build_trainer(0.67, 0.75, torch.bfloat16, seed=0, mesh=mesh)
+        model, step = build_trainer(0.67, 0.75, torch.bfloat16, seed=0, mesh=mesh, lr=STEP_LR)
         local = shard_batch(mesh, main_batch)
         for _ in range(H_WARMUP):
             step(*local)
@@ -4828,8 +4902,7 @@ def n_rank_hook(trainer, stage):
 
     def widest(module, inputs, outputs):
         if module.training:
-            trainer._n_wh.append(torch.stack([lvl["reg"][..., 2:4].detach().abs().amax()
-                                              for lvl in outputs]).amax().float())
+            trainer._n_wh.append(widest_wh(outputs))
 
     def hooked_before_train():
         before_train()
@@ -5016,7 +5089,8 @@ def phase_n2(device, card, root, out_dir):
 
 def phase_n3(device, card):
     """n3: g3's step with and without remat, from one seed, under
-    cudnn_deterministic."""
+    cudnn_deterministic, at build_trainer's own lr (0.01: the one step
+    compared moves each parameter the most)."""
     import numpy as np
     import torch
 
@@ -5134,6 +5208,17 @@ def o_reset():
         mod.reset_launch_counts()
 
 
+def o1_merged():
+    """The 49% magnitude chain's fused tree (numpy seed 0, serving_variables'
+    biases) that o1 serves and o3 takes its candidates from."""
+    from cocodet_tpu_torch.compress import (generate_magnitude_masks, inject_masks,
+                                            merge_for_deployment)
+
+    variables = serving_variables(seed=0)
+    masks = generate_magnitude_masks(variables["params"], prune_ratio=0.49, verbose=False)
+    return merge_for_deployment(inject_masks(variables, masks))
+
+
 def phase_o1(device, card, root, tmp):
     """o1: the 49% magnitude chain's fused tree at full width (numpy seed 0,
     serving_variables' biases) written as the reference's merged_49.pth
@@ -5143,14 +5228,11 @@ def phase_o1(device, card, root, tmp):
     import torch
 
     from cocodet_tpu_torch import harness
-    from cocodet_tpu_torch.compress import (count_effective_params, generate_magnitude_masks,
-                                            inject_masks, merge_for_deployment)
+    from cocodet_tpu_torch.compress import count_effective_params
     from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
     from cocodet_tpu_torch.utils.torch_import import export_state_dict
 
-    variables = serving_variables(seed=0)
-    masks = generate_magnitude_masks(variables["params"], prune_ratio=0.49, verbose=False)
-    merged = merge_for_deployment(inject_masks(variables, masks))
+    merged = o1_merged()
     sd = {k: (v.to_sparse() if k.startswith("backbone.backbone.") and v.dim() == 4 else v)
           for k, v in export_state_dict(merged).items()}
     pth = os.path.join(tmp, "merged_49.pth")
@@ -5253,6 +5335,45 @@ def o_cluster(device, k=80):
             torch.from_numpy(scores).to(device))
 
 
+def o_dense(device, b=16, k=2048, seed=0):
+    """o3's dense worst case: ``b`` images of ``k`` near-copies of three
+    overlapping boxes of one class, all valid, scores falling from 0.9:
+    every pair overlaps, so no factor is 1, and the products leave the
+    normal range after some 55 rows."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    base = np.array([[100, 100, 300, 300], [120, 110, 310, 290], [90, 130, 280, 320]],
+                    np.float32)
+    boxes = (base[rs.randint(0, 3, (b, k))] + rs.uniform(0, 3, (b, k, 4))).astype(np.float32)
+    scores = np.sort(rs.uniform(0.3, 0.9, (b, k)).astype(np.float32), axis=1)[:, ::-1].copy()
+    return (torch.from_numpy(boxes).to(device), torch.ones((b, k), dtype=torch.bool, device=device),
+            torch.from_numpy(scores).to(device))
+
+
+def o_nonfinite(boxes, valid, scores):
+    """A copy of (B >= 2, K >= 12) candidates with non-finite boxes near each
+    image's end, all valid: image 0 a NaN x1 (every later row's product
+    turns NaN); image 1 two boxes of infinite area (their pairs take the
+    kernel's full path: union inf, IoU 0, factor 1) and two bands of
+    infinite height side by side (iw 0, ih inf: the intersection NaN); and
+    image 1's row 2, of NaN area, behind two invalid rows (it keeps its
+    score)."""
+    import torch
+
+    boxes, valid, k = boxes.clone(), valid.clone(), boxes.shape[1]
+    inf, nan = float("inf"), float("nan")
+    valid[:2, k - 12:] = True
+    valid[1, :3] = False
+    boxes[0, k - 10, 0] = nan
+    for row, box in ((2, (inf, 0, inf, 10)), (k - 12, (10, 10, inf, 60)),
+                     (k - 11, (-inf, 20, 50, 70)),
+                     (k - 6, (0, -inf, 10, inf)), (k - 3, (20, -inf, 30, inf))):
+        boxes[1, row] = torch.tensor(box, dtype=boxes.dtype, device=boxes.device)
+    return boxes, valid, scores
+
+
 def check_soft(label, boxes, valid, scores):
     """The soft-NMS kernel against its plain version, bit for bit; returns
     (differing elements, zeros in the result)."""
@@ -5266,27 +5387,79 @@ def check_soft(label, boxes, valid, scores):
     n, err = bit_diff(got, want)
     zeros = int((want == 0).sum())
     print(f"{label}: {n} of {got.numel()} decayed scores differ from the plain version "
-          f"(max |d| {err}); {zeros} flushed to 0, {int((want < scores).sum())} decayed",
-          flush=True)
+          f"(max |d| {err}); {zeros} flushed to 0, {int((want < scores).sum())} decayed, "
+          f"{int(torch.isnan(want).sum())} NaN", flush=True)
     if n:
         raise AssertionError(f"o3: the soft-NMS kernel disagrees with its plain version: {label}")
     return n, zeros
 
 
-def phase_o3(device, card, root, tmp, merged):
-    """o3: the soft-NMS kernel bit for bit against its plain version on a
-    served batch's candidates (the o1 tree, a 16-image bucket batch of the
-    val set at 832 px, f32) at K = 1024, 2000, 2048 and a ragged 1111, with
-    one image all invalid, and on a cluster that leaves the normal range;
-    timed held at K = 2048, B=16 beside its bound and its plain version;
-    then harness/config/yolox_m_p6.json served with "soft": true."""
+# soft_decay's bound counted from the data: the f32 operations of a pair's
+# overlap test (4 min/max, 2 subtractions, 2 clamps, the product, the test)
+# and the more of a pair whose factor is not 1 (the union's add, subtract
+# and clamp, the division, the square, the scale, expf, the multiply, the
+# flush); a row's box, flag and score read and its result written
+SOFT_TEST_OPS, SOFT_FACTOR_OPS = 10, 10
+SOFT_ROW_BYTES = 16 + 1 + 4 + 4
+
+
+def soft_counts(boxes, valid):
+    """(pairs, factors not 1, longest chain) of soft_decay on these inputs:
+    the valid rows i < j of every column, those of them whose factor is not
+    exactly 1 as the plain version computes it (a NaN factor counts), and
+    the most such factors of one column (the serial floor)."""
     import torch
 
-    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.ops.boxes import pairwise_iou
+
+    k = boxes.shape[1]
+    live = valid[:, :, None] & torch.ones(k, k, dtype=torch.bool, device=boxes.device).triu(1)
+    iou = pairwise_iou(boxes, boxes)
+    not_one = live & (torch.exp(-(iou * iou) / 0.5) != 1)
+    return int(live.sum()), int(not_one.sum()), int(not_one.sum(1).max())
+
+
+def soft_bound(pairs, not_one, b, k):
+    """(bound ms, bound_by) of soft_decay on (b, k) inputs with these counts."""
+    ops = pairs * SOFT_TEST_OPS + not_one * SOFT_FACTOR_OPS
+    t_ops, t_bytes = ops / F32_OPS_PER_S, b * k * SOFT_ROW_BYTES / HBM_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def soft_times(cases):
+    """soft_decay held at each of ``cases`` ({name: (boxes, valid,
+    scores)}), with its counts, its bound counted from the data and the
+    bound of every pair taking 20 operations."""
+    from cocodet_tpu_torch.ops.cuda import soft_nms as sk
+
+    out = {}
+    for name, (boxes, valid, scores) in cases.items():
+        b, k = valid.shape
+        pairs, not_one, chain = soft_counts(boxes, valid)
+        bound, by = soft_bound(pairs, not_one, b, k)
+        out[name] = dict(shape=[b, k], ms=cuda_ms(lambda: sk.soft_decay(boxes, valid, scores), 20),
+                         bound_ms=bound, bound_by=by, pairs=pairs, not_one=not_one, chain=chain,
+                         all_pairs_bound_ms=b * k * (k - 1) // 2 * 20 / F32_OPS_PER_S * 1e3)
+    return out
+
+
+def o_val_set(tmp):
+    """Phase i's synthetic val set (EVAL_IMAGES JPEGs, 256-512 px) under tmp."""
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    return make_synthetic_coco(os.path.join(tmp, "coco"), n_train=0, n_val=EVAL_IMAGES,
+                               size_range=(256, 512), seed=0, variant="default")
+
+
+def o3_candidates(device, root, merged):
+    """o3's served candidates: the o1 tree's head maps (cuDNN deterministic,
+    f32) on the val set's first 16-image bucket batch at 832 px that is not
+    square, selected at each K of O_SOFT_K as the postprocess selects them:
+    (the batch's shape, {K: (boxes, scores, classes, obj, valid)})."""
+    import torch
+
     from cocodet_tpu_torch.data.folder import FolderLoader, ImageFolderDataset
     from cocodet_tpu_torch.models import build_model
-    from cocodet_tpu_torch.ops.cuda import soft_nms as sk
-    from cocodet_tpu_torch.ops.nms import class_offset_boxes
     from cocodet_tpu_torch.ops.postprocess import PostprocessConfig, _select_topk_fused
 
     model = build_model("yolox-p6", depth=0.67, width=0.75, fused=True, device=device,
@@ -5295,36 +5468,73 @@ def phase_o3(device, card, root, tmp, merged):
                           pad_multiple=64)
     batch = next((b for b, _ in loader if b.shape[1] != b.shape[2]), None)
     batch = next(iter(loader))[0] if batch is None else batch
-    with torch.inference_mode():
+    with cudnn_deterministic(), torch.inference_mode():
         maps = model(torch.from_numpy(batch).to(device) * 0.9 + 11.4)
-        cands = {}
+        cands = {k: _select_topk_fused(maps, STRIDES, PostprocessConfig(pre_nms_topk=k))
+                 for k in O_SOFT_K}
+    return tuple(batch.shape), cands
+
+
+def soft_inputs(cand):
+    """soft_decay's arguments from candidates as _select_topk_fused gives
+    them: class-offset boxes, valid, scores."""
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+
+    boxes, scores, classes, _, valid = cand
+    return (class_offset_boxes(boxes, classes, valid).contiguous(), valid.contiguous(),
+            scores.contiguous())
+
+
+def phase_o3(device, card, root, tmp, merged):
+    """o3: the soft-NMS kernel bit for bit against its plain version on a
+    served batch's candidates (o3_candidates) at K = 1024, 2000, 2048 and a
+    ragged 1111, with one image all invalid, on a cluster that leaves the
+    normal range, on the dense worst case and on NaN and inf boxes; timed
+    held at (16, 2048) on the served candidates and the dense case beside
+    the bounds counted from the data and its plain version, and the whole
+    batched_nms(soft=True) beside the greedy path at that K; then
+    harness/config/yolox_m_p6.json served with "soft": true."""
+    import torch
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.ops.cuda import soft_nms as sk
+    from cocodet_tpu_torch.ops.nms import batched_nms
+
+    shape, cands = o3_candidates(device, root, merged)
+    k_max = max(O_SOFT_K)
+    with torch.inference_mode():
         for k in O_SOFT_K:
-            boxes, scores, classes, _, valid = _select_topk_fused(
-                maps, STRIDES, PostprocessConfig(pre_nms_topk=k))
-            cands[k] = (class_offset_boxes(boxes, classes, valid).contiguous(),
-                        valid.contiguous(), scores.contiguous())
-            check_soft(f"o3. soft-NMS on the served candidates {tuple(batch.shape)}, K={k}",
-                       *cands[k])
-        boxes, valid, scores = cands[max(O_SOFT_K)]
+            check_soft(f"o3. soft-NMS on the served candidates {shape}, K={k}",
+                       *soft_inputs(cands[k]))
+        boxes, valid, scores = served = soft_inputs(cands[k_max])
         none = valid.clone()
         none[0] = False
-        check_soft(f"o3. soft-NMS, image 0 all invalid, K={max(O_SOFT_K)}", boxes, none, scores)
+        check_soft(f"o3. soft-NMS, image 0 all invalid, K={k_max}", boxes, none, scores)
         _, zeros = check_soft("o3. soft-NMS on an 80-row cluster", *o_cluster(device))
         if zeros == 0:
             raise AssertionError("o3: the cluster did not leave the normal range")
-        b, k = valid.shape
-        pairs = b * k * (k - 1) // 2
-        ops, nbytes = pairs * 20, b * k * (16 + 1 + 4 + 4)
-        stats = dict(ms=cuda_ms(lambda: sk.soft_decay(boxes, valid, scores), 20),
-                     plain_ms=cuda_ms(lambda: sk.soft_decay_plain(boxes, valid, scores), 2),
-                     bound_ms=max(ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
-                     bound_by="operations" if ops / F32_OPS_PER_S >= nbytes / HBM_BYTES_PER_S
-                     else "bytes", library_ms=None, max_abs_err=0.0)
-    print(f"o3. soft_decay at {tuple(valid.shape)}: {stats['ms']:.4f} ms held, bound {stats['bound_ms']:.4f}"
-          f" ms ({stats['bound_by']}: {pairs:,} pairs x 20 f32 operations at 67 TFLOP/s), plain "
-          f"version {stats['plain_ms']:.4f} ms; no PyTorch call computes the fixed-order decay "
-          f"({card})", flush=True)
-    del model
+        dense = o_dense(device)
+        check_soft(f"o3. soft-NMS on the dense worst case {tuple(dense[1].shape)} (near-copies "
+                   f"of three overlapping boxes of one class)", *dense)
+        nonfinite = o_nonfinite(*served)
+        check_soft(f"o3. soft-NMS with NaN and inf boxes, K={k_max}", *nonfinite)
+        if not torch.isnan(sk.soft_decay_plain(*nonfinite)).any():
+            raise AssertionError("o3: the non-finite case made no NaN")
+        times = soft_times({"served": served, "dense": dense})
+        plain_ms = cuda_ms(lambda: sk.soft_decay_plain(*served), 2)
+        nms_ms = {soft: cuda_ms(lambda: batched_nms(*cands[k_max], iou_threshold=0.55,
+                                                    max_det=300, soft=soft), 20)
+                  for soft in (True, False)}
+    for name, t in times.items():
+        print(f"o3. soft_decay on the {name} case {tuple(t['shape'])}: {t['ms']:.4f} ms held, "
+              f"bound {t['bound_ms']:.4f} ms ({t['bound_by']}: {t['pairs']:,} valid pairs x "
+              f"{SOFT_TEST_OPS} + {t['not_one']:,} factors not 1 x {SOFT_FACTOR_OPS} f32 "
+              f"operations at 67 TFLOP/s; the longest column's chain {t['chain']:,}), the "
+              f"all-pairs x 20 bound {t['all_pairs_bound_ms']:.4f} ms ({card})", flush=True)
+    print(f"o3. soft_decay's plain version on the served case: {plain_ms:.4f} ms; no PyTorch "
+          f"call computes the fixed-order decay. batched_nms at K={k_max}, B={shape[0]}, "
+          f"max_det 300: soft (decay, keep, stable re-sort, compact) {nms_ms[True]:.4f} ms, "
+          f"greedy (overlap, keep, compact) {nms_ms[False]:.4f} ms ({card})", flush=True)
     report = {}
     o_reset()
     cfg = o_config("yolox_m_p6.json", root)
@@ -5339,8 +5549,32 @@ def phase_o3(device, card, root, tmp, merged):
           f"{cfg['dataloader']['batch_size']}, K=2048): {len(results)} records for "
           f"{report['images']} images, mAP@0.5 {report['stats']['AP50']:.4f}, launches "
           f"{launches}", flush=True)
-    stats["launches"] = launches["soft_decay"]
-    return stats
+    t = times["served"]
+    return dict(launches=launches["soft_decay"], max_abs_err=0.0, ms=t["ms"], plain_ms=plain_ms,
+                bound_ms=t["bound_ms"], bound_by=t["bound_by"], library_ms=None)
+
+
+def phase_soft(device, card, tree):
+    """--soft TREE: soft_decay as TREE's package runs it, held, on o3's
+    served candidates at (16, 2048) and on the dense worst case, with the
+    bounds counted from the data, in one ``soft: {json}`` line with the
+    card; for this tree's package first held bit for bit against its plain
+    version on both and on the non-finite case."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_soft_") as tmp:
+        shape, cands = o3_candidates(device, o_val_set(tmp), o1_merged())
+    with torch.inference_mode():
+        cases = {"served": soft_inputs(cands[max(O_SOFT_K)]), "dense": o_dense(device)}
+        if os.path.samefile(tree, REPO):
+            for name, case in cases.items():
+                check_soft(f"soft. the {name} case", *case)
+            check_soft("soft. NaN and inf boxes", *o_nonfinite(*cases["served"]))
+        res = soft_times(cases)
+    print("soft: " + json.dumps({"tree": tree, "card": card, "batch": list(shape), **res}),
+          flush=True)
 
 
 def o4_rank(rank, device, cfg, out):
@@ -5461,8 +5695,6 @@ def phase_o(device, card, flags):
 
     import torch
 
-    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
-
     t_start = time.perf_counter()
     print(f"o. cuts: full width kept (YOLOX-M-P6, depth 0.67, width 0.75); weights random from "
           f"numpy seeds (no merged_49.pth in the repo: o1 writes its own); {EVAL_IMAGES} "
@@ -5470,8 +5702,7 @@ def phase_o(device, card, flags):
           f"one card over gloo", flush=True)
     seconds = {}
     with tempfile.TemporaryDirectory(prefix="chip_smoke_o_") as tmp, backend_flags(flags):
-        root = make_synthetic_coco(os.path.join(tmp, "coco"), n_train=0, n_val=EVAL_IMAGES,
-                                   size_range=(256, 512), seed=0, variant="default")
+        root = o_val_set(tmp)
         t = time.perf_counter()
         merged, pth, msgpack = phase_o1(device, card, root, tmp)
         seconds["o1"] = time.perf_counter() - t
@@ -5530,14 +5761,22 @@ def main():
     flags = current_flags()  # before any phase sets them
     args = sys.argv[1:]
     if args and (len(args) != 2 or args not in (["--step", args[1]], ["--bn", args[1]],
-                                                 ["--phase", "j"], ["--phase", "j1"],
+                                                 ["--soft", args[1]], ["--drift", args[1]],
+                                                 ["--phase", "j"],
+                                                 ["--phase", "j1"],
                                                  ["--phase", "k"], ["--phase", "l"],
                                                  ["--phase", "m"], ["--phase", "n"],
                                                  ["--phase", "o"])):
-        print("usage: python3 chip_smoke.py [--step TREE | --bn TREE | --phase j | --phase j1 "
-              "| --phase k | --phase l | --phase m | --phase n | --phase o]", file=sys.stderr)
+        print("usage: python3 chip_smoke.py [--step TREE | --bn TREE | --soft TREE | --drift LR "
+              "| --phase j "
+              "| --phase j1 | --phase k | --phase l | --phase m | --phase n | --phase o]",
+              file=sys.stderr)
         return 2
-    tree = os.path.abspath(args[1]) if args[:1] in (["--step"], ["--bn"]) else REPO
+    if args[:1] == ["--drift"] and not re.fullmatch(r"\d+(\.\d*)?(e-?\d+)?", args[1]):
+        print(f"chip_smoke: FAIL: --drift takes a learning rate, not {args[1]!r}",
+              file=sys.stderr)
+        return 2
+    tree = os.path.abspath(args[1]) if args[:1] in (["--step"], ["--bn"], ["--soft"]) else REPO
     if not os.path.isdir(os.path.join(tree, "cocodet_tpu_torch")):
         print(f"chip_smoke: FAIL: no cocodet_tpu_torch package in {tree}", file=sys.stderr)
         return 2
@@ -5556,6 +5795,12 @@ def main():
         return 0
     if args[:1] == ["--bn"]:
         phase_bn(device, card, tree)
+        return 0
+    if args[:1] == ["--soft"]:
+        phase_soft(device, card, tree)
+        return 0
+    if args[:1] == ["--drift"]:
+        print("drift: " + json.dumps(phase_drift(device, card, float(args[1]))), flush=True)
         return 0
     if args == ["--phase", "j1"]:
         print("j1: " + json.dumps(phase_j1_alone(device, card, flags)))

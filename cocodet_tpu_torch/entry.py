@@ -188,13 +188,14 @@ def build_trainer(depth: float = 0.67, width: float = 0.75,
                   dtype: torch.dtype = torch.bfloat16,
                   device: Union[str, torch.device] = "cuda",
                   seed: int = 0, mesh: Optional[Mesh] = None,
-                  remat: bool = False) -> Tuple[YOLOX, Callable]:
+                  remat: bool = False, lr: float = 0.01) -> Tuple[YOLOX, Callable]:
     """(model, step): the unfused YOLOX-P6 at ``depth``/``width`` in train
     mode, f32 parameters computing in ``dtype``, weights drawn from numpy
     ``seed`` with the head's cls and obj biases at the prior 0.01, and its
     train step (``core/train_state.py::make_train_step``) with the optimizer
-    of ``__graft_entry__.dryrun_multichip``: SGD at lr 0.01 with nesterov
-    momentum 0.9 and weight decay 5e-4 on the conv kernels, the EMA at
+    of ``__graft_entry__.dryrun_multichip``: SGD at lr ``lr`` (its 0.01 by
+    default) with nesterov momentum 0.9 and weight decay 5e-4 on the conv
+    kernels, the EMA at
     0.9998, the iou loss, 80 classes, strides (8, 16, 32, 64). On a
     ``mesh`` (``parallel.make_mesh``, ``make_mesh_2d``) the model lives on
     the mesh's device, starts from rank 0's weights, and the step is the
@@ -206,7 +207,7 @@ def build_trainer(depth: float = 0.67, width: float = 0.75,
         shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=depth, width=width)
     model = build_model("yolox-p6", depth=depth, width=width, dtype=dtype, device=device,
                         variables=random_variables(shapes, seed, prior_prob=0.01))
-    state = create_train_state(model, build_optimizer(model, 0.01), mesh=mesh)
+    state = create_train_state(model, build_optimizer(model, lr), mesh=mesh)
     return model, make_train_step(state, model.strides, num_classes=model.num_classes,
                                   mesh=mesh, remat=remat)
 

@@ -11,10 +11,14 @@ some 55 overlapping same-class rows the product leaves the normal range,
 and whether a row is kept (``s > 0``) turns on that flush. The IoU
 threshold plays no part, in JAX or here.
 
-``soft_decay`` runs ``csrc/soft_nms.cu::soft_decay_kernel`` (the source's
-header has the design) for CUDA tensors, and its plain version,
-``soft_decay_plain``, for CPU tensors only. It never falls back; its
-launches are counted in ``soft_decay.launches``.
+``soft_decay`` runs ``csrc/soft_nms.cu::soft_decay_kernel`` for CUDA
+tensors: producer warps compute a tile's factors, skipping the division and
+``expf`` of finite pairs that do not overlap (their factor is exactly 1),
+and one lane a column multiplies the factors that are not 1 in row order,
+``/ 0.5`` taken as the exact ``* 2`` (the source's header has the design,
+why each rewrite is exact and the bound counted from the data). Its plain
+version, ``soft_decay_plain``, runs for CPU tensors only. It never falls
+back; its launches are counted in ``soft_decay.launches``.
 """
 
 from __future__ import annotations

@@ -1,8 +1,8 @@
 // A CPU stand-in for the subset of CUDA that cocodet_tpu_torch/csrc/
-// train_aug.cu's, fake_quant.cu's and bn_act.cu's kernels use, so that g++
-// can compile them and the tests can run them on the CPU
+// train_aug.cu's, fake_quant.cu's, bn_act.cu's and soft_nms.cu's kernels
+// use, so that g++ can compile them and the tests can run them on the CPU
 // (tests/torch_cuda_emu.py): a block is 256 std::threads that meet at a
-// barrier; shared memory is one buffer (blocks run one after another), or
+// barrier, a warp's 32 of them at each warp-level call; shared memory is one buffer (blocks run one after another), or
 // for bn_act.cu's resident kernel one a CTA (emu_dynamic_smem; the CTAs of a
 // cluster run at once, cooperative_groups.h); cp.async is a plain copy; the
 // f32 and f64 intrinsics are IEEE operations (compile with
@@ -103,8 +103,10 @@ inline uint32_t __vhaddu4(uint32_t a, uint32_t b) {
     r |= ((((a >> (8 * i)) & 255) + ((b >> (8 * i)) & 255)) >> 1) << (8 * i);
   return r;
 }
+inline int __ffs(unsigned x) { return x ? __builtin_ctz(x) + 1 : 0; }
 void __syncthreads();
 int __syncthreads_count(int pred);
 void __syncwarp();
 double __shfl_xor_sync(unsigned mask, double v, int lane_mask);
+unsigned __ballot_sync(unsigned mask, int pred);
 uint8_t* emu_dynamic_smem();

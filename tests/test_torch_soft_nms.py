@@ -208,27 +208,142 @@ def emu(tmp_path_factory):
     return torch_cuda_emu.build(tmp_path_factory.mktemp("soft_nms_emu"), "soft_nms")
 
 
-@pytest.mark.parametrize("case", ["k64", "ragged_k300", "k600_invalid_image", "cluster"])
+def _nonfinite(k=96, seed=5):
+    """Two images of class-offset candidates with non-finite boxes near
+    their ends: image 0 a NaN x1 (every later row's product turns NaN),
+    image 1 boxes of infinite area (their pairs take the full path: union
+    inf, IoU 0, factor 1) and two bands of infinite height side by side
+    (iw 0, ih inf: the intersection NaN, never skipped); image 1's row 2, of
+    NaN area, has only invalid rows before it (it keeps its score: an
+    invalid row decays nothing, not even with a NaN union)."""
+    boxes, scores, classes, _, valid = _candidates(2, k, seed=seed)
+    boxes = _offset(boxes, classes, valid)
+    valid[:, k - 12:] = True
+    valid[1, :3] = False
+    boxes[1, 2] = [np.inf, 0, np.inf, 10]
+    boxes[0, k - 10, 0] = np.nan
+    boxes[1, k - 12] = [10, 10, np.inf, 60]
+    boxes[1, k - 11] = [-np.inf, 20, 50, 70]
+    boxes[1, k - 6] = [0, -np.inf, 10, np.inf]
+    boxes[1, k - 3] = [20, -np.inf, 30, np.inf]
+    return boxes, scores, valid
+
+
+def _dense(batch=2, k=160, seed=4):
+    """``batch`` images of ``k`` near-copies of three overlapping boxes of
+    one class, all valid: every pair overlaps, so no factor is 1, and the
+    products leave the normal range."""
+    rs = np.random.RandomState(seed)
+    base = np.array([[100, 100, 300, 300], [120, 110, 310, 290], [90, 130, 280, 320]],
+                    np.float32)
+    boxes = (base[rs.randint(0, 3, (batch, k))]
+             + rs.uniform(0, 3, (batch, k, 4))).astype(np.float32)
+    scores = np.sort(rs.uniform(0.3, 0.9, (batch, k)).astype(np.float32), axis=1)[:, ::-1]
+    return boxes, np.ascontiguousarray(scores), np.ones((batch, k), bool)
+
+
+@pytest.mark.parametrize("case", ["k64", "ragged_k300", "k600_invalid_image", "cluster",
+                                  "nonfinite", "dense_k160", "tile_edges_k97_b3"])
 def test_kernel_source_emulated(emu, case):
     """csrc/soft_nms.cu's kernel compiled by g++ against tests/cuda_emu/
-    (a block's 256 threads as std::threads at its barriers) against the
-    plain version: the same zeros (the flush), the rest within 2 ulp a
-    factor (the C library's expf is not torch's). K=300 and 600 cross the
-    256-row chunks of shared memory and the blocks' triangle."""
+    (a block's 288 threads as std::threads at its barriers, a warp's 32 at
+    each ballot) against the plain version: the same zeros (the flush), NaNs
+    and infinities, the rest within 2 ulp a factor (the C library's expf is
+    not torch's). K = 97 (B = 3), 300 and 600 end inside a 32-column tile
+    and a 128-row chunk; the dense case has no factor of 1 (every chunk's
+    marks full), the non-finite case NaN and inf boxes."""
     import torch_cuda_emu
 
     if case == "cluster":
         boxes, scores, classes, _, valid = _cluster()
+    elif case == "nonfinite":
+        boxes, scores, valid = _nonfinite()
+    elif case == "dense_k160":
+        boxes, scores, valid = _dense()
+        iou = pairwise_iou(torch.from_numpy(boxes), torch.from_numpy(boxes))
+        above = torch.ones(160, 160, dtype=torch.bool).triu(1)
+        assert (torch.exp(-(iou * iou) / 0.5)[:, above] != 1).all()
     else:
-        k = {"k64": 64, "ragged_k300": 300, "k600_invalid_image": 600}[case]
-        boxes, scores, classes, _, valid = _candidates(2, k, seed=k)
+        b, k = {"k64": (2, 64), "ragged_k300": (2, 300), "k600_invalid_image": (2, 600),
+                "tile_edges_k97_b3": (3, 97)}[case]
+        boxes, scores, classes, _, valid = _candidates(b, k, seed=k)
         if case == "k600_invalid_image":
             valid[1] = False
         boxes = _offset(boxes, classes, valid)
     want = sk.soft_decay_plain(*(torch.from_numpy(a) for a in (boxes, valid, scores))).numpy()
     got = torch_cuda_emu.run(emu, "emu_soft_decay", [boxes, valid, scores], scores.shape,
                              np.float32, [scores.shape[0], scores.shape[1]])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
     np.testing.assert_array_equal(got == 0, want == 0)
+    finite = np.isfinite(want)
+    np.testing.assert_array_equal(got[~finite & ~np.isnan(want)], want[~finite & ~np.isnan(want)])
     rtol = _rtol(valid)
-    assert (np.abs(got - want) <= rtol * np.abs(want)).all()
+    assert (np.abs(got - want) <= rtol * np.abs(want))[finite].all()
     assert (want < scores).mean() > 0.3
+    if case == "nonfinite":
+        assert np.isnan(want[0, -10:]).all() and not np.isnan(want[0, :-10]).any()
+        # the two bands' pair alone turns NaN; the infinite areas decay nothing
+        assert np.flatnonzero(np.isnan(want[1])).tolist() == [scores.shape[1] - 3]
+        assert (want[1, -12:-10] == scores[1, -12:-10]).all() and want[1, 2] == scores[1, 2]
+    if case == "dense_k160":
+        assert (want == 0).sum() > 100
+
+
+def _f32_values(n=1 << 20, seed=0):
+    """n f32 values from random bit patterns (every exponent: subnormals and
+    values near overflow), with the zeros, the extremes and their
+    neighbours, both signs; no NaN."""
+    rs = np.random.RandomState(seed)
+    bits = rs.randint(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    edges = np.array([0, 1, 2, 0x007FFFFF, 0x00800000, 0x00800001, 0x3F800000, 0x7F7FFFFE,
+                      0x7F7FFFFF, 0x7F000000, 0x7EFFFFFF, 0x7F800000], np.uint32)
+    bits = np.concatenate([bits, edges, edges | np.uint32(0x80000000)])
+    x = bits.view(np.float32)
+    return x[~np.isnan(x)]
+
+
+def test_exact_rewrites_of_the_kernel():
+    """The kernel's two rewrites are exact in f32: x / 0.5 equals x * 2 bit
+    for bit (subnormals, values near overflow and infinities included), and
+    a pair of finite boxes whose intersection is 0 has IoU 0 and factor
+    exactly 1 under the plain version's operations, also when its union
+    overflows or its coordinates are subnormal."""
+    x = torch.from_numpy(_f32_values())
+    half = torch.tensor(0.5, dtype=torch.float32)
+    np.testing.assert_array_equal((x / half).numpy().view(np.uint32),
+                                  (x * 2.0).numpy().view(np.uint32))
+    sq = -(x * x)
+    np.testing.assert_array_equal((sq / half).numpy().view(np.uint32),
+                                  (sq * 2.0).numpy().view(np.uint32))
+
+    # finite boxes from finite coordinates of every scale, most pairs disjoint
+    rs = np.random.RandomState(1)
+    vals = _f32_values(1 << 16, seed=2)
+    vals = vals[np.isfinite(vals)]
+    lo = rs.choice(vals, (4096, 2))
+    with np.errstate(over="ignore"):
+        hi = lo + np.abs(rs.choice(vals, (4096, 2))).astype(np.float32)
+    boxes = np.concatenate([lo, hi], 1).astype(np.float32)
+    # touching pairs: subnormal, tiny normal, and two areas of 2e38 whose
+    # union overflows to inf
+    touching = np.array([[0, 0, 1e-45, 1e-45], [1e-45, 0, 2e-45, 1e-45],
+                         [1e-38, 1e-38, 2e-38, 2e-38], [2e-38, 1e-38, 3e-38, 2e-38],
+                         [0, 0, 2e19, 1e19], [2e19, 0, 4e19, 1e19]], np.float32)
+    boxes = np.concatenate([boxes, touching])
+    with np.errstate(over="ignore"):
+        areas = (boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])
+    keep = np.isfinite(boxes).all(1) & np.isfinite(areas)
+    boxes, areas = boxes[keep], areas[keep]
+    tb = torch.from_numpy(boxes)
+    tl = torch.maximum(tb[:, None, :2], tb[None, :, :2])
+    br = torch.minimum(tb[:, None, 2:], tb[None, :, 2:])
+    wh = (br - tl).clamp_min(0.0)
+    zero = (wh[..., 0] * wh[..., 1]) == 0
+    iou = pairwise_iou(tb, tb)
+    factor = torch.exp(-(iou * iou) / 0.5)
+    assert zero.float().mean() > 0.5 and zero.sum() > 10_000_000
+    n = len(boxes)
+    assert torch.isinf(iou.new_tensor(areas[n - 2]) + iou.new_tensor(areas[n - 1]))
+    assert zero[n - 2, n - 1] and zero[n - 6, n - 5] and zero[n - 4, n - 3]
+    assert (iou[zero] == 0).all()
+    assert (factor[zero] == 1).all()

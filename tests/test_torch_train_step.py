@@ -203,3 +203,33 @@ def test_build_trainer_on_cpu():
     assert all(torch.isfinite(v) for v in metrics.values()) and float(metrics["num_fg"]) > 0
     assert not torch.equal(model.head.reg_pred0.weight.detach(), w0)
     assert not torch.equal(model.head.stem0.bn.running_mean, mean0)
+
+
+@pytest.mark.parametrize("lr", [None, 0.0025], ids=["default", "0.0025"])
+def test_build_trainer_lr(lr):
+    """entry.build_trainer's ``lr`` (``dryrun_multichip``'s 0.01 by
+    default) is the SGD's: after the first step every parameter is, bit for
+    bit, p + (-lr) * (0.9 t + t) with t = g + 5e-4 p on the conv kernels and
+    t = g elsewhere, optax's nesterov step from a zero trace in its order."""
+    import inspect
+
+    from cocodet_tpu_torch.entry import build_trainer
+
+    kw = {} if lr is None else {"lr": lr}
+    model, step = build_trainer(0.33, 0.125, torch.float32, device="cpu", seed=2, **kw)
+    lr = 0.01 if lr is None else lr
+    opt = inspect.getclosurevars(step).nonlocals["state"].optimizer
+    assert [g["lr"] for g in opt.param_groups] == [lr, lr]
+    before = [p.detach().clone() for p in model.parameters()]
+    rs = np.random.RandomState(3)
+    images = torch.from_numpy(rs.uniform(0, 255, (1, 64, 64, 3)).astype(np.float32))
+    labels = torch.zeros(1, 4, 5)
+    labels[:, 0] = torch.tensor([3.0, 30.0, 30.0, 20.0, 16.0])
+    step(images, labels)
+    moved = 0
+    for p0, p in zip(before, model.parameters()):
+        t = p0 * 5e-4 + p.grad if p.dim() == 4 else p.grad
+        want = p0 + (t * 0.9 + t) * -lr
+        assert torch.equal(p.detach(), want)
+        moved += int(not torch.equal(p.detach(), p0))
+    assert moved > 0

@@ -7,7 +7,8 @@ for the CUDA it uses, with the f32 operations IEEE and uncontracted, as
 nvcc's ``--fmad=false`` builds them; ``cuda_emu/train_aug_emu.cpp``
 runs a block as 256 threads that meet at its barriers, and
 ``cuda_emu/bn_act_emu.cpp`` a cluster's CTAs at once, each with its own
-shared memory; ``cuda_emu/soft_nms_emu.cpp`` a block as 256 threads too.
+shared memory; ``cuda_emu/soft_nms_emu.cpp`` a block as 288 threads, a
+warp's 32 of them meeting at each ``__ballot_sync``.
 Each launch runs in a child process (``python
 torch_cuda_emu.py LIB FUNCTION IN OUT``) with a time limit, so a kernel
 whose barriers deadlock fails its test, not the run.
