@@ -353,6 +353,10 @@ runs phase a and phase n alone (without the kernels and ``ok`` lines).
 runs phase a and phase o alone and prints the soft_nms entry as one
 ``o: {...}`` JSON line (without the kernels and ``ok`` lines).
 
+    python3 chip_smoke.py --phase p
+
+runs phase a and phase p alone (without the kernels and ``ok`` lines).
+
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
 ``{"ok": true, "device": {...}}``. Without a CUDA card, or without the rest
@@ -2354,7 +2358,10 @@ def phase_repeat(device, predictor):
     return counts, same
 
 
-H_WARMUP, H_STEPS = 2, 3
+# h2: cut to fit phase p: 1 warm-up and 2 timed steps at depth 0.33, full width
+# (2, 3 and depth 0.67 before)
+H_WARMUP, H_STEPS = 1, 2
+H_DEPTH = 0.33
 # h1's limits on (losses, parameters, BN statistics): g2's, and at 256x128 a
 # parameter limit of 3e-3, where f32 rounding alone moves a leaf by 8.05e-4 of
 # its largest value (the step in f32 against f64 on the CPU)
@@ -2395,7 +2402,7 @@ def h_rank(rank, device):
     main_batch = training_batch(BATCH, SIZE, 12)
     for name, mesh in meshes.items():
         t0 = time.perf_counter()
-        model, step = build_trainer(0.67, 0.75, torch.bfloat16, seed=0, mesh=mesh, lr=STEP_LR)
+        model, step = build_trainer(H_DEPTH, 0.75, torch.bfloat16, seed=0, mesh=mesh, lr=STEP_LR)
         local = shard_batch(mesh, main_batch)
         for _ in range(H_WARMUP):
             step(*local)
@@ -2504,7 +2511,7 @@ def phase_dp(device, card):
             ms = [d for d, _ in r["steps"]]
             host = [h for _, h in r["steps"]]
             coll = sum(r["host_ms"].values()) / H_STEPS
-            print(f"h2. YOLOX-M-P6 (depth 0.67, width 0.75, bf16 compute) data-parallel on "
+            print(f"h2. YOLOX-M-P6 (depth {H_DEPTH}, width 0.75, bf16 compute) data-parallel on "
                   f"({mesh}), rank {rank} of 2 on {card}: local batch {r['rows']}; setup and "
                   f"{H_WARMUP} warm-up steps {r['setup_s']:.2f} s; device ms a step "
                   + ", ".join(f"{v:.2f}" for v in ms)
@@ -4263,8 +4270,13 @@ def m1_argv(ckpt, root, out):
             str(M_CALIB), "--workers", "4", "--print-interval", "1", "-o", out]
 
 
+# m2's depth: cut to fit phase p (0.67, the exp's, before); full width kept
+M2_DEPTH = 0.33
+
+
 def m2_argv(root, out_dir):
     return ["-f", os.path.join(REPO, M_SYNFLOW_EXP), "-b", str(BATCH), "data_dir", root,
+            "depth", str(M2_DEPTH),
             "output_dir", out_dir, "input_size", f"({SIZE}, {SIZE})", "test_size",
             f"({SIZE}, {SIZE})", "multiscale_range", "0", "max_epoch", "2", "warmup_epochs", "1",
             "no_aug_epochs", "1", "prune_epoch", "1", "print_interval", "2"]
@@ -4647,7 +4659,7 @@ def compare_selection(shards, fraction):
 def phase_m2(device, card, root, out_dir):
     """m2: tools/train_synflow.py as its main() runs (the train CLI's build,
     TrainerSynFlow, train) on the port's exps/synflow/yolox_m_synflow.py at
-    full width (YOLOX-M, bf16), B=16, 640 px, 2 epochs of 4 iterations,
+    full width (YOLOX-M, bf16) at depth M2_DEPTH, B=16, 640 px, 2 epochs of 4 iterations,
     prune_epoch 1, all 100 rounds; steps wrapped by StepTimer, counts zeroed
     just before. Checks: the kept count; the card's selection equal to the
     plain (CPU) selection on the card's own scores; one f32 score pass on
@@ -4809,7 +4821,8 @@ def phase_m(device, card, flags):
     t_start = time.perf_counter()
     print(f"m. cuts: full width kept (the headline's slim YOLOX-M-P6, YOLOX-M, YOLOX-M-P6); "
           f"weights random from numpy seeds (no trained checkpoint here); QAT {M_STEPS} steps "
-          f"(not 300); SynFlow's prune_epoch 1 (not 10), 2 epochs of 4 iterations; the chain 1 "
+          f"(not 300); SynFlow's prune_epoch 1 (not 10), 2 epochs of 4 iterations at depth "
+          f"{M2_DEPTH}; the chain 1 "
           f"epoch of 4 iterations a stage, at lr {M3_LR} an image (not --synth's 2.5e-4: from "
           f"random weights that lr makes eval mode NaN within 4 iterations); {L_TRAIN} "
           f"synthetic train and {L_VAL} val JPEGs (no COCO in the repo)", flush=True)
@@ -4826,7 +4839,10 @@ def phase_m(device, card, flags):
 
 # phase n: the training runtime's leftovers (several ranks, accumulation,
 # device_aug without mosaic, remat) at full width
-N_TRAIN, N_VAL = 64, 16  # the synthetic set's train and val JPEGs (256-512 px)
+# the synthetic set's train and val JPEGs (256-512 px), and the runs' depth: cut to fit
+# phase p: 2 iterations an epoch at depth 0.33, full width (64 and 0.67 before)
+N_TRAIN, N_VAL = 32, 16
+N_DEPTH = 0.33
 N_SPATIAL_EXP = os.path.join("cocodet_tpu_torch", "exps", "p6", "yolox_m_p6_spatial.py")
 N_AP50_TOL = 1e-3  # the gathered evaluation's AP50 against one process's
 # the gathered records against one process's, row for row (image and category exact):
@@ -4901,25 +4917,15 @@ def n_rank_hook(trainer, stage):
     trainer_module.apply_device_preproc = held_preproc
 
     def widest(module, inputs, outputs):
-        if module.training:
-            trainer._n_wh.append(widest_wh(outputs))
+        if module.training:  # a distilling student returns (maps, taps)
+            trainer._n_wh.append(widest_wh(outputs[0] if isinstance(outputs, tuple)
+                                           else outputs))
 
     def hooked_before_train():
         before_train()
         collectives.reset_counts()  # the steps' collectives, not the state's broadcast
         trainer.model.register_forward_hook(widest)
-        step = trainer.train_step
-
-        def timed(*a, **kw):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            out = step(*a, **kw)
-            end.record()
-            torch.cuda.synchronize()
-            trainer._n_steps.append((start, end, (time.perf_counter() - t0) * 1e3))
-            return out
-        trainer.train_step = timed
+        trainer.train_step = n_timed(trainer, trainer.train_step)
 
     def deterministic_evaluate():
         with cudnn_deterministic():
@@ -4927,6 +4933,23 @@ def n_rank_hook(trainer, stage):
     trainer.before_train = hooked_before_train
     trainer.evaluate_and_save_model = deterministic_evaluate
     return None
+
+
+def n_timed(trainer, step):
+    """``step`` timed by CUDA events and the host clock into
+    ``trainer._n_steps``."""
+    import torch
+
+    def timed(*a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = step(*a, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        trainer._n_steps.append((start, end, (time.perf_counter() - t0) * 1e3))
+        return out
+    return timed
 
 
 def n_report(label, run, card):
@@ -4947,7 +4970,8 @@ def n_report(label, run, card):
         for st in r["epoch_stats"]:
             print(f"{label} rank {r['rank']} epoch {st['epoch']}: {st['iterations']} iterations, "
                   f"{st['img_per_s']:.2f} img/s by the host clock (data included), sizes "
-                  f"{st['size_sequence']}, data wait {st['data_wait_ms']:.2f} ms a step, "
+                  f"{st.get('size_sequence', 'the loader size')}, data wait "
+                  f"{st['data_wait_ms']:.2f} ms a step, "
                   f"non-finite losses {st['nonfinite_losses']}", flush=True)
         for ev in r["eval_stats"]:
             print(f"{label} rank {r['rank']} evaluation: images {ev['images']}, gathered records "
@@ -4972,13 +4996,13 @@ def record_rows(records):
 
 
 def n_argv(exp, device, root, out_dir, extra=()):
-    """The CLI line of n1 and n2: 2 ranks on this host, B=16, 1 epoch (4
-    iterations on the set) with its mosaic (``no_aug_epochs`` -1: the
+    """The CLI line of n1 and n2: 2 ranks on this host, B=16, 1 epoch
+    (N_TRAIN / 16 iterations on the set) at depth N_DEPTH with its mosaic (``no_aug_epochs`` -1: the
     trainer's switch comes at ``max_epoch - no_aug_epochs``), the images
     cached."""
     return ["-f", os.path.join(REPO, exp), "-d", "2", "-b", str(J_BATCH), "--cache",
             "--device", device.type, "data_dir", root, "output_dir", out_dir, "max_epoch", "1",
-            "no_aug_epochs", "-1", "print_interval", "1", *extra]
+            "no_aug_epochs", "-1", "print_interval", "1", "depth", str(N_DEPTH), *extra]
 
 
 def phase_n1(device, card, root, out_dir):
@@ -5145,9 +5169,10 @@ def phase_n(device, card, flags):
     from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
 
     t_start = time.perf_counter()
-    print(f"n. cuts: full width kept (YOLOX-M-P6, depth 0.67, width 0.75); weights random from "
-          f"numpy seeds; {N_TRAIN} synthetic train and {N_VAL} val JPEGs (no COCO in the "
-          f"repo); 1 epoch of 4 iterations a run, with its mosaic (no no-aug epoch); 2 ranks "
+    print(f"n. cuts: full width kept (YOLOX-M-P6, width 0.75), depth {N_DEPTH}; weights random "
+          f"from numpy seeds; {N_TRAIN} synthetic train and {N_VAL} val JPEGs (no COCO in the "
+          f"repo); 1 epoch of {N_TRAIN // J_BATCH} iterations a run, with its mosaic (no no-aug "
+          f"epoch); 2 ranks "
           f"share the one card over gloo, every collective staged through the host (no NCCL "
           f"across cards here)", flush=True)
     torch.cuda.empty_cache()
@@ -5170,7 +5195,7 @@ def phase_n(device, card, flags):
 # phase o: the evaluation family's leftovers: reference .pth checkpoints,
 # w8a8 checkpoints from tools.quantize_model, soft-NMS (csrc/soft_nms.cu),
 # the harness on several ranks and the eval CLI
-O_RANK_IMAGES = 32  # o4: the images the ranks serve
+O_RANK_IMAGES = 16  # o4: the images the ranks serve (32 before the cut that fits phase p)
 O_SOFT_K = (1024, 2000, 2048, 1111)  # o3: the int8 config's, the evaluator's, the harness's, ragged
 O_SCORE_TOL, O_BOX_TOL = 1e-4, 0.02  # o4: ranks against one process (score, px)
 O_EXP = os.path.join("cocodet_tpu_torch", "exps", "p6", "yolox_m_p6.py")
@@ -5725,6 +5750,456 @@ def phase_o(device, card, flags):
     return stats
 
 
+# phase p: the compression trainers on ranks, the latency serving graph
+# (stem6 + split_cat) and int4 checkpoints
+P_PARITY = (4, 128, 31)  # p1's training_batch: B=4 at 128 px, 2 images a rank
+P_PRUNE_CHANNELS = 64    # p1's and p2's prune event
+P1_SYNFLOW_ROUNDS = 5
+# p1: the ranks' importance against one process's, to the largest importance: h1's limit
+# on a parameter (f32: the gradients of a site's BN scale and bias cancel in the square, so
+# a site's own largest value can be all rounding; 5.2e-5 measured on the CPU)
+P_IMPORTANCE_TOL = H_LIMITS["1-D"][1]
+P_SYNFLOW_ITERS = 10     # p2's SynFlow rounds, cut from the exp's 100
+P_TRAIN = 32             # p2's synthetic train JPEGs: 2 iterations of BATCH
+P_LR = M3_LR             # p2's lr an image (m3's: random weights stay finite)
+P_DEPTH = 0.33           # p2's depth (full width), cut to fit the run's time
+P_CPU_IMAGES = 1         # p3's images served on the card and the CPU in f32,
+P_CPU_CROP = 256         # cut to their top-left 256 x 256 there
+# p3: in bf16 the rewrites round the parts' sums once more, and with random weights the
+# served records are near-ties (thousands of candidates of like scores an image): the held
+# tolerance is phase d's on the head maps; of each image's P_BF16_TOP best records of the
+# plain graph at least P_BF16_MATCH must be matched, a floor against a broken graph (0.506
+# measured on an H100, 0.815 on the CPU's bf16 at depth 0.33, width 0.125)
+P_BF16_MATCH = 0.3
+P_BF16_TOP = 100
+P_BF16_TOL = ((1.0, 1e-2), 1e-2)  # p3: (px, relative) and score of such a match
+P_TIMED = 20             # p3: timed calls a turn
+
+
+def p1_run(device, variables, flow_variables, batch, mesh=None):
+    """p1's work on one process (``mesh`` None) or on a rank of a data mesh,
+    from the same variables, each step the module's own code: the score
+    step's importance, a prune event as ``Pruner.prune`` runs it (one score
+    batch, rank 0 selects and broadcasts the gates), one distill step of
+    the pruned student (the unmasked teacher, use_l1), and SynFlow's rounds
+    as ``TrainerSynFlow.apply_synflow`` runs them (rank 0 scores, the masks
+    broadcast). f32, depth 0.33, width 0.125."""
+    import types
+
+    import torch
+
+    from cocodet_tpu_torch.core import train_state as ts
+    from cocodet_tpu_torch.core.pruner import Pruner, make_distill_train_step, make_score_step
+    from cocodet_tpu_torch.core.trainer_synflow import TrainerSynFlow, make_synflow_score_step
+    from cocodet_tpu_torch.models import build_model
+    from cocodet_tpu_torch.parallel import shard_batch
+    from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree
+
+    rank = 0 if mesh is None else torch.distributed.get_rank()
+    images, labels = batch
+    if mesh is None:
+        local = (torch.from_numpy(images).to(device), torch.from_numpy(labels).to(device))
+    else:
+        local = shard_batch(mesh, (images, labels))
+    kw = dict(depth=0.33, width=0.125, device=device)
+    student = build_model("yolox-p6", use_mask=True, variables=variables, **kw)
+    teacher = build_model("yolox-p6", variables={k: variables[k] for k in ("params",
+                                                                          "batch_stats")}, **kw)
+    state = ts.create_train_state(student, ts.build_optimizer(student, STEP_LR), use_ema=False,
+                                  mesh=mesh)
+    score = make_score_step(student, STRIDES, mesh=mesh)
+    importance = {"/".join(k): v.cpu().numpy() for k, v in score(*local).items()}
+    pruner = types.SimpleNamespace(
+        score_batches=1, _next_batch=lambda: local, score_step=score, rank=rank, model=student,
+        prune_channels=P_PRUNE_CHANNELS, prune_site_floor=1, prune_max_frac=1.0,
+        prune_normalize=None, mesh=mesh, prune_events=[], epoch=0)
+    Pruner.prune(pruner)
+    masks = flatten_tree(export_variables(student)["masks"])
+    step = make_distill_train_step(state, teacher, STRIDES, mesh=mesh)
+    metrics = {k: float(v) for k, v in step(*local, use_l1=True).items()}
+    after = flatten_tree(export_variables(student))
+    flow = build_model("yolox-p6", weight_mask=True, variables=flow_variables, **kw)
+    synflow = types.SimpleNamespace(
+        prune_iters=P1_SYNFLOW_ROUNDS, prune_ratio=0.5, rank=rank, mesh=mesh, model=flow,
+        score_step=make_synflow_score_step(flow, (P_PARITY[1], P_PARITY[1])),
+        _synflow_done=False, synflow_stats={})
+    TrainerSynFlow.apply_synflow(synflow)
+    conv_masks = {n: b.cpu().numpy() for n, b in flow.named_buffers() if n.endswith("conv_mask")}
+    return {"importance": importance, "masks": masks, "events": pruner.prune_events,
+            "metrics": metrics, "state": after, "conv_masks": conv_masks,
+            "kept": synflow.synflow_stats["kept"]}
+
+
+def p_rank(rank, device, variables, flow_variables, batch):
+    """p1 in one rank of a 1-D data mesh of 2 that share the card (gloo)."""
+    from cocodet_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device)
+    with cudnn_deterministic():
+        return p1_run(device, variables, flow_variables, batch, mesh)
+
+
+def phase_p1(device, card):
+    """p1: the compression trainers' steps on 2 ranks sharing the card
+    against one process on the card (p1_run), f32, cuDNN deterministic, TF32
+    off: the distill step at h1's limits, the importance within
+    P_IMPORTANCE_TOL of the largest (the gradients summed over ranks before
+    the square), and a prune event's gates and SynFlow's conv masks bit for bit
+    on both ranks and equal to one process's."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX
+    from cocodet_tpu_torch.parallel.launch import run_ranks
+    from cocodet_tpu_torch.utils.convert import random_variables
+
+    with torch.device("meta"):
+        masked = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, use_mask=True)
+        flow = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, weight_mask=True)
+    variables = random_variables(masked, 1, prior_prob=0.01)
+    flow_variables = scaled_for_flow(random_variables(flow, 2))
+    batch = training_batch(*P_PARITY)
+    t0 = time.perf_counter()
+    with cudnn_deterministic():
+        one = p1_run(device, variables, flow_variables, batch)
+    t1 = time.perf_counter()
+    ranks = run_ranks(p_rank, 2, variables, flow_variables, batch, device=device, timeout=600)
+    t2 = time.perf_counter()
+    r0 = ranks[0]
+    err = step_errors((r0["metrics"], r0["state"], [0]), (one["metrics"], one["state"], [0]))
+    top = max(float(np.abs(v).max()) for v in one["importance"].values())
+    imp = max(float(np.abs(r0["importance"][k] - v).max()) for k, v in one["importance"].items()
+              ) / top
+    events = [[{k: e[k] for k in ("pruned", "kept", "total")} for e in r["events"]]
+              for r in (one, *ranks)]
+    same_ranks = all(r["metrics"] == r0["metrics"] and all(
+        np.array_equal(v, r0["state"][p]) for p, v in r["state"].items()) for r in ranks)
+    gates = all(np.array_equal(r["masks"][p], v) for r in ranks for p, v in one["masks"].items()
+                if p[-1] == "scale")
+    offsets = max(float(np.abs(r["masks"][p] - v).max()) for r in ranks
+                  for p, v in one["masks"].items() if p[-1] == "offset")
+    flow_same = all(np.array_equal(r["conv_masks"][n], v) for r in ranks
+                    for n, v in one["conv_masks"].items())
+    limits = H_LIMITS["1-D"]
+    print(f"p1. on 2 ranks sharing the card (gloo), depth 0.33 width 0.125, B={P_PARITY[0]} at "
+          f"{P_PARITY[1]} px, f32, cuDNN deterministic, TF32 off, against one process on the card: "
+          f"the distill step {STEP_ERRORS.format(**err)} (limits {', '.join(map(str, limits))}); "
+          f"dis_loss {r0['metrics']['dis_loss']:.6f} (one process {one['metrics']['dis_loss']:.6f}); "
+          f"the importance, largest difference to the largest importance {imp:.3e} (limit "
+          f"{P_IMPORTANCE_TOL}); the "
+          f"ranks hold one state bit for bit: {same_ranks}; the prune event's gates "
+          f"{events[1]} (one process {events[0]}) equal bit for bit: {gates} (offsets, "
+          f"the BN biases they copy, largest difference {offsets:.3e}); SynFlow's conv masks "
+          f"after {P1_SYNFLOW_ROUNDS} rounds ({r0['kept']} kept) equal on both ranks and to one "
+          f"process's: {flow_same}; one process {t1 - t0:.1f} s, the ranks with their start "
+          f"{t2 - t1:.1f} s ({card})", flush=True)
+    if not (same_ranks and gates and flow_same and err["loss"] <= limits[0]
+            and err["params"] <= limits[1] and err["batch_stats"] <= limits[2]
+            and imp <= P_IMPORTANCE_TOL and all(e == events[0] for e in events)
+            and all(r["kept"] == one["kept"] for r in ranks)
+            and events[0][0]["pruned"] == P_PRUNE_CHANNELS):
+        raise AssertionError("p1: the compression steps on ranks disagree with one process")
+
+
+def p_rank_hook(trainer, stage):
+    """n_rank_hook for p2's runs, with the evaluation off, the distilling
+    Tuner's step timed too, and at "end" the Pruner's events and SynFlow's
+    numbers."""
+    out = n_rank_hook(trainer, stage)
+    if stage == "end":
+        out["events"] = [{k: e[k] for k in ("pruned", "kept", "total")}
+                         for e in getattr(trainer, "prune_events", [])]
+        out["synflow"] = {k: v for k, v in getattr(trainer, "synflow_stats", {}).items()
+                          if k != "output_sums"}
+        return out
+    trainer.evaluate_and_save_model = lambda: None  # p2 evaluates nothing
+    before_train = trainer.before_train
+
+    def hooked():
+        before_train()
+        if getattr(trainer, "distill_step", None) is not None:
+            trainer.distill_step = n_timed(trainer, trainer.distill_step)
+    trainer.before_train = hooked
+    return out
+
+
+def p_argv(exp, device, root, out_dir, extra=()):
+    """p2's CLI line: 2 ranks, B=16, 640 px, depth P_DEPTH, 1 epoch on
+    P_TRAIN images without mosaic, the lr P_LR an image."""
+    return ["-f", os.path.join(REPO, exp), "-d", "2", "-b", str(BATCH), "--cache",
+            "--device", device.type, "data_dir", root, "output_dir", out_dir,
+            "input_size", f"({SIZE}, {SIZE})", "test_size", f"({SIZE}, {SIZE})",
+            "max_epoch", "1", "no_aug_epochs", "1", "warmup_epochs", "0", "print_interval", "1",
+            "basic_lr_per_img", str(P_LR), "depth", str(P_DEPTH), *extra]
+
+
+def phase_p2(device, card, root, out_dir):
+    """p2: tools.prune, tools.tune (distillation) and tools.train_synflow,
+    each with -d 2 at full width, depth P_DEPTH (YOLOX-M-P6, bf16 compute),
+    B=16, 640 px,
+    one epoch of P_TRAIN / 16 iterations; every rank's numbers (n_report: device ms a
+    step, host ms in staged collectives, peak memory, launches, one state
+    bit for bit, every loss finite), the BN+act data-parallel kernels
+    launched on each rank, the ranks' prune events and SynFlow's kept
+    count equal."""
+    from cocodet_tpu_torch.tools import prune, train_synflow, tune
+
+    seconds = {}
+    t0 = time.perf_counter()
+    pruned = prune.main(p_argv(L_PRUNE_EXP, device, root, os.path.join(out_dir, "prune"), [
+        "init_ckpt", "None", "prune_channels", str(P_PRUNE_CHANNELS), "prune_score_batches", "2",
+        "prune_interval", "1.0"]), rank_hook=p_rank_hook)
+    seconds["prune"] = time.perf_counter() - t0
+    init = os.path.join(pruned.file_name, "latest_ckpt.msgpack")
+    t0 = time.perf_counter()
+    tuned = tune.main(p_argv(L_TUNE_EXP, device, root, os.path.join(out_dir, "tune"), [
+        "init_ckpt", init]), rank_hook=p_rank_hook)
+    seconds["tune"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flowed = train_synflow.main(p_argv(M_SYNFLOW_EXP, device, root,
+                                       os.path.join(out_dir, "synflow"), [
+        "multiscale_range", "0", "prune_epoch", "0", "prune_iters", str(P_SYNFLOW_ITERS)]),
+        rank_hook=p_rank_hook)
+    seconds["synflow"] = time.perf_counter() - t0
+    for label, run in (("p2. prune", pruned), ("p2. tune", tuned), ("p2. synflow", flowed)):
+        n_report(label, run, card)
+        hooks = [r["hook"] for r in run.ranks]
+        need = ("bn_act.reduce", "bn_act.finish", "bn_act.apply", "bn_act.grad_reduce",
+                "bn_act.grad_finish", "bn_act.grad_apply")
+        zero = [(i, k) for i, h in enumerate(hooks) for k in need if not h["launches"][k]]
+        steps = [len(h["steps"]) for h in hooks]
+        print(f"{label}: events {hooks[0]['events']}, SynFlow {hooks[0]['synflow']}; steps "
+              f"timed a rank {steps}; the CLI run {seconds[label.split()[-1]]:.1f} s", flush=True)
+        if zero or any(h["events"] != hooks[0]["events"] for h in hooks) or \
+                any(h["synflow"].get("kept") != hooks[0]["synflow"].get("kept") for h in hooks) \
+                or min(steps) < 1:
+            raise AssertionError(f"{label}: launched none of {zero}, or the ranks' events or "
+                                 f"masks differ")
+    ev = pruned.ranks[0]["hook"]["events"]
+    if len(ev) != 1 or ev[0]["pruned"] != P_PRUNE_CHANNELS:
+        raise AssertionError(f"p2: the Pruner's events {ev}")
+    return seconds
+
+
+def p_match(got, want, tol, top):
+    """The fraction of ``want``'s ``top`` highest-scoring records of each
+    image that a record of ``got`` of the same category matches within
+    ``tol`` ((px, relative), score), over all images (the top, because a
+    record near the max_det cut can trade places with one that missed it)."""
+    import numpy as np
+
+    def by_image(records):
+        out = {}
+        for r in records:
+            out.setdefault(r["image_id"], []).append(r)
+        return out
+
+    g, w = by_image(got), by_image(want)
+    hit = n = 0
+    for k, rows in w.items():
+        rows = sorted(rows, key=lambda r: -r["score"])[:top]
+        a = np.asarray([r["bbox"] + [r["score"]] for r in g.get(k, [])], np.float64)
+        b = np.asarray([r["bbox"] + [r["score"]] for r in rows], np.float64)
+        n += len(b)
+        if not len(a):
+            continue
+        lim = np.concatenate([tol[0][0] + tol[0][1] * np.abs(b[:, :4]),
+                              np.full((len(b), 1), tol[1])], 1)
+        close = (np.abs(a[:, None] - b[None]) <= lim[None]).all(-1) & (
+            np.asarray([r["category_id"] for r in g[k]])[:, None]
+            == np.asarray([r["category_id"] for r in rows])[None])
+        hit += int(close.any(0).sum())
+    return hit / max(n, 1)
+
+
+def phase_p3(device, card, root, tmp):
+    """p3: harness/config/yolox_m_p6_latency.json (bf16, B=1, 640 px, stem6
+    and split_cat) on the val set, from numpy-seeded fused weights written
+    as msgpack (the config's ckpt and slim_spec are not in the repo): the
+    standalone hard-swish on every conv (127 a batch, the 6x6 stem's
+    included) and the NMS pair at K=1024 once a batch; its records against
+    the plain graph's on the same file in bf16 (the head maps at phase d's
+    bf16 limit, the records matched); the f32 graph on the card against the
+    CPU at phase d's f32 limit, the detections the same sets; a batch of 1
+    timed against the plain graph, in turns."""
+    import torch
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.data.folder import ImageFolderDataset, collate_batch
+    from cocodet_tpu_torch.ops.fuse import fuse_batchnorm_tree
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    fused = fuse_batchnorm_tree(serving_variables(seed=0))
+    ckpt = save_checkpoint({"model": fused}, False, tmp, "latency")
+    cfg = o_config("yolox_m_p6_latency.json", root, ckpt=ckpt)
+    plain_cfg = dict(cfg, stem6=False, split_cat=False)
+    k = harness.postprocess_config(cfg).pre_nms_topk
+    records, reports = {}, {}
+    for name, c in (("latency", cfg), ("plain", plain_cfg)):
+        reports[name] = {}
+        o_reset()
+        with cudnn_deterministic():
+            records[name] = harness.run(c, os.path.join(tmp, f"p3_{name}.json"), device=device,
+                                        report=reports[name])
+        launches = o_counts()
+        batches = len(reports[name]["shapes"]) + 1  # and the warm-up
+        print(f"p3. {name} graph (stem6 {c['stem6']}, split_cat {c['split_cat']}, bf16, B="
+              f"{c['dataloader']['batch_size']}, K={k}), numpy seed 0 fused weights from "
+              f"msgpack: {len(records[name])} records for {reports[name]['images']} images, "
+              f"mAP@0.5 {reports[name]['stats']['AP50']:.4f}, phase seconds "
+              f"{json.dumps({p: round(v, 3) for p, v in reports[name]['phases'].items()})}, "
+              f"launches {launches} ({card})", flush=True)
+        if (launches["hard_swish"], launches["overlap_matrix"], launches["greedy_keep"]) != (
+                CONVS * batches, batches, batches) or launches["int8_conv"] or k != 1024:
+            raise AssertionError(f"p3: {name}: launches {launches} for {batches} batches")
+    matched = p_match(records["latency"], records["plain"], P_BF16_TOL, P_BF16_TOP)
+
+    # the models themselves: one image, bf16 rewrites against bf16 plain on the card,
+    # and f32 rewrites on the card against f32 on the CPU
+    ds = ImageFolderDataset(cfg["data_dir"], cfg["img_size"])
+    # each image alone, as the B=1 config serves it (padded to the stride), with the TTA;
+    # the f32 card-vs-CPU comparison on its top-left P_CPU_CROP square
+    imgs = [collate_batch(cfg["img_size"], [ds[i]])[0] * 0.9 + 11.4
+            for i in range(P_CPU_IMAGES)]
+    crops = [x[:, :P_CPU_CROP, :P_CPU_CROP] for x in imgs]
+    models = {}
+    for name, c, dev in (("bf16", cfg, device), ("bf16 plain", plain_cfg, device),
+                         ("f32", dict(cfg, half=False), device),
+                         ("f32 cpu", dict(cfg, half=False), "cpu")):
+        models[name] = harness.build_predictor_from_config(c, device=dev)
+    maps, dets = {}, {}
+    with cudnn_deterministic(), torch.inference_mode():
+        for name, pred in models.items():
+            xs = [torch.from_numpy(x).to(pred.device)
+                  for x in (crops if name.startswith("f32") else imgs)]
+            maps[name] = torch.cat([m[key].reshape(-1).float().cpu() for x in xs
+                                    for m in pred.model(x) for key in ("reg", "obj", "cls")])
+            if name.startswith("f32"):
+                dets[name] = [pred(x) for x in xs]
+    w = maps["bf16 plain"]
+    err16 = float((maps["bf16"] - w).abs().mean() / w.abs().mean())
+    w = maps["f32 cpu"]
+    err32 = float(((maps["f32"] - w).abs() / (1 + w.abs())).max())
+    same = all(match_detections(type(g)(*(t.cpu() for t in g)), c)
+               for g, c in zip(dets["f32"], dets["f32 cpu"]))
+    n_det = sum(int(c.valid.sum()) for c in dets["f32 cpu"])
+    print(f"p3. the latency graph's records against the plain graph's in bf16: {matched:.4f} of "
+          f"the plain graph's best {P_BF16_TOP} an image (of {len(records['plain'])}) matched "
+          f"(same category, within "
+          f"{P_BF16_TOL[0][0]} px + {P_BF16_TOL[0][1]} and {P_BF16_TOL[1]} in score; limit "
+          f"{P_BF16_MATCH}); head maps of {P_CPU_IMAGES} images, bf16 rewrites vs bf16 plain on "
+          f"the card mean |d|/mean|v| = {err16:.3e} (phase d's limit 5e-2); f32 rewrites on the "
+          f"card vs the CPU on a {P_CPU_CROP} px crop max |d|/(1+|v|) = {err32:.3e} (limit 1e-3), "
+          f"detections the same "
+          f"sets: {same} ({n_det})", flush=True)
+    if not (matched >= P_BF16_MATCH and err16 <= 5e-2 and err32 <= 1e-3 and same):
+        raise AssertionError("p3: the latency graph disagrees with the plain graph or the CPU")
+
+    x = torch.from_numpy(imgs[0]).to(device)
+    times = {"latency": [], "plain": []}
+    with torch.inference_mode():
+        for name in ("latency", "plain", "plain", "latency"):
+            pred = models["bf16" if name == "latency" else "bf16 plain"]
+            times[name].append(cuda_ms(lambda: pred(x), P_TIMED))
+    print(f"p3. a batch of 1 ({tuple(x.shape)}), bf16, forward and postprocess, ms a call (in turns, "
+          f"{P_TIMED} calls a turn): latency graph {', '.join(f'{v:.4f}' for v in times['latency'])}"
+          f"; plain graph {', '.join(f'{v:.4f}' for v in times['plain'])} ({card})", flush=True)
+    del models
+    torch.cuda.empty_cache()
+    return times
+
+
+def phase_p4(device, card, root, tmp):
+    """p4: tools.quantize_model --bits 4 on o2's set-up (the committed slim
+    plan's fused tree, numpy seed 0, 2 --synth batches of 8 at 640 px), the
+    file's MiB against --bits 8; served with harness/config/
+    yolox_m_p6_int8.json through the w8a8 model: 127 int8 conv launches a
+    batch, and its records bit for bit those of the same tree unpacked and
+    saved as int8."""
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.entry import SLIM_SPEC
+    from cocodet_tpu_torch.tools import quantize_model
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint, save_tree
+
+    _, fused = headline_variables(seed=0)
+    ckpt = save_checkpoint({"model": fused}, False, tmp, "p4_slim")
+    outs, reps = {}, {}
+    for bits in (4, 8):
+        outs[bits] = os.path.join(tmp, f"p4_w{bits}.msgpack")
+        t0 = time.perf_counter()
+        reps[bits] = quantize_model.main(["-c", ckpt, "-o", outs[bits], "--slim-spec",
+                                          str(SLIM_SPEC), "--synth", "--img-size", str(SIZE),
+                                          "-b", "8", "--calib-batches", "2", "--bits",
+                                          str(bits)])
+        reps[bits]["seconds"] = time.perf_counter() - t0
+    unpacked = save_tree(load_checkpoint(outs[4]), os.path.join(tmp, "p4_w4_as_int8.msgpack"))
+    records = {}
+    for name, path in (("w4a8", outs[4]), ("unpacked", unpacked)):
+        cfg = o_config("yolox_m_p6_int8.json", root, ckpt=path, slim_spec=str(SLIM_SPEC))
+        report = {}
+        o_reset()
+        with cudnn_deterministic():
+            records[name] = harness.run(cfg, os.path.join(tmp, f"p4_{name}.json"), device=device,
+                                        report=report)
+        launches = o_counts()
+        batches = len(report["shapes"]) + 1
+        if launches["int8_conv"] != CONVS * batches or launches["overlap_matrix"] != batches:
+            raise AssertionError(f"p4: {name}: launches {launches} for {batches} batches")
+    mib = {b: os.path.getsize(p) / 2**20 for b, p in outs.items()}
+    same = records["w4a8"] == records["unpacked"]
+    print(f"p4. quantize_model --bits 4: {reps[4]['quantized_convs']} convs, {mib[4]:.2f} MiB "
+          f"written in {reps[4]['seconds']:.1f} s, against --bits 8's {mib[8]:.2f} MiB; the "
+          f"same tree unpacked as int8 {os.path.getsize(unpacked) / 2**20:.2f} MiB; served "
+          f"through the w8a8 model ({CONVS} int8 convs a batch, {launches}): "
+          f"{len(records['w4a8'])} records, bit for bit the unpacked tree's: {same} ({card})",
+          flush=True)
+    if not same or not records["w4a8"] or mib[4] >= mib[8]:
+        raise AssertionError("p4: the w4a8 checkpoint serves otherwise than its int8 form")
+
+
+def phase_p(device, card, flags):
+    """p: the compression trainers on ranks (p1, p2), the latency serving
+    graph (p3) and int4 checkpoints (p4)."""
+    import tempfile
+
+    import torch
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    print(f"p. cuts: p1 at depth 0.33 width 0.125; p2 at full width (YOLOX-M-P6), depth "
+          f"{P_DEPTH}, with random "
+          f"weights from the exps' seeds, 1 epoch of {P_TRAIN // BATCH} iterations a CLI on "
+          f"{P_TRAIN} synthetic "
+          f"JPEGs (no COCO), the lr {P_LR} an image (m3's), no evaluation, one prune event of "
+          f"{P_PRUNE_CHANNELS} channels on 2 score batches, SynFlow {P_SYNFLOW_ITERS} rounds "
+          f"(cut from 100) at epoch 0, 2 ranks sharing the one card over gloo; p3 and p4 on "
+          f"phase i's {EVAL_IMAGES} JPEGs with numpy-seeded weights (the configs' checkpoints "
+          f"are not in the repo)", flush=True)
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_p_") as tmp, backend_flags(flags):
+        t = time.perf_counter()
+        phase_p1(device, card)
+        seconds["p1"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        root = make_synthetic_coco(os.path.join(tmp, "train"), n_train=P_TRAIN, n_val=0,
+                                   size_range=(256, 512), seed=3, variant="default")
+        phase_p2(device, card, root, os.path.join(tmp, "out"))
+        seconds["p2"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        val = o_val_set(tmp)
+        phase_p3(device, card, val, tmp)
+        seconds["p3"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        phase_p4(device, card, val, tmp)
+        seconds["p4"] = time.perf_counter() - t
+    print(f"p. phase p: {time.perf_counter() - t_start:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}) ({card})", flush=True)
+
+
 def soft_nms_kernel(stats):
     """The kernels line's entry of the soft-NMS kernel."""
     return {"name": "soft_nms", "route": "cuda", "source": "cocodet_tpu_torch/csrc/soft_nms.cu",
@@ -5766,10 +6241,11 @@ def main():
                                                  ["--phase", "j1"],
                                                  ["--phase", "k"], ["--phase", "l"],
                                                  ["--phase", "m"], ["--phase", "n"],
-                                                 ["--phase", "o"])):
+                                                 ["--phase", "o"], ["--phase", "p"])):
         print("usage: python3 chip_smoke.py [--step TREE | --bn TREE | --soft TREE | --drift LR "
               "| --phase j "
-              "| --phase j1 | --phase k | --phase l | --phase m | --phase n | --phase o]",
+              "| --phase j1 | --phase k | --phase l | --phase m | --phase n | --phase o "
+              "| --phase p]",
               file=sys.stderr)
         return 2
     if args[:1] == ["--drift"] and not re.fullmatch(r"\d+(\.\d*)?(e-?\d+)?", args[1]):
@@ -5821,6 +6297,9 @@ def main():
     if args == ["--phase", "o"]:
         print("o: " + json.dumps(soft_nms_kernel(phase_o(device, card, flags))))
         return 0
+    if args == ["--phase", "p"]:
+        phase_p(device, card, flags)
+        return 0
     if args:
         # --phase j
         print(json.dumps({"kernels": train_aug_kernels(phase_j(device, card, flags))}))
@@ -5856,6 +6335,8 @@ def main():
     phase_n(device, card, flags)
     torch.cuda.empty_cache()
     soft_stats = phase_o(device, card, flags)
+    torch.cuda.empty_cache()
+    phase_p(device, card, flags)
     for name in ("overlap_matrix", "greedy_keep", "int8_conv"):
         l_worst[name] = max(l_worst[name], m_worst[name])
     for name, st in bn_stats.items():

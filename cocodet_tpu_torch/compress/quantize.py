@@ -13,8 +13,12 @@
 
 Scope: the fused topology's ConvBnAct convs (backbone, FPN, head towers).
 The head prediction convs stay float. The weight math is numpy, step for
-step the JAX package's, so on the same statistics it is bit-equal. int4
-checkpoint packing (``pack_int4_tree``) is not ported yet.
+step the JAX package's, so on the same statistics it is bit-equal.
+
+w4a8 checkpoints (:228-310): ``pack_int4_tree`` stores the int4-grid
+kernels two nibbles a byte, ``unpack_int4_tree`` (run by
+``utils/checkpoint.py::load_checkpoint``) restores the int8 arrays, which
+serve through the int8 conv as any w8a8 model's.
 """
 
 from __future__ import annotations
@@ -225,3 +229,79 @@ def quantization_report(variables: Mapping[str, Any], bits: int = 8) -> Dict[str
             "int8_bytes": int8_bytes,
             "float_bytes": float_bytes,
             "total_mb": (int8_bytes + float_bytes) / 2**20}
+
+
+INT4_DATA = "__int4_packed__"
+INT4_SHAPE = "__int4_shape__"
+
+
+def pack_int4_tree(params: Mapping[str, Any], kernel_paths=None) -> Dict:
+    """Pack int4-grid kernels two values a byte (quantize.py:232-276): each
+    packed leaf becomes ``{INT4_DATA: uint8[ceil(n/2)], INT4_SHAPE:
+    int32[ndim]}``, the even flat index in the low nibble (two's
+    complement), an odd count padded with a zero nibble. ``kernel_paths``
+    (flat path tuples) declares the packed leaves, which must be int8 in
+    [-8, 7]; without it every int8 leaf whose values fit [-8, 7] packs."""
+    out = {}
+    for path, leaf in flatten_tree(params).items():
+        arr = np.asarray(leaf)
+        fits = arr.dtype == np.int8 and (not arr.size or (arr.min() >= -8 and arr.max() <= 7))
+        if kernel_paths is not None:
+            packable = path in kernel_paths
+            if packable and not fits:
+                raise ValueError(f"pack_int4_tree: {'/'.join(map(str, path))} was declared "
+                                 "int4 but is not a nibble-range int8 leaf")
+        else:
+            packable = fits and arr.size
+        if packable and arr.size:
+            v = arr.ravel()
+            if v.size % 2:
+                v = np.concatenate([v, np.zeros(1, np.int8)])
+            nib = v.astype(np.uint8) & 0xF
+            out[path + (INT4_DATA,)] = (nib[0::2] | (nib[1::2] << 4)).astype(np.uint8)
+            out[path + (INT4_SHAPE,)] = np.asarray(arr.shape, np.int32)
+        else:
+            out[path] = leaf
+    return unflatten_tree(out)
+
+
+def unpack_int4_tree(tree: Mapping[str, Any]) -> Dict:
+    """The inverse of ``pack_int4_tree`` (quantize.py:279-306): int8 arrays,
+    each nibble sign-extended, at every packed node; other leaves pass
+    through. A data leaf without its shape, or a shape without its data,
+    raises JAX's ``ValueError``."""
+    flat = flatten_tree(tree)
+    out = {}
+    for path, leaf in flat.items():
+        where = "/".join(map(str, path[:-1]))
+        if path[-1] == INT4_SHAPE:
+            if path[:-1] + (INT4_DATA,) not in flat:
+                raise ValueError(f"corrupt int4-packed checkpoint: orphan {INT4_SHAPE} at "
+                                 f"{where} (no {INT4_DATA} sibling)")
+            continue
+        if path[-1] != INT4_DATA:
+            out[path] = leaf
+            continue
+        spath = path[:-1] + (INT4_SHAPE,)
+        if spath not in flat:
+            raise ValueError(f"corrupt int4-packed checkpoint: {where} has {INT4_DATA} but "
+                             f"no {INT4_SHAPE} sibling (truncated save?)")
+        shape = tuple(int(s) for s in np.asarray(flat[spath]))
+        packed = np.asarray(leaf, np.uint8)
+        nib = np.empty(packed.size * 2, np.uint8)
+        nib[0::2] = packed & 0xF
+        nib[1::2] = packed >> 4
+        v = ((nib ^ 8).astype(np.int16) - 8).astype(np.int8)
+        out[path[:-1]] = v[:int(np.prod(shape)) if shape else 1].reshape(shape)
+    return unflatten_tree(out)
+
+
+def tree_has_int4(tree: Mapping[str, Any]) -> bool:
+    return any(path[-1] == INT4_DATA for path in flatten_tree(tree))
+
+
+def int4_kernel_paths(quant: Mapping[str, Any]) -> set:
+    """The kernels ``quantize_weights(bits=4)`` put on the int4 grid: those
+    whose conv has ``w_bits`` 4 (tools/quantize_model.py:170-175)."""
+    return {p[:-1] + ("kernel",) for p, v in flatten_tree(quant).items()
+            if p[-1] == "w_bits" and int(v) == 4}

@@ -15,7 +15,16 @@ pruning with attention-transfer distillation, on the port's trainer.
 - The EMA is off (pruner.py:326).
 
 The selection is numpy on the host on flax-layout trees, as in JAX: the
-same importance gives the same masks. The steps run eagerly on the card:
+same importance gives the same masks. On a mesh of ranks (JAX's
+``_setup_mesh``, pruner.py:333-372) the steps are JAX's steps on the
+global batch, as ``core/train_state.py::make_train_step(mesh=)``'s: the
+student's BN over the global batch, the head maps gathered over the space
+ranks, the detection loss over the global ``num_fg``, the distillation
+loss's shares (``models/distill.py``), every gradient summed over the
+world; the importance squares the BN parameters' gradients summed over the
+world (a sum of per-rank importances would be another number). Rank 0
+selects and broadcasts the gates, so every rank holds them bit for bit.
+The steps run eagerly on the card:
 the student's train-mode BN through the BN+act kernels with the gates
 folded into their vectors, the teacher's and the score step's eval-mode BN
 with the standalone hard-swish kernel, forward and (the score step)
@@ -36,10 +45,12 @@ from torch import nn
 from ..data.samplers import DevicePrefetcher
 from ..models.distill import distiller_loss
 from ..ops.losses import yolox_losses
+from ..parallel.collectives import all_reduce_, broadcast
+from ..parallel.mesh import Mesh, use_mesh
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import export_variables, flatten_tree, load_masks, unflatten_tree
-from .train_state import TrainState, create_train_state
-from .trainer import TODO, Trainer
+from .train_state import TrainState, backward, create_train_state, gather_head_maps
+from .trainer import Trainer
 
 logger = logging.getLogger("cocodet_tpu_torch")
 
@@ -51,7 +62,7 @@ METRICS = ("loss", "iou_loss", "obj_loss", "cls_loss", "l1_loss", "dis_loss",
 def make_distill_train_step(state: TrainState, teacher: nn.Module, strides: Sequence[int],
                             num_classes: int = 80, iou_type: str = "iou",
                             distill_coefficient: float = 1.0,
-                            simota_bf16: bool = False) -> Callable:
+                            simota_bf16: bool = False, mesh: Optional[Mesh] = None) -> Callable:
     """The train step with the detection and distillation losses
     (pruner.py:43-103) over ``state``, updated in place:
 
@@ -62,27 +73,34 @@ def make_distill_train_step(state: TrainState, teacher: nn.Module, strides: Sequ
     leaves the parameters and the optimizer's count as they are (the BN
     statistics and the EMA still move), as JAX's gate does. Returns the
     metrics as device tensors; ``mark`` is called with "forward", "losses",
-    "backward" and "update" as each part ends."""
+    "backward" and "update" as each part ends.
+
+    On a ``mesh`` each rank passes its slice of the global batch, as to
+    ``make_train_step(mesh=)``; the teacher runs on the rank's rows, and
+    the metrics are the global batch's, equal on every rank."""
     simota_dtype = torch.bfloat16 if simota_bf16 else torch.float32
     teacher.eval().requires_grad_(False)
+    group = None if mesh is None else mesh.data
 
     def step(images: torch.Tensor, labels: torch.Tensor, use_l1: bool = False,
              step_optimizer: bool = True, mark: Optional[Callable[[str], None]] = None):
         model, opt = state.model, state.optimizer
         model.train()
-        outputs, s_taps = model(images, return_taps=True)
-        with torch.no_grad():
-            _, t_taps = teacher(images, return_taps=True)
+        with use_mesh(mesh):
+            outputs, s_taps = model(images, return_taps=True)
+            with torch.no_grad():
+                _, t_taps = teacher(images, return_taps=True)
+        outputs = gather_head_maps(outputs, mesh)
         if mark:
             mark("forward")
         det, _ = yolox_losses(outputs, labels, strides=strides, num_classes=num_classes,
-                              use_l1=use_l1, iou_type=iou_type, simota_dtype=simota_dtype)
-        dis = distiller_loss(s_taps, t_taps)
+                              use_l1=use_l1, iou_type=iou_type, simota_dtype=simota_dtype,
+                              group=group)
+        dis = distiller_loss(s_taps, t_taps, mesh)
         total = det.total + distill_coefficient * dis["dis_loss"]
         if mark:
             mark("losses")
-        opt.zero_grad(set_to_none=True)
-        total.backward()
+        backward(model, opt, total, mesh)
         if mark:
             mark("backward")
         if step_optimizer:
@@ -93,6 +111,11 @@ def make_distill_train_step(state: TrainState, teacher: nn.Module, strides: Sequ
             mark("update")
         terms = torch.stack([det.total, det.iou, det.obj, det.cls, det.l1, dis["dis_loss"],
                              dis["dis_backbone_loss"], dis["dis_fpn_loss"]]).detach()
+        if mesh is not None:
+            # the detection terms are equal on a data row's space ranks, the
+            # distillation shares sum over the world: one sum over it
+            terms[:5] /= mesh.n_space
+            all_reduce_(terms, mesh.world)
         return dict(zip(METRICS, terms))
 
     return step
@@ -110,23 +133,35 @@ def masked_sites(model: nn.Module) -> Dict[Scope, nn.Module]:
 
 
 def make_score_step(model: nn.Module, strides: Sequence[int], num_classes: int = 80,
-                    iou_type: str = "iou") -> Callable:
+                    iou_type: str = "iou", mesh: Optional[Mesh] = None) -> Callable:
     """``score(images, labels) -> {scope: importance}`` (pruner.py:106-122):
     the model in eval mode, the gradients of the detection loss with respect
     to each masked conv's BN scale and bias (autograd walks only what they
-    need), and ``channel_importance`` of them, as device tensors."""
+    need), and ``channel_importance`` of them, as device tensors. On a
+    ``mesh`` the images are this rank's share of the global batch: the
+    head maps are gathered over the space ranks, the loss is over the
+    global ``num_fg``, and the gradients are summed over the world in one
+    all-reduce before they are squared, so every rank holds the global
+    batch's importance."""
     sites = masked_sites(model)
     leaves = [t for m in sites.values() for t in (m.bn.weight, m.bn.bias)]
+    group = None if mesh is None else mesh.data
 
     def score(images: torch.Tensor, labels: torch.Tensor) -> Dict[Scope, torch.Tensor]:
         was_training = model.training
         model.eval()
         try:
-            det, _ = yolox_losses(model(images), labels, strides=strides,
-                                  num_classes=num_classes, iou_type=iou_type)
+            with use_mesh(mesh):
+                outputs = model(images)
+            det, _ = yolox_losses(gather_head_maps(outputs, mesh), labels, strides=strides,
+                                  num_classes=num_classes, iou_type=iou_type, group=group)
             grads = torch.autograd.grad(det.total, leaves)
         finally:
             model.train(was_training)
+        if mesh is not None:
+            flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), mesh.world)
+            grads = [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]),
+                                                   grads)]
         out = {}
         for i, (scope, m) in enumerate(sites.items()):
             g_scale, g_bias = grads[2 * i], grads[2 * i + 1]
@@ -333,17 +368,13 @@ class Pruner(Trainer):
     (pruner.py:307-424). ``prune_events`` holds each event's numbers. Its
     optimizer takes no ``num_accumulate``: JAX's Pruner builds
     ``exp.get_optimizer`` with no ``optax.MultiSteps`` (pruner.py:340).
-    One rank only: the distill and score steps on several ranks raise."""
-
-    @classmethod
-    def trains_on_ranks(cls, exp) -> bool:
-        return False
+    On several ranks it trains on the Trainer's mesh (a data mesh, or data
+    x space with ``spatial_devices``): each rank draws its rows of every
+    batch, the score batches too; the checkpoints are rank 0's, the
+    evaluation is sharded."""
 
     def __init__(self, exp, args, device: Any = "cuda"):
         super().__init__(exp, args, device)
-        if self.world > 1:
-            raise NotImplementedError(f"the Pruner's distill and score steps on several ranks "
-                                      f"are not ported {TODO}")
         self.prune_interval = getattr(exp, "prune_interval", 0.5)
         self.prune_channels = getattr(exp, "prune_channels", 64)
         self.prune_start_epoch = getattr(exp, "prune_start_epoch", 0)
@@ -362,10 +393,13 @@ class Pruner(Trainer):
         init_ckpt = getattr(exp, "init_ckpt", None)
         self._init_tree = load_checkpoint(init_ckpt) if init_ckpt else None
         self.use_mask = True
+        self.mesh = self._setup_mesh()
         self.model = exp.get_model(device=self.device, use_mask=True)
         self.train_loader = exp.get_data_loader(
             batch_size=batch_size, no_aug=True, cache_img=getattr(args, "cache", False),
             seed=exp.seed or 0)
+        if self.mesh is not None:
+            self.train_loader.rows = (self.mesh.data_index, self.mesh.n_data)
         self.iters_per_epoch = max(len(self.train_loader.dataset) // batch_size, 1)
         self.lr_schedule = exp.get_lr_scheduler(exp.basic_lr_per_img * batch_size,
                                                 self.iters_per_epoch)
@@ -373,16 +407,20 @@ class Pruner(Trainer):
         self.state = create_train_state(self.model, self.optimizer, use_ema=False)
         if init_ckpt:
             self._load_init_ckpt(init_ckpt)
+        self._replicate_state()
         # the frozen teacher is the init weights, without the masks (pruner.py:344-349)
         tree = export_variables(self.model)
         self.teacher_model = exp.get_model(device=self.device, variables={
             "params": tree["params"], "batch_stats": tree["batch_stats"]})
         self.train_step = make_distill_train_step(
             self.state, self.teacher_model, exp.strides, num_classes=exp.num_classes,
-            iou_type=exp.iou_type, simota_bf16=getattr(exp, "simota_bf16", False))
+            iou_type=exp.iou_type, simota_bf16=getattr(exp, "simota_bf16", False),
+            mesh=self.mesh)
         self.score_step = make_score_step(self.model, exp.strides, exp.num_classes,
-                                          exp.iou_type)
+                                          exp.iou_type, mesh=self.mesh)
         self.evaluator = exp.get_evaluator(batch_size=batch_size)
+        if self.world > 1:
+            self.evaluator.shard = (self.rank, self.world)
         self.size_rng = random.Random((exp.seed or 0) + 1234)
         self.prefetcher = DevicePrefetcher(self.train_loader, self.device)
         self.data_iter = self.prefetcher
@@ -400,19 +438,31 @@ class Pruner(Trainer):
 
     def prune(self):
         """Sum the importance over ``score_batches`` batches, prune globally
-        and write the new gates into the model."""
+        and write the new gates into the model; on several ranks rank 0
+        selects and broadcasts the gates."""
         t0 = time.perf_counter()
         acc: Optional[Dict[Scope, torch.Tensor]] = None
         for _ in range(self.score_batches):
             imgs, labels = self._next_batch()
             imp = self.score_step(imgs, labels)
             acc = imp if acc is None else {k: acc[k] + imp[k] for k in imp}
-        importance = {k: v.cpu().numpy() for k, v in acc.items()}
-        variables = export_variables(self.model)
-        new_vars, n_new = apply_channel_prune(
-            variables, importance, self.prune_channels, site_floor=self.prune_site_floor,
-            max_frac=self.prune_max_frac, normalize=self.prune_normalize)
-        load_masks(self.model, new_vars["masks"])
+        n_new = 0
+        if self.rank == 0:
+            importance = {k: v.cpu().numpy() for k, v in acc.items()}
+            new_vars, n_new = apply_channel_prune(
+                export_variables(self.model), importance, self.prune_channels,
+                site_floor=self.prune_site_floor, max_frac=self.prune_max_frac,
+                normalize=self.prune_normalize)
+            load_masks(self.model, new_vars["masks"])
+        if self.mesh is not None:
+            gates = [t for n, t in self.model.named_buffers()
+                     if n.endswith((".mask.scale", ".mask.offset"))]
+            flat = broadcast(torch.cat([g.reshape(-1) for g in gates] + [
+                torch.tensor([float(n_new)], device=gates[0].device)]), 0, self.mesh.world)
+            for g, v in zip(gates, flat.split([g.numel() for g in gates] + [1])):
+                g.copy_(v.view_as(g))
+            n_new = int(flat[-1])
+            new_vars = export_variables(self.model)
         stats = mask_stats(new_vars)
         kept = sum(k for k, _ in stats.values())
         total = sum(t for _, t in stats.values())

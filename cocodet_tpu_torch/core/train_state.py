@@ -177,6 +177,26 @@ def _sum_gradients(model: nn.Module, group) -> None:
             p.grad.copy_(g.view_as(p))
 
 
+def backward(model: nn.Module, optimizer: torch.optim.Optimizer, loss: torch.Tensor,
+             mesh: Optional[Mesh] = None) -> None:
+    """The gradients of ``loss``, in place of the old ones; on a ``mesh``
+    summed over every rank (``_sum_gradients``), each rank's ``loss`` being
+    its share of the global batch's."""
+    optimizer.zero_grad(set_to_none=True)
+    loss.backward()
+    if mesh is not None:
+        _sum_gradients(model, mesh.world)
+
+
+def gather_head_maps(outputs: list, mesh: Optional[Mesh]) -> list:
+    """The head maps of the whole height on a space mesh (the anchor grid
+    is global), as they are elsewhere."""
+    if mesh is None or mesh.space is None:
+        return outputs
+    return [{k: gather_rows(v, mesh.space, dim=1) for k, v in level.items()}
+            for level in outputs]
+
+
 @contextlib.contextmanager
 def keep_bn_statistics(model: nn.Module) -> Iterator[None]:
     """Leave the BN running statistics as they were on entry: train-mode BN
@@ -253,10 +273,7 @@ def make_train_step(state: TrainState, strides: Sequence[int], num_classes: int 
         if space is not None:
             check_spatial_sizes([(images.shape[1] * mesh.n_space, images.shape[2])],
                                 mesh.n_space, max(strides))
-        outputs = forward(images)
-        if space is not None:
-            outputs = [{k: gather_rows(v, space, dim=1) for k, v in level.items()}
-                       for level in outputs]
+        outputs = gather_head_maps(forward(images), mesh)
         if mark:
             mark("forward")
         losses, targets = yolox_losses(outputs, labels, strides=strides,
@@ -265,10 +282,7 @@ def make_train_step(state: TrainState, strides: Sequence[int], num_classes: int 
                                        group=None if mesh is None else mesh.data)
         if mark:
             mark("losses")
-        opt.zero_grad(set_to_none=True)
-        losses.total.backward()
-        if mesh is not None:
-            _sum_gradients(model, mesh.world)
+        backward(model, opt, losses.total, mesh)
         if mark:
             mark("backward")
         opt.step()

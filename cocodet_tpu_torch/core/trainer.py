@@ -47,8 +47,8 @@ records gathered and scored on rank 0 (``evaluators/coco_evaluator.py``).
 A batch the data rows do not divide raises before the first step: JAX
 shrinks its mesh to the gcd (:206-210), but a rank is a process that cannot
 drop out. ``spatial_devices > 1`` on one rank trains unsharded, with JAX's
-warning (:172-178). The Pruner's and the Tuner's distillation steps on
-several ranks raise (ROADMAP Queue 1 item 1).
+warning (:172-178). The Pruner, the distilling Tuner and SynFlow train on
+the same meshes (their modules say how).
 """
 
 from __future__ import annotations
@@ -77,21 +77,12 @@ from ..utils.logger import logger, setup_logger
 from ..utils.metric import MeterBuffer, device_mem_usage_mb
 from .train_state import create_train_state, make_train_step, multi_steps, resize_batch
 
-TODO = "(ROADMAP Queue 1 item 1)"
-
-
 def world_size() -> int:
     """The ranks of the default process group (1 when there is none)."""
     return dist.get_world_size() if dist.is_initialized() else 1
 
 
 class Trainer:
-    @classmethod
-    def trains_on_ranks(cls, exp) -> bool:
-        """Whether this trainer's steps run on several ranks;
-        ``tools/train.py`` starts one rank by default where they do not."""
-        return True
-
     def __init__(self, exp, args, device: Any = "cuda"):
         self.exp = exp
         self.args = args

@@ -21,6 +21,13 @@ that epoch and go into the evaluated and saved ``model`` variables.
 
 Everything stays on the device: the scores, the selection (a sort) and the
 masks; ``synflow_stats`` holds the run's numbers, read back once at its end.
+
+On several ranks the score pass (one all-ones image) is not sharded: rank 0
+runs every round unsharded, outside the mesh, and broadcasts the final
+masks, so every rank trains with rank 0's masks bit for bit (equal scores
+on every rank cannot be trusted: cuDNN's algorithm choice can move a
+score's last bit between processes); the other ranks' ``synflow_stats``
+carry no output sums. Training then runs the Trainer's step on the mesh.
 """
 
 from __future__ import annotations
@@ -32,7 +39,8 @@ from typing import Any, Dict, List, Mapping, Sequence, Tuple
 import torch
 from torch import nn
 
-from .trainer import TODO, Trainer
+from ..parallel.collectives import broadcast
+from .trainer import Trainer
 
 logger = logging.getLogger("cocodet_tpu_torch")
 MAPS = ("reg", "obj", "cls")
@@ -114,18 +122,11 @@ def synflow_update_masks(model: nn.Module, scores: Mapping[str, torch.Tensor],
 
 class TrainerSynFlow(Trainer):
     """The trainer that runs the SynFlow schedule at ``prune_epoch``
-    (trainer_synflow.py:81-136). One rank only: the score pass and the mask
-    selection on several ranks raise."""
-
-    @classmethod
-    def trains_on_ranks(cls, exp) -> bool:
-        return False
+    (trainer_synflow.py:81-136), on one rank or several (the module
+    docstring)."""
 
     def __init__(self, exp, args, device: Any = "cuda"):
         super().__init__(exp, args, device)
-        if self.world > 1:
-            raise NotImplementedError(f"SynFlow's score pass and mask selection on several "
-                                      f"ranks are not ported {TODO}")
         self.prune_iters = getattr(exp, "prune_iters", 100)
         self.prune_ratio = getattr(exp, "prune_ratio", 0.5)
         self.prune_epoch = getattr(exp, "prune_epoch", 10)
@@ -147,14 +148,20 @@ class TrainerSynFlow(Trainer):
                     100 * (1 - self.prune_ratio))
         t0 = time.perf_counter()
         sums, bad = [], []
-        for i in range(1, self.prune_iters + 1):
+        masks = [m.conv_mask for m in mask_sites(self.model).values()]
+        n_keep = keep_count(sum(m.numel() for m in masks), self.prune_ratio)
+        rounds = range(1, self.prune_iters + 1) if self.rank == 0 else ()  # rank 0 scores
+        for i in rounds:
             keep = self.prune_ratio ** (i / self.prune_iters)
             scores, out_sum = self.score_step()
             sums.append(out_sum)
             bad.append((~torch.isfinite(torch.cat([v.reshape(-1) for v in scores.values()])))
                        .sum())
             n_keep = synflow_update_masks(self.model, scores, keep)
-        masks = [m.conv_mask for m in mask_sites(self.model).values()]
+        if self.mesh is not None:
+            flat = broadcast(torch.cat([m.reshape(-1) for m in masks]), 0, self.mesh.world)
+            for m, v in zip(masks, flat.split([m.numel() for m in masks])):
+                m.copy_(v.view_as(m))
         kept = int(sum(m.sum() for m in masks))  # the sync point
         total = sum(m.numel() for m in masks)
         self._synflow_done = True

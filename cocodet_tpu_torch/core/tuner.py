@@ -19,23 +19,16 @@ from typing import Any
 from ..utils.checkpoint import load_checkpoint
 from ..utils.convert import export_variables
 from .pruner import distill_epoch, make_distill_train_step
-from .trainer import TODO, Trainer
+from .trainer import Trainer
 
 logger = logging.getLogger("cocodet_tpu_torch")
 
 
 class Tuner(Trainer):
-    @classmethod
-    def trains_on_ranks(cls, exp) -> bool:
-        return getattr(exp, "distill_coefficient", 0.0) <= 0
-
     def __init__(self, exp, args, device: Any = "cuda"):
         super().__init__(exp, args, device)
         self.distill_coefficient = getattr(exp, "distill_coefficient", 0.0)
         self.tune_start_epoch = getattr(exp, "tune_start_epoch", 0)
-        if not self.trains_on_ranks(exp) and self.world > 1:
-            raise NotImplementedError(f"the Tuner's distillation step (distill_coefficient > 0) "
-                                      f"on several ranks is not ported {TODO}")
 
     def before_train(self):
         super().before_train()
@@ -55,7 +48,7 @@ class Tuner(Trainer):
         self.distill_step = make_distill_train_step(
             self.state, self.teacher_model, exp.strides, num_classes=exp.num_classes,
             iou_type=exp.iou_type, distill_coefficient=self.distill_coefficient,
-            simota_bf16=getattr(exp, "simota_bf16", False))
+            simota_bf16=getattr(exp, "simota_bf16", False), mesh=self.mesh)
         logger.info("Tuner: distillation on (coef=%.3g)", self.distill_coefficient)
 
     def train_in_iter(self):

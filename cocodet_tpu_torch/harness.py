@@ -31,8 +31,16 @@ fused flax-layout tree instead. A checkpoint that matches no leaf of the
 model raises: random weights are never served under a checkpoint's name.
 ``quant: "w8a8"`` with no checkpoint serves ``entry.build_headline`` where
 the ``slim_spec`` exists, and otherwise, as JAX does (its w8a8 model's init
-kernels are float, so its convs run in float), the float model. ``stem6``
-and ``split_cat`` raise (ROADMAP Queue 1 item 3).
+kernels are float, so its convs run in float), the float model.
+
+``stem6`` and ``split_cat`` (harness/main.py:66-120; the latency config
+``harness/config/yolox_m_p6_latency.json``) build the fused model with the
+6x6 stem and the concat-free merges (``models/yolox.py``). Under ``stem6``
+a checkpoint's Focus stem, msgpack and ``.pth`` alike, and a ``variables``
+tree's, is rewritten by ``ops/fuse.py::fold_focus_stem``. (JAX's ``.pth``
+branch loads no stem there: its imported Focus kernel matches no leaf of
+the 6x6 stem, which keeps its random init; ROADMAP Queue 3.) A w8a8 model
+with either rewrite raises (ROADMAP Queue 1 item 3).
 
 Several devices (harness/main.py:162-243). JAX runs one process over every
 device, the parameters replicated and the jitted program partitioned; here
@@ -71,7 +79,9 @@ from .data.coco import COCO_CLASS_ID
 from .data.folder import FolderLoader, ImageFolderDataset
 from .entry import Predictor, build_headline, build_w8a8_predictor, cast_parameters
 from .evaluators.coco_metric import COCOMeanAP
+from .models.darknet import _FOCUS_ORDER
 from .models.yolox import MODEL_SPECS, YOLOX, build_model
+from .ops.fuse import fold_focus_stem
 from .ops.postprocess import PostprocessConfig, postprocess
 from .parallel import collectives
 from .parallel.collectives import gather_rows
@@ -116,18 +126,29 @@ def model_name(cfg: Mapping[str, Any]) -> str:
     return name
 
 
-def _shapes(name: str, depth: float, width: float, slim, quant=None) -> torch.nn.Module:
+def _shapes(name: str, depth: float, width: float, slim, quant=None,
+            stem6: bool = False) -> torch.nn.Module:
     """The fused model on the meta device: the init's leaves and shapes."""
     with torch.device("meta"):
         return YOLOX(MODEL_SPECS[name], depth=depth, width=width, fused=True, slim=slim,
-                     quant=quant)
+                     quant=quant, stem6=stem6)
+
+
+def _fold_stem(params: Mapping[str, Any], name: str) -> Dict[str, Any]:
+    """``params`` with its Focus stem as the 6x6 conv of a ``stem6`` model
+    (``fold_focus_stem``, in the model's channel order); a tree that has
+    the 6x6 stem already passes as it is."""
+    if ("backbone", "backbone", "stem", "conv", "conv", "kernel") not in flatten_tree(params):
+        return dict(params)
+    return fold_focus_stem(params, order=_FOCUS_ORDER[MODEL_SPECS[name].variant])
 
 
 def load_ckpt_variables(path: str, init: Mapping[str, Any], name: str = "yolox-p6",
-                        quant: Optional[str] = None) -> Dict[str, Any]:
+                        quant: Optional[str] = None, stem6: bool = False) -> Dict[str, Any]:
     """harness/main.py:87-123: the checkpoint's params laid over ``init``'s
-    with ``load_matched``; for ``quant="w8a8"`` with the checkpoint's
-    ``quant`` collection beside them."""
+    with ``load_matched``, the Focus stem folded for a ``stem6`` model; for
+    ``quant="w8a8"`` with the checkpoint's ``quant`` collection beside
+    them."""
     if path.endswith(".pth"):
         if quant:
             raise ValueError(f"config asks for quant={quant!r} but {path} is a float "
@@ -139,6 +160,8 @@ def load_ckpt_variables(path: str, init: Mapping[str, Any], name: str = "yolox-p
         loaded = load_checkpoint(path)
         tree = loaded.get("model", loaded)
     params = tree.get("params", tree)
+    if stem6:
+        params = _fold_stem(params, name)
     if not set(flatten_tree(params)) & set(flatten_tree(init["params"])):
         raise ValueError(f"{path}: the checkpoint matches no parameter of the model")
     variables = {"params": load_matched(init["params"], params)}
@@ -156,12 +179,11 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
     """The model of harness/main.py:36-130 by type string, served at the
     config's postprocess point. ``variables``: a fused flax-layout tree (for
     ``quant: "w8a8"`` a quantized one, or the float init a checkpoint is
-    laid over); without one, weights from numpy seed 0."""
-    for key in ("stem6", "split_cat"):
-        if cfg.get(key):
-            raise NotImplementedError(f"harness config {key}={cfg[key]!r} is not ported "
-                                      "(ROADMAP Queue 1 item 3)")
+    laid over); without one, weights from numpy seed 0. ``stem6`` and
+    ``split_cat`` build the deployment rewrites, a ``variables`` tree's
+    Focus stem folded to the 6x6 conv."""
     name = model_name(cfg)
+    stem6, split_cat = bool(cfg.get("stem6", False)), bool(cfg.get("split_cat", False))
     mcfg = cfg["model"]
     depth, width = float(mcfg.get("depth", 0.67)), float(mcfg.get("width", 0.75))
     dtype = torch.bfloat16 if cfg.get("half", True) else torch.float32
@@ -171,12 +193,19 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
     quant = cfg.get("quant")
     if quant not in (None, "w8a8"):
         raise ValueError(f"the harness serves quant=None or 'w8a8', not {quant!r}")
+    if quant == "w8a8" and (stem6 or split_cat):
+        raise NotImplementedError(
+            f"a w8a8 model with stem6={stem6} split_cat={split_cat} is not ported: the int8 "
+            "conv kernel takes k = 6 and one map, not s32 partial sums of parts "
+            "(ROADMAP Queue 1 item 3)")
+    if variables is not None and stem6:
+        variables = dict(variables, params=_fold_stem(variables["params"], name))
     ppcfg = postprocess_config(cfg)
     ckpt = cfg.get("ckpt")
     if ckpt and os.path.exists(ckpt):
         if variables is None:
-            variables = random_variables(_shapes(name, depth, width, slim, quant), 0)
-        variables = load_ckpt_variables(ckpt, variables, name, quant)
+            variables = random_variables(_shapes(name, depth, width, slim, quant, stem6), 0)
+        variables = load_ckpt_variables(ckpt, variables, name, quant, stem6)
         print(f"loaded checkpoint {ckpt}")
     elif variables is None:
         print("WARNING: no checkpoint — random weights (dummy-quality output)")
@@ -191,9 +220,10 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
                                          name=name)
     else:
         if variables is None:
-            variables = random_variables(_shapes(name, depth, width, slim), 0)
+            variables = random_variables(_shapes(name, depth, width, slim, stem6=stem6), 0)
         model = build_model(name, depth=depth, width=width, fused=True, slim=slim,
-                            device=device, variables=variables)
+                            device=device, variables=variables, stem6=stem6,
+                            split_cat=split_cat)
         predictor = Predictor(cast_parameters(model, dtype), ppcfg)
     print(f"# params: {count_params(predictor.model):,}")
     return predictor

@@ -171,6 +171,17 @@ class Conv2d(nn.Module):
     ``weight_mask`` adds the f32 ``conv_mask`` buffer (OIHW, the optimizer
     never sees it), multiplied into the kernel at every use before any cast
     (:219-223).
+
+    Split-concat (:192-214, 325-336): ``x`` may be a sequence of parts, each
+    a map or ``(map, up2x)``, standing for the channel concat of the parts,
+    those with ``up2x`` upsampled 2x (nearest). The float conv then runs one
+    conv a kernel slice in the output dtype, upsamples the result of an
+    ``up2x`` part (a 1x1 stride-1 conv commutes with it), sums the parts in
+    the output dtype and adds the bias: one rounding more than the concat,
+    as in JAX (not bit for bit in bf16). A grouped conv, or an ``up2x`` part
+    into a conv that is not 1x1 stride 1, raises JAX's ``ValueError``; a
+    ``"calib"`` conv concatenates the parts' absmax; a ``"w8a8"`` conv
+    raises (its int8 kernel takes one map: ROADMAP Queue 1 item 3).
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
@@ -208,9 +219,8 @@ class Conv2d(nn.Module):
 
     def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
                 act: Optional[str] = None) -> torch.Tensor:
-        if self.quant == "qat" and isinstance(x, (tuple, list)):
-            raise ValueError("split-concat is a deployment-graph mode (incompatible with "
-                             "quant='qat')")
+        if isinstance(x, (tuple, list)):
+            return self._forward_parts(x, dtype, act)
         dtype = dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dtype)
         mesh = active_mesh()
@@ -234,6 +244,47 @@ class Conv2d(nn.Module):
         return F.conv2d(x.to(dtype), self.kernel().to(dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
 
+    def _forward_parts(self, x, dtype: Optional[torch.dtype],
+                       act: Optional[str]) -> torch.Tensor:
+        """The conv of the channel concat of ``x``'s parts, one conv a
+        kernel slice (blocks.py:192-214, 325-336)."""
+        if self.quant == "qat":
+            raise ValueError("split-concat is a deployment-graph mode (incompatible with "
+                             "quant='qat')")
+        parts = [p if isinstance(p, tuple) else (p, False) for p in x]
+        if self.groups != 1:
+            raise ValueError("split-concat conv: groups must be 1")
+        k = self.weight.shape[2]
+        if any(up for _, up in parts) and not (k == 1 and self.stride == 1
+                                               and self.dilation == 1):
+            raise ValueError("up2x parts need a 1x1 stride-1 conv (pointwise commute)")
+        if self.quant == "w8a8":
+            raise NotImplementedError(
+                "a split-concat w8a8 conv is not ported: the int8 conv kernel takes one map, "
+                "not s32 partial sums of parts (ROADMAP Queue 1 item 3)")
+        if act is not None:
+            raise ValueError("only a w8a8 conv applies an activation itself")
+        dtype = dtype or parts[0][0].dtype
+        if self.quant == "calib":
+            absmax = torch.cat([p.detach().float().abs().amax(dim=(0, 2, 3)) for p, _ in parts])
+            torch.maximum(self.act_absmax, absmax, out=self.act_absmax)
+        mesh = active_mesh()
+        sharded = mesh is not None and mesh.space is not None
+        kernel = self.kernel().to(dtype)
+        y, off = None, 0
+        for p, up in parts:
+            c = p.shape[1]
+            w = kernel[:, off:off + c]
+            yp = (self._forward_sharded(p.to(dtype), None, mesh, w) if sharded else
+                  F.conv2d(p.to(dtype), w, None, self.stride, self.padding, self.dilation))
+            yp = upsample2x(yp) if up else yp
+            y = yp if y is None else y + yp
+            off += c
+        if off != kernel.shape[1]:
+            raise ValueError(f"split-concat parts of {off} channels into a conv of "
+                             f"{kernel.shape[1]}")
+        return y if self.bias is None else y + self.bias.to(dtype).view(1, -1, 1, 1)
+
     def _forward_qat(self, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         """conv(fake_quant(x, a), fake_quant(kf, w_scale) [/ a]) + bias in
         f32, cast to ``dtype`` (blocks.py:284-319)."""
@@ -255,7 +306,7 @@ class Conv2d(nn.Module):
         return y if b is None else y + b.to(dtype).view(1, -1, 1, 1)
 
     def _forward_sharded(self, x: torch.Tensor, b: Optional[torch.Tensor],
-                         mesh) -> torch.Tensor:
+                         mesh, kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
         """The conv of a height-sharded map: this rank's rows with halos
         from its space neighbours (zeros past the map's edge, the conv's own
         padding), convolved with no padding in H. Output row o reads input
@@ -273,7 +324,8 @@ class Conv2d(nn.Module):
         reach = self.dilation * (self.weight.shape[2] - 1)
         x = halo_exchange(x, self.padding, max(0, reach - self.padding - self.stride + 1),
                           mesh.space, sizes=space_sizes(h))
-        return F.conv2d(x, self.kernel().to(x.dtype), b, self.stride, (0, self.padding),
+        kernel = self.kernel() if kernel is None else kernel
+        return F.conv2d(x, kernel.to(x.dtype), b, self.stride, (0, self.padding),
                         self.dilation, self.groups)
 
 
@@ -518,15 +570,17 @@ def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:
 class SPPBottleneck(nn.Module):
     """Spatial pyramid pooling (blocks.py:571-609), with the channel-slim
     pins ``hidden_width`` (default ``cin // 2``) and ``out_width`` (default
-    ``features``) of :588-601."""
+    ``features``) of :588-601. ``split_cat`` hands conv2 the pooled maps as
+    split-concat parts (:605-607)."""
 
     def __init__(self, cin: int, features: int,
                  kernel_sizes: Sequence[int] = (5, 9, 13), act: str = "silu",
                  fused: bool = False, quant: Optional[str] = None,
                  hidden_width: Optional[int] = None,
                  out_width: Optional[int] = None, use_mask: bool = False,
-                 weight_mask: bool = False):
+                 weight_mask: bool = False, split_cat: bool = False):
         super().__init__()
+        self.split_cat = split_cat
         hidden = hidden_width if hidden_width is not None else cin // 2
         self.out_width = out_width if out_width is not None else features
         self.kernel_sizes = tuple(kernel_sizes)
@@ -550,7 +604,7 @@ class SPPBottleneck(nn.Module):
                                sizes=space_sizes(h))
             xs = [x] + [F.max_pool2d(xh.narrow(2, r - k // 2, h + k // 2 * 2), k, stride=1,
                                      padding=(0, k // 2)) for k in self.kernel_sizes]
-        return self.conv2(torch.cat(xs, dim=1))
+        return self.conv2(xs if self.split_cat else torch.cat(xs, dim=1))
 
 
 class CSPLayer(nn.Module):
@@ -562,7 +616,11 @@ class CSPLayer(nn.Module):
     for bottleneck i (None keeps a default), ``"res"`` for the residual
     stream (conv1 and every bottleneck) and ``"c2"`` for the bypass.
     ``use_mask`` gates conv2, the bottlenecks and, in a residual chain,
-    conv1; never conv3."""
+    conv1; never conv3.
+
+    ``forward`` takes a map or split-concat parts (the PAFPN's merges under
+    ``split_cat``), which conv1 and conv2, both 1x1, take as they are;
+    ``split_cat`` hands conv3 ``(x1, x2)`` as parts (:641-703)."""
 
     def __init__(self, cin: int, features: int, n: int = 1,
                  shortcut: bool = True, expansion: float = 0.5,
@@ -570,8 +628,9 @@ class CSPLayer(nn.Module):
                  dilation: int = 1, act: str = "silu", custom: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
                  slim: Optional[Dict[Any, Any]] = None, use_mask: bool = False,
-                 weight_mask: bool = False):
+                 weight_mask: bool = False, split_cat: bool = False):
         super().__init__()
+        self.split_cat = split_cat
         slim = slim or {}
         hidden = slim.get("res", int(features * expansion))
         c2 = slim.get("c2", (cin - hidden) if custom else hidden)
@@ -599,7 +658,7 @@ class CSPLayer(nn.Module):
         x2 = self.conv2(x)
         for i in range(self.n):
             x1 = getattr(self, f"m{i}")(x1)
-        return self.conv3(torch.cat([x1, x2], dim=1))
+        return self.conv3([x1, x2] if self.split_cat else torch.cat([x1, x2], dim=1))
 
 
 # --------------------------------------------------------------------------

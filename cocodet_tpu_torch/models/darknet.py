@@ -86,6 +86,12 @@ class CSPBackbone(nn.Module):
     ``quant`` and ``weight_mask`` go to every conv; ``use_mask`` gates the
     stem, the down convs, the SPP and the CSP layers (ChannelMask,
     blocks.py).
+
+    Deployment rewrites of the fused topology (darknet.py:115-176):
+    ``stem6`` builds the stem as the one 6x6 stride-2 conv (padding 2) on
+    the images that the Focus stem is (``ops/fuse.py::fold_focus_stem``
+    rewrites its weights exactly); ``split_cat`` hands the SPP's and the
+    CSP layers' last 1x1 convs their concat's parts (blocks.py).
     """
 
     def __init__(self, variant: str = "p6", depth: float = 1.0,
@@ -94,7 +100,7 @@ class CSPBackbone(nn.Module):
                  act: str = "hard_swish", depthwise: bool = False,
                  fused: bool = False, quant: Optional[str] = None,
                  slim: Optional[Dict[str, Any]] = None, use_mask: bool = False,
-                 weight_mask: bool = False):
+                 weight_mask: bool = False, stem6: bool = False, split_cat: bool = False):
         super().__init__()
         stages = BACKBONE_STAGES[variant]
         custom = variant != "standard"
@@ -105,8 +111,14 @@ class CSPBackbone(nn.Module):
         self.out_features = tuple(out_features)
         self.stage_names = [s.name for s in stages]
         cin = int(slim.get("stem", base))
-        self.stem = Focus(3, cin, kernel_size=3, order=_FOCUS_ORDER[variant],
-                          use_mask=use_mask, **kw)
+        self.stem6 = stem6
+        if stem6:
+            if not fused:
+                raise ValueError("stem6 is a deployment (fused) topology")
+            self.stem = ConvBnAct(3, cin, 6, 2, **kw)
+        else:
+            self.stem = Focus(3, cin, kernel_size=3, order=_FOCUS_ORDER[variant],
+                              use_mask=use_mask, **kw)
         self.channels: Dict[str, int] = {"stem": cin}
         for spec in stages:
             feats = base * spec.out_mult
@@ -117,7 +129,8 @@ class CSPBackbone(nn.Module):
             if spec.spp:
                 spp_slim = slim.get(f"{spec.name}_spp") or {}
                 spp = SPPBottleneck(cin, feats, hidden_width=spp_slim.get("hidden"),
-                                    out_width=spp_slim.get("out"), use_mask=use_mask, **kw)
+                                    out_width=spp_slim.get("out"), use_mask=use_mask,
+                                    split_cat=split_cat, **kw)
                 self.add_module(f"{spec.name}_spp", spp)
                 cin = spp.out_width
             self.add_module(f"{spec.name}_csp", CSPLayer(
@@ -125,11 +138,15 @@ class CSPBackbone(nn.Module):
                 shortcut=spec.shortcut,
                 depthwise=spec.depthwise or depthwise,
                 kernel_size=spec.kernel_size, custom=custom,
-                slim=slim.get(f"{spec.name}_csp"), use_mask=use_mask, **kw))
+                slim=slim.get(f"{spec.name}_csp"), use_mask=use_mask, split_cat=split_cat,
+                **kw))
             self.channels[spec.name] = cin = feats
 
     def forward(self, x_nhwc: torch.Tensor, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
-        x = self.stem(x_nhwc, dtype)
+        if self.stem6:  # the conv takes the images as they come, as Focus's does
+            x = self.stem(x_nhwc.permute(0, 3, 1, 2), dtype)
+        else:
+            x = self.stem(x_nhwc, dtype)
         outputs = {"stem": x}
         for name in self.stage_names:
             x = getattr(self, f"{name}_down")(x)

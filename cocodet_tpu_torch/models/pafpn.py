@@ -51,16 +51,21 @@ class YOLOPAFPN(nn.Module):
     128-157); ``forward(..., return_taps=True)`` also returns the
     distillation taps (pafpn.py:170-181). ``weight_mask`` reaches the
     backbone and the CSP layers, not ``lateral{k}`` and ``bu_conv{k}``
-    (pafpn.py:98-157)."""
+    (pafpn.py:98-157). ``stem6`` and ``split_cat`` are the fused
+    deployment rewrites (darknet.py; pafpn.py:80-166): under ``split_cat``
+    the merges reach the CSP layers as parts, ``[(lat, up2x), x]`` top-down
+    (the lateral's 1x1 result upsampled after the CSP's 1x1 convs) and
+    ``[p, lat]`` bottom-up, with no concat."""
 
     def __init__(self, variant: str = "p6", depth: float = 1.0,
                  width: float = 1.0, act: str = "hard_swish",
                  depthwise: bool = False, fused: bool = False,
                  quant: Optional[str] = None,
                  slim: Optional[Dict[str, Any]] = None, use_mask: bool = False,
-                 weight_mask: bool = False):
+                 weight_mask: bool = False, stem6: bool = False, split_cat: bool = False):
         super().__init__()
         cfg = PAFPN_VARIANTS[variant]
+        self.split_cat = split_cat
         self.in_features: Tuple[str, ...] = tuple(cfg["in_features"])
         widths = [int(c * width) for c in cfg["in_channels"]]
         self.widths = widths
@@ -71,11 +76,12 @@ class YOLOPAFPN(nn.Module):
                       kernel_size=cfg["kernel_size"],
                       depthwise=cfg["depthwise"] or depthwise,
                       custom=cfg["custom"], use_mask=use_mask, weight_mask=weight_mask,
-                      **kw)
+                      split_cat=split_cat, **kw)
         self.backbone = CSPBackbone(variant=cfg["backbone"], depth=depth,
                                     width=width, out_features=self.in_features,
                                     depthwise=depthwise, slim=slim, use_mask=use_mask,
-                                    weight_mask=weight_mask, **kw)
+                                    weight_mask=weight_mask, stem6=stem6,
+                                    split_cat=split_cat, **kw)
         ch = [self.backbone.channels[f] for f in self.in_features]
 
         # slim pins (cocodet_tpu/models/pafpn.py:115-167): the widths of
@@ -109,14 +115,16 @@ class YOLOPAFPN(nn.Module):
         for k in range(L - 1, 0, -1):
             lat = getattr(self, f"lateral{k}")(carry)
             lats[k] = lat
-            merged = torch.cat([upsample2x(lat), xs[k - 1]], dim=1)
+            merged = ([(lat, True), (xs[k - 1], False)] if self.split_cat
+                      else torch.cat([upsample2x(lat), xs[k - 1]], dim=1))
             carry = getattr(self, f"td_csp{k}")(merged)
             td[k - 1] = carry
 
         outs = [carry]
         for k in range(1, L):
             p = getattr(self, f"bu_conv{k}")(outs[-1])
-            outs.append(getattr(self, f"bu_csp{k}")(torch.cat([p, lats[k]], dim=1)))
+            merged = [p, lats[k]] if self.split_cat else torch.cat([p, lats[k]], dim=1)
+            outs.append(getattr(self, f"bu_csp{k}")(merged))
         outs = tuple(outs)
         if not return_taps:
             return outs

@@ -49,6 +49,10 @@ class YOLOX(nn.Module):
     return_taps=True)`` returns ``(maps, taps)``, the distillation taps of
     the PAFPN. ``weight_mask`` builds SynFlow's model: the backbone's and
     the PAFPN's CSP convs carry a ``conv_mask`` (yolox.py:71-108).
+    ``stem6`` and ``split_cat`` are the deployment rewrites of the fused
+    model (yolox.py:74-81, 111; models/pafpn.py): the 6x6 stem and the
+    concat-free merges. A ``split_cat`` model takes no remat
+    (``core/train_state.py::make_forward`` raises, as yolox.py:81-87).
     """
 
     def __init__(self, spec: ModelSpec, num_classes: int = 80,
@@ -56,7 +60,7 @@ class YOLOX(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  slim: Optional[Mapping[str, Any]] = None,
                  quant: Optional[str] = None, use_mask: bool = False,
-                 weight_mask: bool = False):
+                 weight_mask: bool = False, stem6: bool = False, split_cat: bool = False):
         super().__init__()
         if spec.variant == "yolofpn":
             raise NotImplementedError(
@@ -64,12 +68,12 @@ class YOLOX(nn.Module):
         self.spec, self.num_classes = spec, num_classes
         self.depth, self.width, self.fused, self.dtype = depth, width, fused, dtype
         self.slim, self.quant, self.use_mask = slim, quant, use_mask
-        self.weight_mask = weight_mask
+        self.weight_mask, self.stem6, self.split_cat = weight_mask, stem6, split_cat
         self.backbone = YOLOPAFPN(variant=spec.variant, depth=depth,
                                   width=width, act=spec.act,
                                   depthwise=spec.depthwise, fused=fused,
                                   quant=quant, slim=slim, use_mask=use_mask,
-                                  weight_mask=weight_mask)
+                                  weight_mask=weight_mask, stem6=stem6, split_cat=split_cat)
         self.head = YOLOXHead(self.backbone.widths, num_classes=num_classes,
                               width=width, act=spec.act, fused=fused,
                               quant=quant, slim=(slim or {}).get("head"),
@@ -101,6 +105,8 @@ def build_model(
     quant: Optional[str] = None,
     use_mask: bool = False,
     weight_mask: bool = False,
+    stem6: bool = False,
+    split_cat: bool = False,
 ) -> YOLOX:
     """Model registry. ``name`` keys into MODEL_SPECS.
 
@@ -120,7 +126,8 @@ def build_model(
     with torch.device("meta"):  # no init: every weight is loaded below
         model = YOLOX(MODEL_SPECS[name], num_classes=num_classes, depth=depth,
                       width=width, fused=fused, dtype=dtype, slim=slim,
-                      quant=quant, use_mask=use_mask, weight_mask=weight_mask)
+                      quant=quant, use_mask=use_mask, weight_mask=weight_mask,
+                      stem6=stem6, split_cat=split_cat)
     model = model.to_empty(device=device).to(memory_format=torch.channels_last)
     load_variables(model, random_variables(model, 0) if variables is None else variables)
     return model.eval()

@@ -1,5 +1,6 @@
-"""Conv-BN folding (cocodet_tpu/ops/fuse.py:28-80) and the cross-replica
-mean of the BN statistics (:151).
+"""Conv-BN folding (cocodet_tpu/ops/fuse.py:28-80), the Focus stem as one
+6x6 conv (``fold_focus_stem``, :86-135) and the cross-replica mean of the
+BN statistics (:151).
 
 W' = W * gamma/sqrt(var+eps) per output channel,
 b' = beta - gamma*mean/sqrt(var+eps) (+ gamma/sqrt(var+eps) * conv bias);
@@ -21,7 +22,7 @@ import torch.distributed as dist
 
 from ..models.yolox import YOLOX
 from ..parallel.collectives import all_reduce_
-from ..utils.convert import convert_variables, export_tensors
+from ..utils.convert import convert_variables, export_tensors, flatten_tree, unflatten_tree
 
 _BN_LEAVES = ("weight", "bias", "running_mean", "running_var")
 _MASK_LEAVES = (".mask.scale", ".mask.offset", ".conv.conv_mask")
@@ -76,6 +77,42 @@ def fuse_batchnorm_tree(variables: Dict[str, Any], eps: float = 1e-3) -> Dict[st
     return {"params": export_tensors(fuse_batchnorm(named, eps))["params"]}
 
 
+def fold_focus_stem(params: Dict[str, Any], order: str = "pixel_unshuffle") -> Dict[str, Any]:
+    """A fused flax-layout ``params`` tree with its Focus stem (the 3x3 conv
+    on the space-to-depth images, ``backbone/backbone/stem/conv/conv``)
+    rewritten as the one 6x6 stride-2 conv of a ``stem6`` model
+    (``backbone/backbone/stem/conv``) (cocodet_tpu/ops/fuse.py:86-135).
+
+    Space-to-depth puts pixel (2p + i, 2q + j) of channel c at half-res
+    (p, q) in channel ch(i, j, c), so the 3x3 conv's tap (u, v) on it is
+    the 6x6 kernel's tap (2u + i, 2v + j) on the image, with the Focus
+    conv's half-res padding of 1 becoming a padding of 2. ``order`` is the
+    stem's channel order (``models/darknet.py::_FOCUS_ORDER``):
+    ``pixel_unshuffle`` ch = c*4 + i*2 + j, ``slice_cat`` ch = (j*2 + i)*C +
+    c. A permutation of the kernel's entries: exact in every dtype."""
+    flat = dict(flatten_tree(params))
+    stem = ("backbone", "backbone", "stem")
+    kpath = stem + ("conv", "conv", "kernel")
+    if kpath not in flat:
+        raise KeyError("params has no fused Focus stem (backbone/backbone/stem/conv/conv)")
+    k3 = np.asarray(flat.pop(kpath))
+    kh, kw, c4, w = k3.shape
+    if (kh, kw) != (3, 3) or c4 % 4:
+        raise ValueError(f"a Focus stem kernel is (3, 3, 4c, out), not {k3.shape}")
+    c = c4 // 4
+    if order == "pixel_unshuffle":  # (u, v, c, i, j, o) -> (u, i, v, j, c, o)
+        k6 = k3.reshape(3, 3, c, 2, 2, w).transpose(0, 3, 1, 4, 2, 5)
+    elif order == "slice_cat":      # (u, v, j, i, c, o) -> (u, i, v, j, c, o)
+        k6 = k3.reshape(3, 3, 2, 2, c, w).transpose(0, 3, 1, 2, 4, 5)
+    else:
+        raise ValueError(order)
+    flat[stem + ("conv", "kernel")] = k6.reshape(6, 6, c, w)
+    bias = flat.pop(stem + ("conv", "conv", "bias"), None)
+    if bias is not None:
+        flat[stem + ("conv", "bias")] = bias
+    return unflatten_tree(flat)
+
+
 def fuse_model(model: YOLOX) -> YOLOX:
     """The ``fused=True`` twin of an unfused YOLOX, with BN (and a
     ``use_mask`` model's gates) folded in, on the model's device and in its
@@ -86,7 +123,7 @@ def fuse_model(model: YOLOX) -> YOLOX:
     with torch.device("meta"):  # no init: every weight is loaded below
         fused = YOLOX(model.spec, num_classes=model.num_classes,
                       depth=model.depth, width=model.width, fused=True,
-                      dtype=model.dtype, slim=model.slim)
+                      dtype=model.dtype, slim=model.slim, split_cat=model.split_cat)
     fused = fused.to_empty(device=ref.device).to(
         dtype=ref.dtype, memory_format=torch.channels_last)
     fused.load_state_dict(fuse_batchnorm(model.state_dict()))

@@ -65,14 +65,15 @@ def _staged(t: torch.Tensor, group, name: str) -> bool:
     return False
 
 
-def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
-    """In-place sum of ``t`` over ``group`` (not differentiable)."""
+def all_reduce_(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """In-place sum (or ``op``) of ``t`` over ``group`` (not
+    differentiable)."""
     with _counted("all_reduce"):
         if _staged(t, group, "all_reduce"):
             host = t.cpu()
-            dist.all_reduce(host, group=group)
+            dist.all_reduce(host, op=op, group=group)
             return t.copy_(host)
-        dist.all_reduce(t, group=group)
+        dist.all_reduce(t, op=op, group=group)
         return t
 
 

@@ -15,9 +15,13 @@ and a deployment msgpack written with the int8 ``params`` and the ``quant``
 collection, which the harness of either package serves with ``"quant":
 "w8a8"``. Calibration images: a folder letterboxed as the harness does
 (``data/folder.py``), or, with ``--synth`` or no folder, a synthetic COCO
-set drawn from seed 7 into a temporary directory. ``--bits 4`` (nibble-
-packed int4 checkpoints) raises (ROADMAP Queue 1 item 3). Runs on the card
-unless ``--device cpu`` is given.
+set drawn from seed 7 into a temporary directory. ``--bits 4`` writes a
+w4a8 checkpoint (:63-175): the kernels on the [-7, 7] grid with MSE-clip
+scales (``--clip-search``'s default for 4 bits), those that ``--w4-keep``
+names or ``--w4-keep-frac`` ranks worst kept on the int8 grid, each conv's
+width in a ``w_bits`` leaf, and the int4 kernels nibble-packed
+(``compress.pack_int4_tree``); loaded, it serves through the same int8
+conv. Runs on the card unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -57,9 +61,16 @@ def make_parser():
                    help="activation-scale granularity (per input channel, folded into "
                         "the kernel, is the production recipe)")
     p.add_argument("--bits", type=int, choices=[8, 4], default=8,
-                   help="weight storage width (4, nibble-packed, is not ported)")
+                   help="weight storage width: 8 (w8a8) or 4 (w4a8, nibble-packed; the "
+                        "same int8 conv serves it)")
+    p.add_argument("--w4-keep", default=None,
+                   help="with --bits 4: comma-separated path substrings kept on the int8 grid")
+    p.add_argument("--w4-keep-frac", type=float, default=0.0,
+                   help="with --bits 4: keep this fraction of convs, those with the worst "
+                        "relative int4 error, on the int8 grid")
     p.add_argument("--clip-search", type=int, choices=[0, 1], default=None,
-                   help="per-channel MSE-optimal clip scales instead of absmax")
+                   help="per-channel MSE-optimal clip scales instead of absmax (default: on "
+                        "for --bits 4, off for 8)")
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return p
 
@@ -87,13 +98,11 @@ def calib_batches(args, tmp_dir: str) -> Iterator[np.ndarray]:
 def main(argv: Optional[Sequence[str]] = None) -> dict:
     """Returns the quantization report, with the output's path."""
     args = make_parser().parse_args(argv)
-    if args.bits == 4:
-        raise NotImplementedError("--bits 4 writes nibble-packed int4 checkpoints, which "
-                                  "are not ported (ROADMAP Queue 1 item 3)")
 
     import torch
 
-    from cocodet_tpu_torch.compress import load_slim_spec, quantization_report, quantize_model
+    from cocodet_tpu_torch.compress import (int4_kernel_paths, load_slim_spec, pack_int4_tree,
+                                            quantization_report, quantize_model)
     from cocodet_tpu_torch.models.yolox import MODEL_SPECS, YOLOX, build_model
     from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, load_matched, save_tree
     from cocodet_tpu_torch.utils.convert import random_variables
@@ -114,12 +123,19 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
         batches = list(calib_batches(args, tmp))
     logger.info("calibrating on %d batches of %s", len(batches), tuple(batches[0].shape))
     qvars = quantize_model(calib_model, variables, batches,
-                           per_channel_act=args.act_scales == "channel",
+                           per_channel_act=args.act_scales == "channel", bits=args.bits,
                            clip_search=None if args.clip_search is None
-                           else bool(args.clip_search))
-    report = quantization_report(qvars)
+                           else bool(args.clip_search),
+                           w8_keep_patterns=tuple(s for s in (args.w4_keep or "").split(",")
+                                                  if s),
+                           w8_keep_frac=args.w4_keep_frac)
+    report = quantization_report(qvars, bits=args.bits)
     logger.info("quantized: %s", json.dumps(report))
-    save_tree({"params": qvars["params"], "quant": qvars["quant"]}, args.out)
+    params = qvars["params"]
+    if args.bits == 4:
+        # the packed set follows --bits and --w4-keep, not the values' range
+        params = pack_int4_tree(params, kernel_paths=int4_kernel_paths(qvars["quant"]))
+    save_tree({"params": params, "quant": qvars["quant"]}, args.out)
     logger.info("wrote %s (%.1f MB)", args.out, os.path.getsize(args.out) / 2 ** 20)
     return dict(report, out=args.out)
 

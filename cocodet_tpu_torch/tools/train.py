@@ -19,8 +19,8 @@ card; ``--device cpu`` asks for the CPU.
 Ranks. A port rank is one process with one device (JAX runs one process a
 host over all of its devices). ``-d/--devices N`` (the reference YOLOX's
 flag) starts N ranks on this host, by default one a visible card (one with
-``--device cpu``, and one for a trainer whose steps do not run on several
-ranks: the Pruner, the distilling Tuner, SynFlow); rank ``host_id * N + i`` runs on card ``i % cards``, so
+``--device cpu``), for every trainer (the Trainer, the Pruner, the Tuner,
+SynFlow); rank ``host_id * N + i`` runs on card ``i % cards``, so
 ranks share a card when there are more ranks than cards. They join one
 process group of ``num_hosts * N`` ranks: through a ``file://`` rendezvous
 on one host, through ``tcp://<coordinator>`` across hosts, each host
@@ -89,16 +89,14 @@ def build(argv: Optional[Sequence[str]] = None):
     return exp, args
 
 
-def local_ranks(args, trainer_cls=None, exp=None) -> int:
+def local_ranks(args) -> int:
     """The ranks this host starts: ``--devices``, by default one a visible
-    card (one on the CPU, and one where ``trainer_cls.trains_on_ranks(exp)``
-    says that its steps do not run on several ranks)."""
+    card (one on the CPU)."""
     if args.devices is not None:
         if args.devices < 1:
             raise ValueError(f"--devices must be at least 1, not {args.devices}")
         return args.devices
-    if args.device == "cpu" or (trainer_cls is not None
-                                and not trainer_cls.trains_on_ranks(exp)):
+    if args.device == "cpu":
         return 1
     import torch
 
@@ -155,7 +153,7 @@ def launch(trainer_cls, argv: Optional[Sequence[str]] = None,
 
     argv = list(sys.argv[1:] if argv is None else argv)
     exp, args = build(argv)
-    n_local = local_ranks(args, trainer_cls, exp)
+    n_local = local_ranks(args)
     if args.num_hosts < 1 or not 0 <= args.host_id < args.num_hosts:
         raise ValueError(f"--host-id {args.host_id} is not one of --num-hosts "
                          f"{args.num_hosts}")

@@ -9,7 +9,8 @@ flax ``{params, batch_stats}`` trees (``utils/convert.py``), ``opt_state``
 optax's state dict of ``chain(add_decayed_weights, sgd(nesterov))``. Every
 leaf is written as ``np.asarray`` of it, as JAX's ``save_checkpoint`` does,
 so a file the port writes is one JAX's ``load_checkpoint`` reads, and the
-other way round. Nibble-packed int4 trees raise (ROADMAP Queue 1 item 3).
+other way round. A nibble-packed int4 tree (``tools.quantize_model --bits
+4``) is unpacked to its int8 arrays on load, as JAX's does (:42-51).
 """
 
 from __future__ import annotations
@@ -25,7 +26,6 @@ from .convert import flatten_tree, unflatten_tree
 from .msgpack import dumps_tree, loads_tree
 
 logger = logging.getLogger("cocodet_tpu_torch")
-INT4_MARK = "__int4_packed__"  # cocodet_tpu/compress/quantize.py:228
 
 
 def _as_arrays(tree: Any) -> Any:
@@ -56,16 +56,13 @@ def save_checkpoint(state: Mapping[str, Any], is_best: bool, save_dir: str,
     return path
 
 
-def tree_has_int4(tree: Mapping[str, Any]) -> bool:
-    return any(path[-1] == INT4_MARK for path in flatten_tree(tree))
-
-
 def load_checkpoint(path: str) -> Dict[str, Any]:
     with open(path, "rb") as f:
         tree = loads_tree(f.read())
+    from ..compress.quantize import tree_has_int4, unpack_int4_tree
+
     if isinstance(tree, dict) and tree_has_int4(tree):
-        raise NotImplementedError(f"{path}: nibble-packed int4 checkpoints are not ported "
-                                  "(ROADMAP Queue 1 item 3)")
+        tree = unpack_int4_tree(tree)
     return tree
 
 

@@ -217,10 +217,16 @@ def test_load_matched_equals_jax(caplog):
 
 
 def test_int4_checkpoints_raise(tmp_path):
+    """Named when every int4 checkpoint raised; the port now unpacks them
+    (tests/test_torch_int4.py). A packed leaf without its shape (a truncated
+    save) raises JAX's error in both readers."""
     path = pck.save_checkpoint({"model": {"params": {"c": {"kernel": {
         "__int4_packed__": np.zeros(4, np.uint8)}}}}}, False, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="int4"):
+    with pytest.raises(ValueError, match="corrupt int4-packed checkpoint") as got:
         pck.load_checkpoint(path)
+    with pytest.raises(ValueError) as want:
+        jck.load_checkpoint(path)
+    assert str(got.value) == str(want.value)
 
 
 def _sorted(tree):

@@ -159,8 +159,19 @@ def test_harnesses_serve_the_output_alike(tools):
 
 
 def test_bits_4_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        tq.main(["-c", "x.msgpack", "-o", str(tmp_path / "o.msgpack"), "--bits", "4"])
+    """Named when ``--bits 4`` raised; it now writes w4a8 checkpoints
+    (tests/test_torch_int4.py). What it still refuses is a kernel it
+    declares int4 that is off the nibble grid, with JAX's message."""
+    from cocodet_tpu.compress.quantize import pack_int4_tree as jax_pack
+    from cocodet_tpu_torch.compress import pack_int4_tree
+
+    tree = {"c": {"kernel": np.full((3, 3, 2, 2), 9, np.int8)}}
+    msgs = []
+    for pack in (pack_int4_tree, jax_pack):
+        with pytest.raises(ValueError, match="declared int4") as err:
+            pack(tree, kernel_paths={("c", "kernel")})
+        msgs.append(str(err.value))
+    assert msgs[0] == msgs[1]
 
 
 def test_eval_harness_ckpt_scores_the_output(tools, capsys):

@@ -50,11 +50,24 @@ from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
 from cocodet_tpu_torch.utils.convert import export_variables, flatten_tree, random_variables
 from test_torch_run_pipeline import jrp
 from test_torch_trainer import jax_setup
+from torch_port_utils import private_native_builds
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DEPTH, WIDTH, SIZE, BATCH = 0.67, 0.5, 128, 16
 STEM = ("backbone", "backbone", "stem", "conv", "conv", "kernel")
 PARTS = ("loss", "iou_loss", "obj_loss", "cls_loss", "l1_loss")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native(tmp_path_factory):
+    """JAX's Trainer letterboxes its batches through its native library
+    (cocodet_tpu/data/transforms.py::letterbox), and takes cv2's resize
+    without a word where that library did not load, as when another test
+    process rebuilds it in place: then the first batches differ. This
+    module's process builds its own and asserts that it loads
+    (tests/torch_port_utils.py::private_native_builds)."""
+    with private_native_builds(tmp_path_factory.mktemp("jax_native")) as paths:
+        yield paths
 
 
 def _watch(params, stats):

@@ -365,38 +365,29 @@ def rankless_trainer(kind):
 
 @pytest.mark.parametrize("kind", sorted(RANKLESS))
 def test_pruner_and_distillation_on_several_ranks_raise(tmp_path, monkeypatch, kind):
-    """The Pruner's distill and score steps, the Tuner's distillation step
-    and SynFlow's score pass and mask selection on several ranks stay
-    unported (ROADMAP Queue 1 item 1); the Tuner without distillation runs
-    the Trainer's step on them."""
-    from cocodet_tpu_torch.core.tuner import Tuner
-
+    """Named when the Pruner's distill and score steps, the Tuner's
+    distillation step and SynFlow on several ranks raised (ROADMAP Queue 1
+    item 1, done); now each builds on a world of 2 ranks and what it
+    raises is the Trainer's guard: a batch the data rows do not divide
+    (tests/test_torch_compress_ranks.py trains them on ranks)."""
     fake_world(monkeypatch)
     exp = port_exp(os.path.join(REPO, "cocodet_tpu_torch", "exps", *RANKLESS[kind]))
     exp.output_dir = str(tmp_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 1"):
-        rankless_trainer(kind)(exp, Args(), device="cpu")
-    if kind == "tuner_distill":
-        exp.distill_coefficient = 0.0
-        assert Tuner(exp, Args(), device="cpu").world == 2
+    assert rankless_trainer(kind)(exp, Args(), device="cpu").world == 2
+    args = Args()
+    args.batch_size = 3
+    with pytest.raises(ValueError, match="does not split over 2 data rows"):
+        rankless_trainer(kind)(exp, args, device="cpu")
 
 
 @pytest.mark.parametrize("kind", ["trainer", "tuner", *sorted(RANKLESS)])
 def test_cli_starts_one_rank_where_ranks_are_unported(monkeypatch, kind):
-    """``-d``'s default on a host of 2 cards: a rank a card for the Trainer
-    and the Tuner without distillation, one rank for the Pruner, the
-    distilling Tuner and SynFlow, whose steps on several ranks raise; an
-    explicit ``-d`` is taken as given."""
-    from cocodet_tpu_torch.core.tuner import Tuner
-
+    """``-d``'s default on a host of 2 cards: a rank a card for every
+    trainer (named when the Pruner, the distilling Tuner and SynFlow took
+    one); an explicit ``-d`` is taken as given."""
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     rel = RANKLESS.get(kind, ("p6", "yolox_m_p6.py" if kind == "trainer"
                               else "yolox_m_p6_tune.py"))
     exp_file = os.path.join(REPO, "cocodet_tpu_torch", "exps", *rel)
-    cls = {"trainer": ptr.Trainer, "tuner": Tuner}.get(kind) or rankless_trainer(kind)
-    exp, args = ptrain.build(["-f", exp_file])
-    want = 2 if kind in ("trainer", "tuner") else 1
-    assert cls.trains_on_ranks(exp) == (want == 2)
-    assert ptrain.local_ranks(args, cls, exp) == want
-    exp, args = ptrain.build(["-f", exp_file, "-d", "3"])
-    assert ptrain.local_ranks(args, cls, exp) == 3
+    assert ptrain.local_ranks(ptrain.build(["-f", exp_file])[1]) == 2
+    assert ptrain.local_ranks(ptrain.build(["-f", exp_file, "-d", "3"])[1]) == 3

@@ -253,3 +253,64 @@ def failing_rank(rank, device, how):
         time.sleep(120)
     dist.barrier()
     return rank
+
+
+# --------------------------------------------------------------------------
+# the compression trainers' steps on a mesh (tests/test_torch_distill_ranks.py)
+# --------------------------------------------------------------------------
+
+
+def distill_step(device, variables, masks, batch, lr, mesh=None):
+    """The masked student's score step importance and one distill step with
+    the unmasked teacher (core/pruner.py), in f64, on ``mesh`` (each rank
+    its share of ``batch``) or in one process: (importance, metrics, flat
+    variables) as numpy."""
+    from cocodet_tpu_torch.core import pruner as tpr
+
+    student = build_model("yolox-p6", depth=0.33, width=0.125, device=device, use_mask=True,
+                          variables={**variables, "masks": masks}).to(torch.float64)
+    teacher = build_model("yolox-p6", depth=0.33, width=0.125, device=device,
+                          variables=variables).to(torch.float64)
+    student.dtype = teacher.dtype = torch.float64
+    state = ts.create_train_state(student, ts.build_optimizer(student, lr), use_ema=False,
+                                  mesh=mesh)
+    images, labels = batch
+    local = ((torch.from_numpy(images).double(), torch.from_numpy(labels)) if mesh is None
+             else shard_batch(mesh, (images.astype(np.float64), labels)))
+    importance = {"/".join(k): v.numpy() for k, v in
+                  tpr.make_score_step(student, STRIDES, mesh=mesh)(*local).items()}
+    step = tpr.make_distill_train_step(state, teacher, STRIDES, mesh=mesh)
+    metrics = {k: float(v) for k, v in step(*local, use_l1=True).items()}
+    return importance, metrics, flatten_tree(export_variables(student))
+
+
+def distill_rank(rank, device, variables, masks, batches, lr, taps):
+    """In f64, the score step and one distill step (``distill_step``) of
+    ``batches[0]`` on a 1-D data mesh of every rank and of ``batches[1]``
+    on a (world/2 data x 2 space) mesh; then on the 2-D mesh the
+    distillation loss of ``taps`` (NCHW student and teacher lists), each
+    rank given its images' rows: its shares, the global values and its
+    gradients. Returns numpy arrays and numbers."""
+    from cocodet_tpu_torch.models import distill as td
+
+    torch.set_num_threads(1)
+    mesh, mesh2 = make_mesh(device), make_mesh_2d(2, device)
+    importance, metrics, params = distill_step(device, variables, masks, batches[0], lr, mesh)
+    out = {"importance": importance, "metrics": metrics, "params": params,
+           "2-D": distill_step(device, variables, masks, batches[1], lr, mesh2)}
+
+    def rows(a):
+        b, h = a.shape[0] // mesh2.n_data, a.shape[2] // mesh2.n_space
+        return torch.from_numpy(a[mesh2.data_index * b:(mesh2.data_index + 1) * b, :,
+                                  mesh2.space_index * h:(mesh2.space_index + 1) * h]).clone()
+
+    s_taps = {k: tuple(rows(a).requires_grad_() for a in v) for k, v in taps[0].items()}
+    t_taps = {k: tuple(rows(a) for a in v) for k, v in taps[1].items()}
+    shares = td.distiller_loss(s_taps, t_taps, mesh2)
+    shares["dis_loss"].backward()
+    total = all_reduce_(torch.stack([v.detach() for v in shares.values()]), mesh2.world)
+    out["loss_2d"] = dict(zip(shares, total.tolist()))
+    out["grads_2d"] = {k: [None if a.grad is None else a.grad.numpy() for a in v]
+                       for k, v in s_taps.items()}
+    out["coords_2d"] = (mesh2.data_index, mesh2.space_index)
+    return out

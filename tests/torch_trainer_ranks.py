@@ -101,3 +101,31 @@ def host_main(args):
 
 if __name__ == "__main__":
     host_main(sys.argv[1:])
+
+
+def compress_hook(trainer, stage):
+    """``f64_hook`` for the compression trainers (tests/test_torch_compress_
+    ranks.py), the distillation teacher made f64 too (where the student
+    equals the teacher, the loss's ``s - t`` is the teacher's rounding);
+    at the end the log, the state's variables (masks included), the conv
+    masks of a weight-mask model, the Pruner's events and SynFlow's kept
+    count."""
+    if stage != "end":
+        out = f64_hook(trainer, stage)
+        before_train = trainer.before_train
+
+        def f64_teacher():
+            before_train()
+            teacher = getattr(trainer, "teacher_model", None)
+            if teacher is not None:
+                teacher.to(torch.float64)
+                teacher.dtype = torch.float64
+        trainer.before_train = f64_teacher
+        return out
+    conv_masks = {n: b.numpy().copy() for n, b in trainer.model.named_buffers()
+                  if n.endswith("conv_mask")}
+    return {"log": trainer._test_log, "variables": flatten_tree(export_variables(trainer.model)),
+            "conv_masks": conv_masks,
+            "events": [{k: e[k] for k in ("pruned", "kept", "total")}
+                       for e in getattr(trainer, "prune_events", [])],
+            "synflow_kept": getattr(trainer, "synflow_stats", {}).get("kept")}
