@@ -241,7 +241,7 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      scores, a score pass and a selection timed, an f32 score pass at unit
      flow on the card against the CPU (TF32 off), and a masked weight
      changing nothing; (m3) tools/run_pipeline.py's main() --synth at full
-     width (--arch-set depth 0.67 width 0.75), B=16, 1 epoch of 4
+     width (--arch-set depth 0.33 width 0.75), B=16, 1 epoch of 2
      iterations a stage at 640 px, phase 2 at its exp's 896 px
      (multiscale 832-960), two prune events that close channels, the lr
      cut to 1e-5 an image (M3_LR): each stage's seconds,
@@ -290,12 +290,29 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      the factors that are not 1, the longest column's chain) and its plain
      version; the whole batched_nms(soft=True) beside the greedy path at
      K = 2048; then the harness served with "soft": true; (o4) the harness's
-     data_parallel on 2 ranks, spatial_partition 2 on 2 and both on 4, on
-     32 of the images in f32, every rank on the one card over gloo, each
-     run's records against the one-process run; (o5) the eval CLI
+     data_parallel on 2 ranks and both modes on 4 (spatial_partition alone
+     is q2's), on 16 of the images in f32, every rank on the one card over
+     gloo, each run's records against the one-process run; (o5) the eval CLI
      (tools.eval) from the .pth with --fuse, its AP equal to the
      evaluator's on the same weights, then --speed. The kernels line gains
-     the soft_nms entry.
+     the soft_nms entry;
+  p. the compression trainers on ranks (p1, p2), the latency serving graph
+     in bf16 (p3) and int4 checkpoints (p4) (phase_p's docstrings);
+  q. the int8 conv's last w8a8 routes and the anchor-based family: (q0)
+     the kernel's new routes on ragged cases against their plain versions,
+     bit for bit (height slabs padded (0, p), the 6x6 stem's packed 3
+     channels, split-concat parts with and without up2x against the plain
+     conv of their concat); (q1) the w8a8 latency graph (the headline with
+     stem6 and split_cat) at 640 px, B=1 and 16: each new route at its
+     served shapes against its plain version, the records and head maps bit
+     for bit the plain w8a8 graph's, the int8 launches a batch, the routes
+     and the whole graph timed; (q2) harness/config/yolox_m_p6_int8.json
+     with spatial_partition 2 on 2 ranks sharing the card, as the plain and
+     as the latency graph, its records against one process's; (q3) cocodet_tpu_torch.predict_yolov5 on
+     YOLOv5m6 at published width, 1280 px, B=8, bf16, over generated JPEGs
+     (the NMS pair once a batch at K = 2000), and f32 on the card against
+     the CPU on a 256 px crop; (q4) predict_yolov4 on YOLOv4-P6 at 1280
+     px, B=1. The int8 conv's kernels entry names its routes.
 
     python3 chip_smoke.py --step TREE
 
@@ -331,31 +348,29 @@ the ``ok`` line): the trainer's numbers without the state of phases b-i.
 runs phase a and j1 alone (K1-K4's checks on every case, their times and
 bounds, as one ``j1: {...}`` JSON line, without the ``ok`` line).
 
-    python3 chip_smoke.py --phase k
-
-runs phase a and phase k alone (without the kernels and ``ok`` lines).
-
-    python3 chip_smoke.py --phase l
-
-runs phase a and phase l alone (without the kernels and ``ok`` lines).
-
     python3 chip_smoke.py --phase m
 
 runs phase a and phase m alone and prints the fake_quant entry as one
 ``m: {...}`` JSON line (without the kernels and ``ok`` lines).
-
-    python3 chip_smoke.py --phase n
-
-runs phase a and phase n alone (without the kernels and ``ok`` lines).
 
     python3 chip_smoke.py --phase o
 
 runs phase a and phase o alone and prints the soft_nms entry as one
 ``o: {...}`` JSON line (without the kernels and ``ok`` lines).
 
-    python3 chip_smoke.py --phase p
+    python3 chip_smoke.py --phase q
 
-runs phase a and phase p alone (without the kernels and ``ok`` lines).
+runs phase a and phase q alone (without the kernels and ``ok`` lines).
+
+    python3 chip_smoke.py --phase NAME[,NAME...]
+
+with each NAME one of h, i, k, l, n, p: runs phase a and those phases in
+turn, each followed by a ``result NAME: ...`` JSON line of what the full
+run takes from it (without the kernels and ``ok`` lines). The full run
+runs the timed phases (b-g, j, m, o, q) one after another, then h, i, k,
+l, n and p in three such processes beside each other (BESIDE), printing
+each process's output when it ends: the times those phases print there are
+not those of a run alone, which ``--phase NAME`` gives.
 
 Output: one line per phase, a ``{"kernels": [...]}`` JSON line, the card's
 ``nvidia-smi --query-gpu=name,power.limit`` line, and last
@@ -395,7 +410,14 @@ EXP_F32_LIMIT = 88.72
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12   # H100 SXM dense int8 on the tensor cores
-HOLD_CYCLES = 200_000_000  # ~0.1 s of the card's clock, while cuda_ms queues its calls
+# cuda_ms's hold, while it queues its calls: at least HOLD_CYCLES of the card's
+# clock (~10 ms), and where the card was out of the hold before the last call
+# was queued, timed again under a hold of at least LONG_HOLD_CYCLES (~0.1 s)
+HOLD_CYCLES = 20_000_000
+LONG_HOLD_CYCLES = 200_000_000
+# cuda_ms's held timings, those timed again, and the lines of chip_smoke.py that
+# define the functions timed again
+HOLDS = {"timed": 0, "held again": 0, "lines": set()}
 CARD_CYCLES_PER_S = 1.98e9  # H100 SXM's highest SM clock
 # PR 1's kernel times at B=16, K=1024 on the dense scene (NVIDIA H100 80GB
 # HBM3, 700.00 W; this script at commit 20314f9), printed beside this run's
@@ -451,9 +473,11 @@ def cuda_ms(fn, iters, hold=True):
     calls, so that the calls run back to back on the card: a kernel shorter
     than its launch on the host is timed on the card, not at the rate the
     host launches. The hold lasts at least twice the host's time to queue
-    the calls (timed on one warm-up call), so a forward of hundreds of
-    launches is timed on the card too. Without it, the timer of
-    chip_smoke.py before the hold."""
+    the calls (timed on one warm-up call), and HOLD_CYCLES; if the card has
+    left it before the last call is queued (the start event already done),
+    the calls are timed again under a hold of at least LONG_HOLD_CYCLES (a
+    call that waits for the card is timed at the host's pace there).
+    Without it, the timer of chip_smoke.py before the hold."""
     import torch
 
     for _ in range(2):
@@ -463,14 +487,22 @@ def cuda_ms(fn, iters, hold=True):
     fn()
     queue_s = time.perf_counter() - t0
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if hold:
-        torch.cuda._sleep(max(HOLD_CYCLES, int(2 * iters * queue_s * CARD_CYCLES_PER_S)))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
+    cycles = int(2 * iters * queue_s * CARD_CYCLES_PER_S)
+    for floor in (HOLD_CYCLES, LONG_HOLD_CYCLES) if hold else (0,):
+        torch.cuda.synchronize()
+        if hold:
+            torch.cuda._sleep(max(floor, cycles))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        held = not hold or not start.query()
+        torch.cuda.synchronize()
+        if held or floor == LONG_HOLD_CYCLES:
+            break
+        HOLDS["held again"] += 1
+        HOLDS["lines"].add(getattr(getattr(fn, "__code__", None), "co_firstlineno", None))
+    HOLDS["timed"] += bool(hold)
     return start.elapsed_time(end) / iters
 
 
@@ -876,15 +908,16 @@ def conv_bound(x, weight, y_numel, out_dtype, vec):
     return nbytes, ops
 
 
-def check_int8_conv(label, x, weight, act_scale, w_scale, bias, stride, out_dtype):
+def check_int8_conv(label, x, weight, act_scale, w_scale, bias, stride, out_dtype, pad=None):
     """Kernel against plain version on the card, accumulators and outputs
     bit for bit, with no activation and with the fused hard-swish; returns
-    the max abs error."""
+    the max abs error. ``pad``: an int or (pad_h, pad_w) (a slab's (0, p)),
+    by default (k-1)//2."""
     import torch
 
     from cocodet_tpu_torch.ops.cuda import int8_conv as ic
 
-    pad = (weight.shape[-1] - 1) // 2
+    pad = (weight.shape[-1] - 1) // 2 if pad is None else pad
     acc_plain = ic.int8_conv_acc_plain(ic.quantize_activations(x, act_scale), weight, stride, pad)
     err = 0.0
     for act in (None, "hard_swish"):
@@ -4282,10 +4315,16 @@ def m2_argv(root, out_dir):
             "no_aug_epochs", "1", "prune_epoch", "1", "print_interval", "2"]
 
 
+# m3's depth and train JPEGs (2 iterations a stage): cut to fit the run's time
+# (0.67 and 64, 4 iterations, before); full width kept
+M3_DEPTH, M3_IMAGES = 0.33, 32
+
+
 def m3_argv(out):
     return ["--synth", "--synth-epochs", "1", "--synth-size", str(SIZE), "--synth-images",
-            str(L_TRAIN), "-b", str(BATCH), "--out", out, "--arch-set", "depth", "0.67", "width",
-            "0.75", "print_interval", "1", "basic_lr_per_img", str(M3_LR), "--prune-set", "prune_interval", "0.5", "--phase2-set", "input_size",
+            str(M3_IMAGES), "-b", str(BATCH), "--out", out, "--arch-set", "depth", str(M3_DEPTH),
+            "width", "0.75", "print_interval", "1", "basic_lr_per_img", str(M3_LR),
+            "--prune-set", "prune_interval", "0.5", "--phase2-set", "input_size",
             f"({M_PHASE2_SIZE}, {M_PHASE2_SIZE})", "test_size",
             f"({M_PHASE2_SIZE}, {M_PHASE2_SIZE})", "multiscale_range", "1"]
 
@@ -4761,8 +4800,8 @@ def phase_m2(device, card, root, out_dir):
 
 def phase_m3(device, card, tmp):
     """m3: tools/run_pipeline.py's main() in process, --synth at full width
-    (--arch-set depth 0.67 width 0.75), B=16, 1 epoch of 4 iterations a
-    stage, the synthetic set at 640 px (64 train, 16 val, 640-1280 px
+    (--arch-set depth M3_DEPTH width 0.75), B=16, 1 epoch of 2 iterations a
+    stage, the synthetic set at 640 px (M3_IMAGES train, 16 val, 640-1280 px
     JPEGs), phase 2 at its exp's 896 px with multiscale (-1, 1) at step 64
     (--phase2-set), two prune events (--prune-set prune_interval 0.5), the
     lr M3_LR an image in every stage (--arch-set); counts zeroed just
@@ -4822,8 +4861,8 @@ def phase_m(device, card, flags):
     print(f"m. cuts: full width kept (the headline's slim YOLOX-M-P6, YOLOX-M, YOLOX-M-P6); "
           f"weights random from numpy seeds (no trained checkpoint here); QAT {M_STEPS} steps "
           f"(not 300); SynFlow's prune_epoch 1 (not 10), 2 epochs of 4 iterations at depth "
-          f"{M2_DEPTH}; the chain 1 "
-          f"epoch of 4 iterations a stage, at lr {M3_LR} an image (not --synth's 2.5e-4: from "
+          f"{M2_DEPTH}; the chain at depth {M3_DEPTH}, 1 epoch of {M3_IMAGES // BATCH} "
+          f"iterations a stage, at lr {M3_LR} an image (not --synth's 2.5e-4: from "
           f"random weights that lr makes eval mode NaN within 4 iterations); {L_TRAIN} "
           f"synthetic train and {L_VAL} val JPEGs (no COCO in the repo)", flush=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_m_") as tmp, backend_flags(flags):
@@ -5616,10 +5655,17 @@ def o4_rank(rank, device, cfg, out):
     return report if rank == 0 else None
 
 
+def q2_rank(rank, device, runs):
+    """One rank of q2: o4_rank on each (config, output path) of ``runs`` in
+    turn, one start of the ranks for all of them."""
+    return [o4_rank(rank, device, cfg, out) for cfg, out in runs]
+
+
 def phase_o4(device, card, root, tmp, msgpack):
     """o4: the harness's multi-device modes on O_RANK_IMAGES of the val set,
     the o1 tree in f32 (cuDNN deterministic, TF32 off): data_parallel on 2
-    ranks, spatial_partition 2 on 2, both on a (2 x 2) mesh of 4; every rank
+    ranks and both modes on a (2 x 2) mesh of 4 (spatial_partition 2 alone is
+    q2's, with a w8a8 model: the cut that fits phase q); every rank
     on the one card, gloo. Each run's records against the one-process run:
     the same images and counts, scores within O_SCORE_TOL and boxes within
     O_BOX_TOL px (matched as sets in an image), and the largest difference
@@ -5649,7 +5695,6 @@ def phase_o4(device, card, root, tmp, msgpack):
 
     want = rows(one)
     for mode, ranks, over in (("data_parallel", 2, {"data_parallel": True}),
-                              ("spatial_partition 2", 2, {"spatial_partition": 2}),
                               ("both, (2 x 2)", 4, {"data_parallel": True, "spatial_partition": 2})):
         cfg = dict(base, **over)
         out = os.path.join(tmp, f"o4_{ranks}_{len(over)}.json")
@@ -6200,6 +6245,482 @@ def phase_p(device, card, flags):
           f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}) ({card})", flush=True)
 
 
+Q_BATCHES = (1, 16)   # q1: the latency config's batch and phase f's
+Q_TIMED = 10          # q1: timed calls a turn
+Q_RANK_IMAGES = 8     # q2: the images the 2 space ranks serve
+Q_BOX_TOL = 0.01      # q2: space ranks against one process, px (o4 holds O_BOX_TOL, 0.02)
+Q3_IMAGES = 10        # q3: generated images predict_yolov5 serves (a ragged second batch)
+Q3_SIZE, Q3_BATCH = 1280, 8  # q3: predict_yolov5's defaults; q4 serves at Q3_SIZE too
+Q3_CROP = 256         # q3: the f32 card-vs-CPU forward's crop
+Q3_TOL = 1e-4         # q3: |card - CPU| / (1 + |CPU|) of the f32 head maps
+
+
+def concat_of(parts):
+    """The materialized channel concat that split-concat ``parts`` stand for."""
+    import torch
+
+    from cocodet_tpu_torch.models.blocks import upsample2x
+
+    maps = [(upsample2x(p) if up else p) for p, up in
+            (q if isinstance(q, tuple) else (q, False) for q in parts)]
+    return torch.cat(maps, dim=1).contiguous(memory_format=torch.channels_last)
+
+
+def check_int8_parts(label, parts, weight, act_scale, w_scale, bias, stride, padding,
+                     out_dtype):
+    """A split-concat w8a8 conv on the card (a launch a part, s32 sums,
+    one epilogue) against conv2d_w8a8_plain on the materialized concat: the
+    s32 sums and the outputs bit for bit, with no activation and with the
+    fused hard-swish; returns the max abs error."""
+    import torch
+
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+
+    x = concat_of(parts)
+    acc_plain = ic.int8_conv_acc_plain(ic.quantize_activations(x, act_scale), weight, stride,
+                                       padding)
+    err = 0.0
+    for act in (None, "hard_swish"):
+        y, acc = ic.int8_conv_parts_acc(parts, weight, act_scale, w_scale, bias, stride,
+                                        padding, dtype=out_dtype, act=act)
+        y_plain = ic.conv2d_w8a8_plain(x, weight, act_scale, w_scale, bias, stride, padding,
+                                       dtype=out_dtype, act=act)
+        torch.cuda.synchronize()
+        err = max(err, float((acc.double() - acc_plain.double()).abs().max()),
+                  float((y.double() - y_plain.double()).nan_to_num().abs().max()))
+        if not (torch.equal(acc, acc_plain) and torch.equal(y, y_plain)):
+            raise AssertionError(f"int8 parts conv disagrees with the concat's plain version: "
+                                 f"{label}, act {act}: {int((acc != acc_plain).sum())} sums, "
+                                 f"{int((y != y_plain).sum())} outputs differ, max err {err}")
+    return err
+
+
+def phase_q0(device):
+    """q0: the int8 conv's new routes on ragged cases against their plain
+    versions (slabs with their halo rows, the 6x6 stem's packed channels,
+    split-concat parts with and without up2x), bit for bit."""
+    import torch
+
+    f32, bf16, cl = torch.float32, torch.bfloat16, torch.channels_last
+    g = torch.Generator().manual_seed(5)
+
+    def tensors(b, c, h, w, o, k, xdt, ydt, vec):
+        x = (torch.rand((b, c, h, w), generator=g) * 80 - 20).to(xdt).to(device)
+        weight = torch.randint(-127, 128, (o, c, k, k), generator=g, dtype=torch.int8)
+        act = (torch.rand((c,) if vec else (), generator=g) * 0.3 + 0.05).to(device)
+        w_scale = (torch.rand((o,), generator=g) * 1e-2 + 1e-3).to(device)
+        bias = (torch.rand((o,), generator=g) * 2 - 1).to(ydt).to(device)
+        return (x.contiguous(memory_format=cl), weight.to(device).contiguous(memory_format=cl),
+                act, w_scale, bias)
+
+    worst, n = 0.0, 0
+    # slabs and the stem: B, C, H, W, O, k, stride, padding, x dtype, out dtype, vector scale
+    cases = [(2, 64, 18, 40, 64, 3, 1, (0, 1), bf16, bf16, True),    # a slab, 3x3
+             (2, 96, 17, 24, 160, 3, 2, (0, 1), bf16, f32, False),   # a slab, 3x3 stride 2
+             (1, 32, 12, 20, 96, 1, 1, (0, 0), f32, bf16, True),     # a slab, 1x1
+             (2, 12, 10, 33, 32, 3, 1, (0, 1), f32, f32, False),     # a Focus slab
+             (2, 3, 68, 64, 32, 6, 2, (2, 2), f32, bf16, False),     # the 6x6 stem
+             (1, 3, 36, 40, 48, 6, 2, (2, 2), bf16, bf16, True),     # ... bf16, vector scale
+             (2, 3, 20, 32, 64, 6, 2, (0, 2), f32, f32, False),      # ... a slab of it
+             (1, 3, 30, 72, 40, 6, 2, (2, 2), f32, f32, True)]       # ... O past one n of 32
+    for (b, c, h, w, o, k, stride, pad, xdt, ydt, vec) in cases:
+        x, weight, act, w_scale, bias = tensors(b, c, h, w, o, k, xdt, ydt, vec)
+        worst = max(worst, check_int8_conv(f"{(b, c, h, w, o, k, stride, pad, xdt, ydt, vec)}",
+                                           x, weight, act, w_scale, bias, stride, ydt, pad))
+        n += 1
+    # parts: (channels, up2x) of each, B, H, W of the output, O, x dtype, out dtype, vector
+    parts_cases = [(((64, True), (32, False)), 2, 16, 24, 64, bf16, bf16, True),   # td merge
+                   (((96, False), (64, False)), 2, 9, 13, 96, bf16, f32, False),   # bu merge
+                   (((32, False),) * 4, 1, 10, 10, 128, f32, bf16, True),          # the SPP
+                   (((48, True), (16, True)), 1, 12, 8, 40, f32, f32, False),      # all up2x
+                   (((16, False), (32, True), (12, False), (4, False)), 2, 8, 16, 64, f32, bf16,
+                    True)]
+    for (spec, b, h, w, o, xdt, ydt, vec) in parts_cases:
+        c = sum(ch for ch, _ in spec)
+        _, weight, act, w_scale, bias = tensors(1, c, 1, 1, o, 1, xdt, ydt, vec)
+        parts = [((torch.rand((b, ch, h // 2 if up else h, w // 2 if up else w), generator=g)
+                   * 80 - 20).to(xdt).to(device).contiguous(memory_format=cl), up)
+                 for ch, up in spec]
+        worst = max(worst, check_int8_parts(f"parts {spec} {(b, h, w, o, xdt, ydt, vec)}",
+                                            parts, weight, act, w_scale, bias, 1, 0, ydt))
+        n += 1
+    print(f"q0. int8 conv routes == plain versions (s32 and outputs bit for bit, with no "
+          f"activation and with the fused hard-swish) on {n} ragged cases: slabs of 3x3, "
+          f"3x3 stride 2, 1x1 and the Focus stem padded (0, p); the 6x6 stem's packed 3 "
+          f"channels (f32 and bf16, scalar and vector scales, a slab, O past one n); parts "
+          f"(the PAFPN's merges, the SPP's four, all up2x, parts of 12 and 4 channels) against "
+          f"the concat's plain conv; max abs err {worst}", flush=True)
+    return worst
+
+
+def parts_bound(parts, weight, out_numel, out_dtype, vec):
+    """(bytes, operations) of a split-concat w8a8 conv: each part read once,
+    the int8 kernel, scales and bias, the output written once; 2 ops a
+    multiply-accumulate at each part's own resolution (an up2x part's at
+    its quarter)."""
+    import torch
+
+    o, c, kh, kw = weight.shape
+    out_size = torch.empty((), dtype=out_dtype).element_size()
+    maps = [q[0] if isinstance(q, tuple) else q for q in parts]
+    nbytes = (sum(m.numel() * m.element_size() for m in maps) + weight.numel() + 4 * o
+              + 4 * (c if vec else 1) + o * out_size + out_numel * out_size)
+    ops = sum(2 * m.shape[0] * m.shape[2] * m.shape[3] * m.shape[1] * o * kh * kw for m in maps)
+    return nbytes, ops
+
+
+def q_records_equal(got, want):
+    """The first field of two NMSResults that differs, or None."""
+    import torch
+
+    for field in ("boxes", "scores", "classes", "obj", "valid"):
+        if not torch.equal(getattr(got, field), getattr(want, field)):
+            return field
+    return None
+
+
+def q_first_differing_map(got, want):
+    """The first head map of two forwards that differs, as 'level k key', or None."""
+    import torch
+
+    for k, (g, w) in enumerate(zip(got, want)):
+        for key in ("reg", "obj", "cls"):
+            if not torch.equal(g[key], w[key]):
+                n = int((g[key] != w[key]).sum())
+                return f"level {k} {key} ({n} of {g[key].numel()} values differ)"
+    return None
+
+
+def phase_q1(device, card):
+    """q1: the w8a8 latency graph (bench.py's slim YOLOX-M-P6, numpy seed
+    0, calibrated and quantized on the card, served with stem6 and
+    split_cat) at 640 px, B=1 and 16: every conv of a new route (the 6x6
+    stem, each parts conv) at its served shapes against conv2d_w8a8_plain
+    (the parts' on their materialized concat), bit for bit; the head maps
+    and records against the plain graph's of the same quantized tree, bit
+    for bit; the int8 launches a batch; the routes timed at B=16 beside
+    their bounds and plain versions, and the whole graph against the plain
+    graph, in turns."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.entry import build_headline, build_w8a8_predictor
+    from cocodet_tpu_torch.ops.cuda import int8_conv as ic
+
+    slim, variables = headline_variables(seed=0)
+    latency = build_headline(device=device, variables=variables, stem6=True, split_cat=True)
+    plain = build_w8a8_predictor(latency.variables, slim, device=device)
+    images = {b: torch.from_numpy(np.random.RandomState(40 + b).uniform(
+        0, 255, (b, SIZE, SIZE, 3)).astype(np.float32)).to(device) for b in Q_BATCHES}
+
+    # the new routes at the graph's shapes, B=1
+    records, _ = w8a8_conv_inputs(latency.model, images[1])
+    worst, kinds = 0.0, {"stem6": 0, "parts": 0, "parts with up2x": 0}
+    for name, m, x, odt in records:
+        bias = m.bias.detach().to(odt)
+        if isinstance(x, (list, tuple)):
+            worst = max(worst, check_int8_parts(name, x, m.weight, m.act_scale, m.w_scale, bias,
+                                                m.stride, m.padding, odt))
+            kinds["parts with up2x" if any(isinstance(q, tuple) and q[1] for q in x)
+                  else "parts"] += 1
+        elif m.weight.shape[-1] == 6:
+            worst = max(worst, check_int8_conv(name, x, m.weight, m.act_scale, m.w_scale, bias,
+                                               m.stride, odt, m.padding))
+            kinds["stem6"] += 1
+    del records
+    print(f"q1. the w8a8 latency graph's new routes == plain versions at B=1 {SIZE}x{SIZE} (s32 "
+          f"and outputs bit for bit, with no activation and with the fused hard-swish; parts "
+          f"against the plain conv of their materialized concat): {kinds}; max abs err "
+          f"{worst}", flush=True)
+    if kinds["stem6"] != 1 or not kinds["parts"] or not kinds["parts with up2x"]:
+        raise AssertionError(f"q1: the latency graph ran other routes than expected: {kinds}")
+
+    # records and maps against the plain graph, and the launches a batch
+    launches = {}
+    with torch.inference_mode():
+        for b, x in images.items():
+            for name, pred in (("latency", latency), ("plain", plain)):
+                ic.reset_launch_counts()
+                pred(x)
+                torch.cuda.synchronize()
+                launches[(name, b)] = ic.conv2d_w8a8.launches
+            got, want = latency(x), plain(x)
+            field = q_records_equal(got, want)
+            maps = q_first_differing_map(latency.model(x), plain.model(x))
+            n_det = int(want.valid.sum())
+            print(f"q1. B={b}: the latency graph's records == the plain graph's, bit for bit: "
+                  f"{field is None and maps is None} ({n_det} detections; first differing field "
+                  f"{field}, first differing head map {maps}); int8 launches a batch: latency "
+                  f"{launches[('latency', b)]}, plain {launches[('plain', b)]}", flush=True)
+            if field is not None or maps is not None:
+                raise AssertionError(f"q1: B={b}: the latency graph differs from the plain "
+                                     f"graph: field {field}, map {maps}")
+            if launches[("plain", b)] != CONVS:
+                raise AssertionError(f"q1: the plain graph launched {launches[('plain', b)]} "
+                                     f"int8 convs, expected {CONVS}")
+
+    # the routes timed at the larger batch as served (fused hard-swish), and the graph's bound
+    big = max(Q_BATCHES)
+    records, _ = w8a8_conv_inputs(latency.model, images[big])
+    total = {"ms": 0.0, "bound_ms": 0.0}
+    routes = {"stem6": [0, 0.0, 0.0, 0.0], "parts": [0, 0.0, 0.0, 0.0]}  # n, ms, plain, bound
+    timed = {}
+    for name, m, x, odt in records:
+        bias = m.bias.detach().to(odt)
+        is_parts = isinstance(x, (list, tuple))
+        if is_parts:
+            shapes = tuple((tuple(q[0].shape), q[1]) if isinstance(q, tuple) else
+                           (tuple(q.shape), False) for q in x)
+            first = x[0][0] if isinstance(x[0], tuple) else x[0]
+            ho, wo = (first.shape[2] * 2, first.shape[3] * 2) if isinstance(x[0], tuple) and \
+                x[0][1] else (first.shape[2], first.shape[3])
+            y_numel = first.shape[0] * m.weight.shape[0] * ho * wo
+            nbytes, ops = parts_bound(x, m.weight, y_numel, odt, m.act_scale.dim() == 1)
+            run = (lambda x=x, m=m, bias=bias, odt=odt: ic.conv2d_w8a8_parts(
+                x, m.weight, m.act_scale, m.w_scale, bias, m.stride, m.padding, odt,
+                "hard_swish"))
+            run_plain = (lambda x=x, m=m, bias=bias, odt=odt: ic.conv2d_w8a8_parts_plain(
+                x, m.weight, m.act_scale, m.w_scale, bias, m.stride, m.padding, odt,
+                "hard_swish"))
+        else:
+            shapes = tuple(x.shape)
+            y_numel = x.shape[0] * m.weight.shape[0] * (
+                (x.shape[2] + 2 * m.padding - m.weight.shape[2]) // m.stride + 1) * (
+                (x.shape[3] + 2 * m.padding - m.weight.shape[3]) // m.stride + 1)
+            nbytes, ops = conv_bound(x, m.weight, y_numel, odt, m.act_scale.dim() == 1)
+            run = (lambda x=x, m=m, bias=bias, odt=odt: ic.conv2d_w8a8(
+                x, m.weight, m.act_scale, m.w_scale, bias, m.stride, m.padding, dtype=odt,
+                act="hard_swish"))
+            run_plain = (lambda x=x, m=m, bias=bias, odt=odt: ic.conv2d_w8a8_plain(
+                x, m.weight, m.act_scale, m.w_scale, bias, m.stride, m.padding, dtype=odt,
+                act="hard_swish"))
+        route = "parts" if is_parts else ("stem6" if m.weight.shape[-1] == 6 else None)
+        key = (shapes, tuple(m.weight.shape), m.stride, m.act_scale.dim(), odt, route)
+        if key not in timed:
+            timed[key] = (cuda_ms(run, Q_TIMED), cuda_ms(run_plain, 1) if route else None)
+        ms, plain_ms = timed[key]
+        bound = max(nbytes / HBM_BYTES_PER_S, ops / INT8_OPS_PER_S) * 1e3
+        total["ms"] += ms
+        total["bound_ms"] += bound
+        if route:
+            r = routes[route]
+            r[0] += 1
+            r[1] += ms
+            r[2] += plain_ms
+            r[3] += bound
+    del records
+    print(f"q1. int8 conv at B={big} {SIZE}x{SIZE} in the latency graph, {len(timed)} "
+          f"distinct shapes timed: the 6x6 stem {routes['stem6'][1]:.4f} ms (plain version "
+          f"{routes['stem6'][2]:.4f} ms, bound {routes['stem6'][3]:.4f} ms); "
+          f"{routes['parts'][0]} parts convs {routes['parts'][1]:.4f} ms (plain versions "
+          f"{routes['parts'][2]:.4f} ms, bound {routes['parts'][3]:.4f} ms); every w8a8 conv "
+          f"of the graph {total['ms']:.4f} ms against its bound {total['bound_ms']:.4f} ms "
+          f"({card})", flush=True)
+
+    times = {"latency": {}, "plain": {}}
+    with torch.inference_mode():
+        for b, x in images.items():
+            for name in ("latency", "plain", "plain", "latency"):
+                pred = latency if name == "latency" else plain
+                times[name].setdefault(b, []).append(cuda_ms(lambda: pred(x), Q_TIMED))
+    print("q1. forward and postprocess, ms a batch (in turns, " + str(Q_TIMED) + " calls a "
+          "turn): " + "; ".join(
+              f"B={b}: latency graph {', '.join(f'{v:.4f}' for v in times['latency'][b])}, "
+              f"plain graph {', '.join(f'{v:.4f}' for v in times['plain'][b])}"
+              for b in Q_BATCHES) + f" ({card})", flush=True)
+    stats = {"max_abs_err": worst, "launches": launches[("latency", 1)],
+             "routes": routes, "latency": latency.variables}
+    del latency, plain
+    torch.cuda.empty_cache()
+    return stats
+
+
+def phase_q2(device, card, tmp, qvars):
+    """q2: harness/config/yolox_m_p6_int8.json with spatial_partition 2 on
+    2 ranks sharing the card (gloo), the w8a8 checkpoint of q1's quantized
+    tree, f32, on Q_RANK_IMAGES generated JPEGs, as the plain graph and as
+    the latency graph (stem6, split_cat: the 6x6 stem and the parts on
+    slabs): every int8 conv of a rank on its slab with its halo rows; the
+    records against one process's of the plain graph, the same images and
+    counts, boxes within Q_BOX_TOL px, scores within O_SCORE_TOL, and the
+    largest difference printed."""
+    import numpy as np
+
+    from cocodet_tpu_torch import harness
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+    from cocodet_tpu_torch.entry import SLIM_SPEC
+    from cocodet_tpu_torch.parallel.launch import run_ranks
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    root = make_synthetic_coco(os.path.join(tmp, "q2"), n_train=0, n_val=Q_RANK_IMAGES,
+                               size_range=(256, 640), seed=9, variant="default")
+    ckpt = save_checkpoint({"model": qvars}, False, tmp, "q2_int8")
+    base = o_config("yolox_m_p6_int8.json", root, annotation=None, ckpt=ckpt, half=False,
+                    img_size=SIZE, slim_spec=str(SLIM_SPEC))
+    base["dataloader"] = dict(base["dataloader"], batch_size=4)
+    report = {}
+    o_reset()
+    with cudnn_deterministic():
+        one = harness.run(base, os.path.join(tmp, "q2_one.json"), device=device, report=report)
+    one_launches = o_counts()["int8_conv"]
+
+    def rows(records):
+        return {k: np.asarray(sorted(r["bbox"] + [r["score"], r["category_id"]]
+                                     for r in records if r["image_id"] == k))
+                for k in {r["image_id"] for r in records}}
+
+    want = rows(one)
+    worst = 0.0
+    graphs = (("plain", {}), ("latency (stem6, split_cat)", {"stem6": True, "split_cat": True}))
+    runs = [(dict(base, spatial_partition=2, **over),
+             os.path.join(tmp, f"q2_ranks_{len(over)}.json")) for _, over in graphs]
+    t0 = time.perf_counter()
+    reps = run_ranks(q2_rank, 2, runs, device=device, timeout=600)[0]
+    wall = time.perf_counter() - t0
+    for (graph, _), (_, out), rep in zip(graphs, runs, reps):
+        with open(out) as f:
+            got = json.load(f)
+        g = rows(got)
+        same_ids = [r["image_id"] for r in got] == [r["image_id"] for r in one]
+        counts = same_ids and all(len(g[k]) == len(want[k]) for k in want)
+        exact = counts and all(np.array_equal(g[k], want[k]) for k in want)
+        ok = counts and (exact or all(
+            same_set(g[k][:, :5], want[k][:, :5], g[k][:, 5], want[k][:, 5], (Q_BOX_TOL, 0.0),
+                     O_SCORE_TOL) for k in want))
+        diff = max((float(np.where(g[k][:, None, 5] == want[k][None, :, 5],
+                                   np.abs(g[k][:, None, :5] - want[k][None, :, :5]).max(-1),
+                                   np.inf).min(0).max())
+                    for k in want if len(want[k])), default=0.0) if counts else float("nan")
+        print(f"q2. the w8a8 harness (yolox_m_p6_int8.json, slim, f32, {SIZE} px, B=4), the "
+              f"{graph} graph with spatial_partition 2 on 2 ranks sharing the card: "
+              f"{len(got)} records for {rep['images']} images (one process of the plain "
+              f"graph: {len(one)}, {one_launches} int8 launches with the warm-up), the same "
+              f"images and counts: {counts}, bit for bit: {exact}, largest |difference| of a "
+              f"row to its closest (score, px) {diff:.6g} (limit {Q_BOX_TOL} px, {O_SCORE_TOL} "
+              f"in score); {wall:.1f} s for both graphs with the ranks' start ({card})",
+              flush=True)
+        if not ok:
+            raise AssertionError(f"q2: the w8a8 {graph} graph on space ranks served other "
+                                 f"records than one process")
+        worst = max(worst, diff)
+    return worst
+
+
+def phase_q3(device, card, tmp):
+    """q3: cocodet_tpu_torch.predict_yolov5 on YOLOv5m6 at published width
+    (numpy seed 0 weights), 1280 px, B=8, bf16, over Q3_IMAGES generated
+    JPEGs (a full batch and a ragged one): the NMS pair once a batch (K =
+    2000), the records written; then the f32 model on the card against the
+    CPU on a Q3_CROP px crop of one image, the head maps within Q3_TOL."""
+    import argparse
+
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch import predict_yolov5 as p5
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    root = make_synthetic_coco(os.path.join(tmp, "q3"), n_train=0, n_val=Q3_IMAGES,
+                               size_range=(480, 1280), seed=11, variant="default")
+    out = os.path.join(tmp, "q3_answers.json")
+    args = argparse.Namespace(data_dir=os.path.join(root, "val2017"), img_size=Q3_SIZE,
+                              batch_size=Q3_BATCH, conf=0.001, nms=0.65, out=out, dummy=False,
+                              device=str(device), ckpt=None)
+    report = {}
+    o_reset()
+    t0 = time.perf_counter()
+    n_img, records = p5.run(args, report=report)
+    wall = time.perf_counter() - t0
+    launches = o_counts()
+    batches = len(report["shapes"])
+    print(f"q3. predict_yolov5 (YOLOv5m6, published width, bf16, {Q3_SIZE} px, B={Q3_BATCH}, "
+          f"K=2000, IoU 0.65): {len(records)} records written for {n_img} images in {batches} batches "
+          f"{report['shapes']}; launches {launches} ({launches['overlap_matrix'] / batches:g} "
+          f"overlap and {launches['greedy_keep'] / batches:g} greedy-keep a batch); set-up "
+          f"{report['setup_s']:.1f} s, serving {report['serve_s']:.2f} s, {wall:.1f} s in all "
+          f"({card})", flush=True)
+    if (launches["overlap_matrix"], launches["greedy_keep"]) != (batches, batches) or \
+            not records or n_img != Q3_IMAGES:
+        raise AssertionError(f"q3: {launches} for {batches} batches, {len(records)} records")
+
+    x = np.random.RandomState(12).uniform(0, 255, (1, Q3_CROP, Q3_CROP, 3)).astype(np.float32)
+    maps = {}
+    with cudnn_deterministic():
+        for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            model, _, _ = p5.load_anchor_model("yolov5m6", dev, torch.float32)
+            with torch.inference_mode():
+                maps[key] = torch.cat([o.reshape(-1).float().cpu()
+                                       for o in model(torch.from_numpy(x).to(dev) / 255.0)])
+            del model
+    w = maps["cpu"]
+    err = float(((maps["card"] - w).abs() / (1 + w.abs())).max())
+    print(f"q3. YOLOv5m6 f32 on the card vs the CPU on a {Q3_CROP} px crop: head maps max "
+          f"|d|/(1+|v|) = {err:.3e} (limit {Q3_TOL})", flush=True)
+    if not err <= Q3_TOL:
+        raise AssertionError("q3: YOLOv5m6 on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_q4(device, card):
+    """q4: cocodet_tpu_torch.predict_yolov4 on YOLOv4-P6 (numpy seed 0
+    weights, bf16) at 1280 px, B=1: the level shapes, finite maps."""
+    import torch
+
+    from cocodet_tpu_torch import predict_yolov4 as p4
+
+    t0 = time.perf_counter()
+    outs, boxes = p4.run(Q3_SIZE, str(device))
+    torch.cuda.synchronize()
+    finite = all(bool(torch.isfinite(o).all()) for o in outs)
+    shapes = [tuple(o.shape) for o in outs]
+    print(f"q4. predict_yolov4 (YOLOv4-P6, bf16, {Q3_SIZE} px, B=1): levels {shapes}, decoded "
+          f"{tuple(boxes.shape)}, maps finite: {finite}; {time.perf_counter() - t0:.1f} s with "
+          f"the build ({card})", flush=True)
+    if shapes != [(1, Q3_SIZE // s, Q3_SIZE // s, 340) for s in (8, 16, 32, 64)] or not finite:
+        raise AssertionError("q4: YOLOv4-P6 gave other maps than expected")
+    del outs, boxes
+    torch.cuda.empty_cache()
+
+
+def phase_q(device, card, flags):
+    """q: the int8 conv's last w8a8 routes (q0 cases, q1 the latency graph,
+    q2 the space ranks) and the anchor-based family (q3 YOLOv5m6, q4
+    YOLOv4-P6)."""
+    import tempfile
+
+    import torch
+
+    t_start = time.perf_counter()
+    print(f"q. cuts: q1 on numpy seed 0 weights calibrated on 2 random 256 px images (the "
+          f"configs' checkpoints are not in the repo); q2 at {SIZE} px, B=4, on "
+          f"{Q_RANK_IMAGES} generated JPEGs; q3 on {Q3_IMAGES} generated JPEGs, numpy seed 0 "
+          f"weights (the reference's .pt files are not in the repo)", flush=True)
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_q_") as tmp, backend_flags(flags):
+        t = time.perf_counter()
+        worst = phase_q0(device)
+        seconds["q0"] = time.perf_counter() - t
+        t = time.perf_counter()
+        q1 = phase_q1(device, card)
+        seconds["q1"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_q2(device, card, tmp, q1.pop("latency"))
+        seconds["q2"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        nms = phase_q3(device, card, tmp)
+        seconds["q3"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_q4(device, card)
+        seconds["q4"] = time.perf_counter() - t
+    print(f"q. phase q: {time.perf_counter() - t_start:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}) ({card})", flush=True)
+    q1["max_abs_err"] = max(q1["max_abs_err"], worst)
+    q1["nms"] = nms
+    return q1
+
+
 def soft_nms_kernel(stats):
     """The kernels line's entry of the soft-NMS kernel."""
     return {"name": "soft_nms", "route": "cuda", "source": "cocodet_tpu_torch/csrc/soft_nms.cu",
@@ -6223,6 +6744,107 @@ def train_aug_kernels(aug_stats):
             for name, st in aug_stats.items()]
 
 
+# the phases whose numbers no kernels entry times: the full run puts them
+# beside each other after the timed phases (b-g, j, m, o, q), in these
+# streams, each a process of this script that runs its phases in turn: on an
+# H100 host that ran the whole script serially in ~930 s, ~435 s of these
+# phases took 165-201 s this way (p the longest stream), the whole run ~580 s
+BESIDE_PHASES = ("h", "i", "k", "l", "n", "p")
+BESIDE = (("p",), ("h", "n"), ("i", "l", "k"))
+# the backend flags phases c and d leave set (cuDNN benchmark on, TF32 off
+# for convs and matmuls), under which h and i ran when they followed them
+SERVED_FLAGS = (False, True, False, False)
+
+
+def beside_phase(name, device, card, flags):
+    """Phase ``name`` of BESIDE_PHASES; returns what main() takes from it
+    (h: the finish kernels' launches; k, l: their checks' worst errors)."""
+    if name in ("h", "i"):
+        with backend_flags(SERVED_FLAGS):
+            return phase_dp(device, card) if name == "h" else phase_i(device, card)
+    return {"k": phase_k, "l": phase_l, "n": phase_n, "p": phase_p}[name](device, card, flags)
+
+
+def process_tree(pid):
+    """``pid`` and every process below it, read from /proc."""
+    children = {}
+    for entry in os.listdir("/proc"):
+        if entry.isdigit():
+            try:
+                with open(f"/proc/{entry}/stat") as f:
+                    ppid = int(f.read().rsplit(")", 1)[1].split()[1])
+            except (OSError, ValueError, IndexError):
+                continue
+            children.setdefault(ppid, []).append(int(entry))
+    tree, todo = [], [pid]
+    while todo:
+        tree.append(todo.pop())
+        todo += children.get(tree[-1], [])
+    return tree
+
+
+def phases_beside(streams):
+    """Each of ``streams`` (tuples of BESIDE_PHASES names) in a process of
+    this script (``--phase h,n``) that runs its phases in turn, the streams
+    beside each other on the one card. A stream's output is printed when it
+    ends, after a line with its exit code and seconds. Returns {phase: what
+    it returned} from the streams' ``result`` lines. A stream that fails, or
+    a SIGTERM to this process, stops the other streams with every process
+    below them (their ranks) and raises."""
+    import signal
+    import tempfile
+
+    def report(key, proc, out, err, t0):
+        err.seek(0)
+        sys.stderr.write(err.read())
+        sys.stderr.flush()
+        out.seek(0)
+        text = out.read()
+        print(f"beside. phases {key}: exit {proc.returncode} after "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        sys.stdout.write(text)
+        sys.stdout.flush()
+        out.close()
+        err.close()
+        return text
+
+    results, running = {}, {}
+    previous = signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_beside_") as tmp:
+        try:
+            for names in streams:
+                key = ",".join(names)
+                out = open(os.path.join(tmp, f"{key}.out"), "w+")
+                err = open(os.path.join(tmp, f"{key}.err"), "w+")
+                proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--phase", key],
+                                        stdout=out, stderr=err, cwd=REPO)
+                running[key] = (proc, out, err, time.perf_counter())
+            print(f"beside. phases {'; '.join(running)} started beside each other: their times "
+                  f"are not those of a run alone (--phase NAME)", flush=True)
+            while running:
+                time.sleep(1.0)
+                for key, (proc, out, err, t0) in list(running.items()):
+                    if proc.poll() is None:
+                        continue
+                    del running[key]
+                    text = report(key, proc, out, err, t0)
+                    if proc.returncode:
+                        raise AssertionError(f"phases {key} failed (exit {proc.returncode})")
+                    for m in re.finditer(r"^result (\w+): (.*)$", text, re.M):
+                        results[m.group(1)] = json.loads(m.group(2))
+        finally:
+            for key, (proc, out, err, t0) in running.items():
+                for pid in process_tree(proc.pid):
+                    try:
+                        os.kill(pid, signal.SIGKILL)
+                    except ProcessLookupError:
+                        pass
+                proc.wait()
+                report(f"{key} (stopped)", proc, out, err, t0)
+            signal.signal(signal.SIGTERM, previous)
+    return results
+
+
 def main():
     try:
         import torch
@@ -6235,17 +6857,15 @@ def main():
         return 2
     flags = current_flags()  # before any phase sets them
     args = sys.argv[1:]
-    if args and (len(args) != 2 or args not in (["--step", args[1]], ["--bn", args[1]],
-                                                 ["--soft", args[1]], ["--drift", args[1]],
-                                                 ["--phase", "j"],
-                                                 ["--phase", "j1"],
-                                                 ["--phase", "k"], ["--phase", "l"],
-                                                 ["--phase", "m"], ["--phase", "n"],
-                                                 ["--phase", "o"], ["--phase", "p"])):
+    beside = (args[:1] == ["--phase"] and len(args) == 2
+              and all(n in BESIDE_PHASES for n in args[1].split(",")))
+    if args and (len(args) != 2 or not beside and args not in (
+            ["--step", args[1]], ["--bn", args[1]], ["--soft", args[1]], ["--drift", args[1]],
+            ["--phase", "j"], ["--phase", "j1"], ["--phase", "m"], ["--phase", "o"],
+            ["--phase", "q"])):
         print("usage: python3 chip_smoke.py [--step TREE | --bn TREE | --soft TREE | --drift LR "
-              "| --phase j "
-              "| --phase j1 | --phase k | --phase l | --phase m | --phase n | --phase o "
-              "| --phase p]",
+              "| --phase j | --phase j1 | --phase m | --phase o | --phase q "
+              f"| --phase NAME[,NAME...] with NAME one of {', '.join(BESIDE_PHASES)}]",
               file=sys.stderr)
         return 2
     if args[:1] == ["--drift"] and not re.fullmatch(r"\d+(\.\d*)?(e-?\d+)?", args[1]):
@@ -6281,69 +6901,79 @@ def main():
     if args == ["--phase", "j1"]:
         print("j1: " + json.dumps(phase_j1_alone(device, card, flags)))
         return 0
-    if args == ["--phase", "k"]:
-        phase_k(device, card, flags)
-        return 0
-    if args == ["--phase", "l"]:
-        phase_l(device, card, flags)
+    if beside:
+        for name in args[1].split(","):
+            print(f"result {name}: "
+                  + json.dumps(beside_phase(name, device, card, flags), default=float), flush=True)
         return 0
     if args == ["--phase", "m"]:
         entry, _ = phase_m(device, card, flags)
         print("m: " + json.dumps(fake_quant_kernel(entry)))
         return 0
-    if args == ["--phase", "n"]:
-        phase_n(device, card, flags)
-        return 0
     if args == ["--phase", "o"]:
         print("o: " + json.dumps(soft_nms_kernel(phase_o(device, card, flags))))
         return 0
-    if args == ["--phase", "p"]:
-        phase_p(device, card, flags)
+    if args == ["--phase", "q"]:
+        phase_q(device, card, flags)
         return 0
     if args:
         # --phase j
         print(json.dumps({"kernels": train_aug_kernels(phase_j(device, card, flags))}))
         return 0
+    laps, t_lap = {"a": round(time.perf_counter() - t_start, 1)}, [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        laps[name], t_lap[0] = round(now - t_lap[0], 1), now
+
     worst = phase_kernels(device)
+    lap("b")
     variables = serving_variables(seed=0)
     launches, stats, predictor, dense = phase_serve(device, variables, card)
     phase_repeat(device, predictor)
+    lap("c")
     phase_reference(device, variables, predictor)
+    lap("d")
     hs_stats = phase_dense_forward(device, predictor, dense)
+    lap("g4")
     del predictor
     headline, slim_vars = build_headline_model(device)
     int8_stats = phase_int8_conv(device, headline)
+    lap("e")
     # the NMS kernels' launches and times in the kernels line stay phase c's
     launches["int8_conv"] = phase_headline(device, card, headline, slim_vars, dense)["int8_conv"]
     del headline
     torch.cuda.empty_cache()
+    lap("f")
     hs_stats["max_abs_err"] = max(check_hard_swish_kernel(device), hs_stats["max_abs_err"])
     phase_train_parity(device)
     bn_stats = phase_train(device, card)
     torch.cuda.empty_cache()
-    bn_stats["bn_act_finish"]["launches"] = phase_dp(device, card)
-    phase_i(device, card)
-    torch.cuda.empty_cache()
+    lap("g")
     aug_stats = phase_j(device, card, flags)
     torch.cuda.empty_cache()
-    k_worst = phase_k(device, card, flags)
-    torch.cuda.empty_cache()
-    l_worst = phase_l(device, card, flags)
-    torch.cuda.empty_cache()
+    lap("j")
     fq_entry, m_worst = phase_m(device, card, flags)
     torch.cuda.empty_cache()
-    phase_n(device, card, flags)
-    torch.cuda.empty_cache()
+    lap("m")
     soft_stats = phase_o(device, card, flags)
     torch.cuda.empty_cache()
-    phase_p(device, card, flags)
+    lap("o")
+    q_stats = phase_q(device, card, flags)
+    torch.cuda.empty_cache()
+    lap("q")
+    done = phases_beside(BESIDE)
+    lap("beside (" + "; ".join(map(",".join, BESIDE)) + ")")
+    bn_stats["bn_act_finish"]["launches"] = done["h"]
+    k_worst, l_worst = done["k"], done["l"]
     for name in ("overlap_matrix", "greedy_keep", "int8_conv"):
         l_worst[name] = max(l_worst[name], m_worst[name])
     for name, st in bn_stats.items():
         st["max_abs_err"] = max(st["max_abs_err"], k_worst[name[len("bn_act_"):]],
                                 l_worst[name[len("bn_act_"):]])
     hs_stats["max_abs_err"] = max(hs_stats["max_abs_err"], l_worst["hard_swish"])
-    int8_stats["max_abs_err"] = max(int8_stats["max_abs_err"], l_worst["int8_conv"])
+    int8_stats["max_abs_err"] = max(int8_stats["max_abs_err"], l_worst["int8_conv"],
+                                    q_stats["max_abs_err"])
 
     replaces = {"overlap_matrix": "cocodet_tpu/ops/pallas/nms_kernels.py:71",
                 "greedy_keep": "cocodet_tpu/ops/nms.py:102"}
@@ -6358,7 +6988,10 @@ def main():
     kernels.append({"name": "int8_conv", "route": "cuda",
                     "source": "cocodet_tpu_torch/csrc/int8_conv.cu",
                     "replaces": "cocodet_tpu/models/blocks.py:248",
-                    "launches": launches["int8_conv"], **int8_stats, "library_ms": None})
+                    "launches": launches["int8_conv"], **int8_stats, "library_ms": None,
+                    "routes": ["whole map", "height slab with halo rows (pad_h 0)",
+                               "6x6 stride-2 stem, 3 channels packed",
+                               "split-concat parts, s32 sums, up2x"]})
     kernels.append({"name": "hard_swish", "route": "cuda",
                     "source": "cocodet_tpu_torch/csrc/hard_swish.cu",
                     "replaces": "cocodet_tpu/models/blocks.py:54",
@@ -6372,6 +7005,9 @@ def main():
     kernels += train_aug_kernels(aug_stats)
     kernels.append(fake_quant_kernel(fq_entry))
     kernels.append(soft_nms_kernel(soft_stats))
+    print("phase seconds: " + json.dumps(laps) + f"; cuda_ms in this process: {HOLDS['timed']} "
+          f"held timings, {HOLDS['held again']} of them timed again under the long hold "
+          f"(functions of lines {sorted(HOLDS['lines'], key=str)})", flush=True)
     print(f"build_s={build_s:.2f} total_s={time.perf_counter() - t_start:.1f}")
     print(json.dumps({"kernels": kernels}))
     print(card)

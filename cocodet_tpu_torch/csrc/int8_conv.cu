@@ -24,10 +24,30 @@
 //   hard_swish is ops/cuda/hard_swish.py::hard_swish_plain in the output type: in f32
 //   x * (clamp(x + 3, 0, 6) * f32(1/6)), in bf16 x * (clamp(x + 3, 0, 6) / 6)
 //   with every op rounded to bf16.
-//   Takes groups=1, dilation=1, a square kernel of 1 or 3, stride 1 or 2
-//   and pad (k-1)/2; x (B, H, W, C) NHWC in f32 or bf16 with C * the element
-//   size a multiple of 16, and C a multiple of 16 or at most 32; w (O, k, k,
-//   C) int8; y (B, Ho, Wo, O) NHWC in f32 or bf16.
+//   Takes groups=1, dilation=1, a square kernel of 1, 3 or 6, stride 1 or 2,
+//   and a padding in H and one in W, each below k (pad_h = 0 for a height
+//   slab that carries its halo rows); x (B, H, W, C) NHWC in f32 or bf16
+//   with C * the element size a multiple of 16 and C a multiple of 16 or at
+//   most 32, or C below 16 packed (below); w (O, k, k, C) int8, whose taps
+//   may lie w_ld >= C channels apart (one part's slice of a wider kernel);
+//   y (B, Ho, Wo, O) NHWC in f32 or bf16.
+//   Split-concat parts (cocodet_tpu/models/blocks.py:258-276): the conv of
+//   the channel concat of parts is the sum of each part's s32 conv with its
+//   slice of the kernel, an up2x part's (1x1, stride 1) taken at its own
+//   resolution and read at (h >> 1, w >> 1). A part's launch adds the s32
+//   sums of the launches before it (acc_in, read at (h >> up, w >> up)) to
+//   its own; every launch but the last writes that sum (partial: the s32
+//   buffer, no epilogue), the last applies the epilogue once. Integer sums
+//   are exact, so this is bit for bit the concat graph.
+//   A small C whose pixels are not 16-byte rows (the 6x6 stem's 3 channels
+//   of f32 or bf16) arrives packed: the TMA box reads each patch row as
+//   rowb contiguous elements of the (B, H, W * C) view of x, from the
+//   16-byte boundary at or before the patch's first column (a box whose
+//   inner start is not 16-byte aligned faults), so no channel-padded copy is
+//   made: a copy would add two launches and write 4/3 (f32) or 8/3 (bf16)
+//   of the stem's input again before the kernel read it, where the packed
+//   box reads it once. The consumers quantize it with zeros past C, and copy
+//   its weights with zeros past C as they do the Focus stem's (below).
 //   Bound on the H100: bytes. At a batch of 16 640 px images the 127 int8
 //   convs of the slim YOLOX-M-P6 do 481 G int8 operations (0.24 ms at 1979
 //   TOP/s) on 2.92 GB of activations and weights, each read or written once
@@ -63,7 +83,9 @@
 //   - C not a multiple of 16 (the Focus stem's 12) takes no other activation
 //     path: the chunk is 12 channels and 20 zeros. Only its weights, which a
 //     TMA box cannot cut at 12 bytes, are copied by the consumer threads,
-//     with zeros past C.
+//     with zeros past C, every tap's slice at once (36 for the 6x6 stem), as
+//     4-byte words or, where the rows do not align to them (3 channels), as
+//     bytes.
 //   - The epilogue rounds exactly as the plain version and applies
 //     hard-swish when asked, with no branch in its unrolled code, then
 //     stages a warpgroup's outputs in shared memory for one TMA store (whole
@@ -109,12 +131,19 @@ struct Params {
   const void* bias;  // nullptr: no bias (else in y's type)
   void* y;
   int32_t* acc;      // nullptr, or the s32 accumulators (B, Ho, Wo, O)
+  const int32_t* acc_in;  // nullptr, or the s32 sums of the parts before (B, Ho >> up, Wo >> up, O)
+  int up;            // acc_in is at half the resolution (an up2x part's)
+  int partial;       // write acc_in + this conv to acc, no epilogue (not the last part)
   int a_vec;         // a_scale is a (C,) vector (else a scalar)
-  int x_bf16, y_bf16, act, w_tma, y_tma;
-  int C, O, k, stride, pad, Ho, Wo, K;
+  int x_bf16, y_bf16, act, w_tma, w_bytes, y_tma;
+  int packed;        // the halo patch is [row][rowb] elements (C below 16, see the header)
+  int C, O, k, stride, pad_h, pad_w, Ho, Wo;
+  int w_ld, w_row;   // weight channels between taps, and between output channels
+  int b_stages;      // weight slices in shared memory: the ring of kBStages (TMA), or every tap
   int n;             // output channels of a block
   int tiles_w, tiles_h;
   int ph, pw, pwh;   // halo patch rows and columns; even columns (stride 2)
+  int rowb;          // elements of a packed patch row as TMA writes it (>= pw * C + 16 bytes)
   int chunks, taps, raw_stages;
   uint32_t raw_tx;                       // bytes of a halo patch
   uint32_t raw_bytes, a_bytes, b_bytes;  // one buffer of each (raw: padded)
@@ -406,16 +435,34 @@ __device__ __forceinline__ void load8<__nv_bfloat16>(const uint8_t* raw, int px,
   }
 }
 
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+// The 8 channels 8*g .. of pixel (row, col) of a packed patch ([row][rowb]
+// elements, its first pixel lead elements into a row), zero past C.
 template <typename Tin>
+__device__ __forceinline__ void load8_packed(const Params& p, const uint8_t* raw, int row, int col,
+                                             int g, int lead, float (&v)[8]) {
+  const Tin* s = reinterpret_cast<const Tin*>(raw) + row * p.rowb + lead + col * p.C;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = 8 * g + j < p.C ? to_f32(s[8 * g + j]) : 0.0f;
+}
+
+template <typename Tin, bool kPacked>
 __device__ __forceinline__ void quantize_patch(const Params& p, const uint8_t* raw, uint8_t* a,
-                                               const float (&scale)[8], int ct) {
+                                               const float (&scale)[8], int ct, int lead) {
   const int g = ct & 3;
   const int npx = p.ph * p.pw;
   const uint32_t inv_pw = 65536u / p.pw + 1;  // px / pw == (px * inv_pw) >> 16 for px < 4096
   uint8_t* plane = a + (g >> 1) * npx * 16 + (g & 1) * 8;
   for (int px = ct >> 2; px < npx; px += kConsumers / 4) {
     float v[8];
-    load8<Tin>(raw, px, g, v);
+    if constexpr (kPacked) {
+      const int row = (px * inv_pw) >> 16, col = px - row * p.pw;
+      load8_packed<Tin>(p, raw, row, col, g, lead, v);
+    } else {
+      load8<Tin>(raw, px, g, v);
+    }
     uint32_t lo = 0, hi = 0;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
@@ -426,6 +473,13 @@ __device__ __forceinline__ void quantize_patch(const Params& p, const uint8_t* r
     const int colp = p.stride == 2 ? (col & 1) * p.pwh + (col >> 1) : col;
     *reinterpret_cast<uint2*>(plane + (row * p.pw + colp) * 16) = make_uint2(lo, hi);
   }
+}
+
+// The elements of a packed patch row before its first pixel (w_in0 * C):
+// the box starts at the 16-byte boundary at or before it.
+__device__ __forceinline__ int packed_lead(const Params& p, int w_in0) {
+  const int q = p.x_bf16 ? 8 : 4;  // elements in 16 bytes
+  return ((w_in0 * p.C) % q + q) % q;
 }
 
 // ---------------------------------------------------------------------------
@@ -540,6 +594,40 @@ __device__ __forceinline__ void epilogue(const Params& p, int32_t (&acc)[MBW][NW
   }
 }
 
+// A split-concat part's launch (see the header): add the s32 sums of the
+// parts before it (acc_in, at (ho >> up, wo >> up)) to the thread's
+// accumulators, and for a part before the last write them to acc and end
+// (partial). Laid out as the epilogue's accumulators.
+template <int NW, int MBW>
+__device__ __forceinline__ void part_sums(const Params& p, int32_t (&acc)[MBW][NW][16],
+                                          const int (&at)[7], int ct) {
+  const int b = at[0], wo0 = at[2], lane = at[4], nc0 = at[6];
+  const int ho0 = at[1] + 8 * at[5], n0 = at[3] + nc0;
+  const int wwarp = (ct & 127) >> 5;
+  const int hi = p.Ho >> p.up, wi = p.Wo >> p.up;
+#pragma unroll
+  for (int mb = 0; mb < MBW; ++mb) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e) {
+      const int m = 16 * wwarp + (lane >> 2) + 8 * ((e >> 1) & 1);
+      const int ho = ho0 + 8 * mb + (m >> 3), wo = wo0 + (m & 7);
+#pragma unroll
+      for (int nb = 0; nb < NW; ++nb) {
+        const int n = n0 + nb * 32 + 8 * (e >> 2) + 2 * (lane & 3) + (e & 1);
+        if (ho < p.Ho && wo < p.Wo && n < p.O) {
+          if (p.acc_in != nullptr) {
+            acc[mb][nb][e] += p.acc_in[((static_cast<size_t>(b) * hi + (ho >> p.up)) * wi +
+                                        (wo >> p.up)) * p.O + n];
+          }
+          if (p.partial) {
+            p.acc[((static_cast<size_t>(b) * p.Ho + ho) * p.Wo + wo) * p.O + n] = acc[mb][nb][e];
+          }
+        }
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // The kernel. Each consumer warpgroup owns MBW wgmma M tiles of 64 output
 // pixels (8 x 8) and 32 * NW output columns, and issues MBW
@@ -595,14 +683,20 @@ int8_conv_kernel(const __grid_constant__ Params p, const __grid_constant__ CUten
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp != kConsumers / 32) return;
     // ---- producer warp: halo patches and weight slices, in consumer order
-    const int h_in0 = ho0 * p.stride - p.pad, w_in0 = wo0 * p.stride - p.pad;
+    const int h_in0 = ho0 * p.stride - p.pad_h, w_in0 = wo0 * p.stride - p.pad_w;
+    const int lead = packed_lead(p, w_in0);
     auto issue_raw = [&](int ci) {
       const int st = ci % p.raw_stages;
       mbar_wait(raw_empty + 8 * st, ((ci / p.raw_stages) & 1) ^ 1);
       if (lane == 0) {
         mbar_expect_tx(raw_full + 8 * st, p.raw_tx);
-        tma_load_4d(base + p.off_raw + st * p.raw_bytes, &x_map, raw_full + 8 * st,
-                    ci * kChunk, w_in0, h_in0, b);
+        if (p.packed) {  // one chunk: rows of rowb elements of the (B, H, W * C) view
+          tma_load_3d(base + p.off_raw + st * p.raw_bytes, &x_map, raw_full + 8 * st,
+                      w_in0 * p.C - lead, h_in0, b);
+        } else {
+          tma_load_4d(base + p.off_raw + st * p.raw_bytes, &x_map, raw_full + 8 * st,
+                      ci * kChunk, w_in0, h_in0, b);
+        }
       }
     };
     for (int ci = 0; ci < p.raw_stages && ci < p.chunks; ++ci) issue_raw(ci);
@@ -634,19 +728,31 @@ int8_conv_kernel(const __grid_constant__ Params p, const __grid_constant__ CUten
                               : static_cast<const float*>(p.bias)[n];
   }
   if (!p.w_tma) {
-    // C not a multiple of 16 (then C <= 32: one chunk; the Focus stem's 12),
-    // which a TMA box cannot cut: the consumers copy the weights of every
-    // tap (kBStages >= k*k) as 4-byte words of 4 channels, zero past C and
-    // O. The fence and barrier before the first wgmma publish them.
+    // C not a multiple of 16 (then C <= 32: one chunk; the Focus stem's 12,
+    // the 6x6 stem's 3), which a TMA box cannot cut: the consumers copy the
+    // weights of every tap (b_stages = k*k slices) as 4-byte words of 4
+    // channels, or bytes where the rows do not align to words, zero past C
+    // and O. The fence and barrier before the first wgmma publish them.
     for (int row = ct; row < p.taps * p.n; row += kConsumers) {
       const int tap = row / p.n, n = row - tap * p.n;
+      const int8_t* src = p.w + static_cast<size_t>(n0 + n) * p.w_row + tap * p.w_ld;
       uint32_t words[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
-        words[i] = n0 + n < p.O && 4 * i < p.C
-                       ? *reinterpret_cast<const uint32_t*>(
-                             p.w + static_cast<size_t>(n0 + n) * p.K + tap * p.C + 4 * i)
-                       : 0u;
+        uint32_t word = 0;
+        if (n0 + n < p.O && 4 * i < p.C) {
+          if (p.w_bytes) {
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              word |= 4 * i + j < p.C ? static_cast<uint32_t>(static_cast<uint8_t>(src[4 * i + j]))
+                                            << (8 * j)
+                                      : 0u;
+            }
+          } else {
+            word = *reinterpret_cast<const uint32_t*>(src + 4 * i);
+          }
+        }
+        words[i] = word;
       }
       // row n of the slice, its 16-byte halves in the 32-byte swizzle
       uint8_t* d = smem + p.off_b + tap * p.b_bytes + n * 32;
@@ -677,10 +783,17 @@ int8_conv_kernel(const __grid_constant__ Params p, const __grid_constant__ CUten
     mbar_wait(raw_full + 8 * rs, (ci / p.raw_stages) & 1);
     const uint8_t* raw = smem + p.off_raw + rs * p.raw_bytes;
     uint8_t* a = smem + p.off_a + ab * p.a_bytes;
-    if (p.x_bf16) {
-      quantize_patch<__nv_bfloat16>(p, raw, a, scale, ct);
+    if (p.packed) {
+      const int lead = packed_lead(p, wo0 * p.stride - p.pad_w);
+      if (p.x_bf16) {
+        quantize_patch<__nv_bfloat16, true>(p, raw, a, scale, ct, lead);
+      } else {
+        quantize_patch<float, true>(p, raw, a, scale, ct, lead);
+      }
+    } else if (p.x_bf16) {
+      quantize_patch<__nv_bfloat16, false>(p, raw, a, scale, ct, 0);
     } else {
-      quantize_patch<float>(p, raw, a, scale, ct);
+      quantize_patch<float, false>(p, raw, a, scale, ct, 0);
     }
     fence_proxy_async();
     __syncwarp();
@@ -694,7 +807,8 @@ int8_conv_kernel(const __grid_constant__ Params p, const __grid_constant__ CUten
     wgmma_fence();
     const uint32_t a_base = base + p.off_a + ab * p.a_bytes;
     for (int tap = 0; tap < p.taps; ++tap) {
-      const int gi = ci * p.taps + tap, st = gi % kBStages;
+      // the TMA ring, or (weights copied by the consumers, one chunk) a slice a tap
+      const int gi = ci * p.taps + tap, st = p.w_tma ? gi % kBStages : tap;
       const int r = tap / p.k, s = tap - r * p.k;
       const int col0 = p.stride == 2 ? (s & 1) * p.pwh + (s >> 1) : s;
       const uint32_t a_addr = a_base + (r * p.pw + col0) * 16;
@@ -725,9 +839,13 @@ int8_conv_kernel(const __grid_constant__ Params p, const __grid_constant__ CUten
     for (int nb = 0; nb < NW; ++nb) fence_regs(acc[mb][nb]);
 
   // ---- epilogue
+  const int at[7] = {b, ho0, wo0, n0, lane, mt0, nc0};
+  if (p.acc_in != nullptr || p.partial) {  // a split-concat part
+    part_sums<NW, MBW>(p, acc, at, ct);
+    if (p.partial) return;
+  }
   if (p.y_tma) named_barrier(1, kConsumers);  // every product done: the buffers are free
   const float* tab[2] = {tab_scale, tab_bias};
-  const int at[7] = {b, ho0, wo0, n0, lane, mt0, nc0};
   if (p.y_bf16) {
     if (p.bias != nullptr) {
       if (p.act) epilogue<true, true, true>(p, acc, smem, tab, at, wg, ct, y_map);
@@ -797,40 +915,61 @@ int launch(const Params& p, const CUtensorMap& x_map, const CUtensorMap& w_map,
 extern "C" {
 
 // y = w8a8 conv of x (see int8_conv_kernel), then hard-swish if act is 1.
-// x_bf16 / y_bf16: 1 for bf16, 0 for f32. bias may be null (else in y's
-// type), acc may be null. n: output channels of a block, a multiple of 32 up
-// to 256, mb: 8-row blocks of output pixels of a block, and split: 1 if the
-// two warpgroups split the block's M tiles (then n <= 96 and mb even), 0 if
-// they split its n columns (the wrapper's tile plan; the kernel is built for
-// the plans tile_plan makes).
-int cocodet_int8_conv(const void* x, int x_bf16, const int8_t* w, const float* a_scale,
+// x_bf16 / y_bf16: 1 for bf16, 0 for f32. w_ld: the weight's channels
+// between taps (C, or the whole kernel's for a part's slice). bias may be
+// null (else in y's type), acc may be null. acc_in (null, or the s32 sums
+// of the parts before, at (Ho >> up, Wo >> up)) is added to the products;
+// with partial the sum goes to acc and y is not written (y may be null).
+// pad_h, pad_w: the zero padding of each side in H and in W. n: output
+// channels of a block, a multiple of 32 up to 256, mb: 8-row blocks of
+// output pixels of a block, and split: 1 if the two warpgroups split the
+// block's M tiles (then n <= 96 and mb even), 0 if they split its n
+// columns (the wrapper's tile plan; the kernel is built for the plans
+// tile_plan makes).
+int cocodet_int8_conv(const void* x, int x_bf16, const int8_t* w, int w_ld, const float* a_scale,
                       int a_vec, const float* w_scale, const void* bias, void* y, int y_bf16,
-                      int32_t* acc, int B, int H, int W, int C, int O, int k, int stride,
-                      int Ho, int Wo, int n, int mb, int split, int act, void* stream) {
+                      int32_t* acc, const int32_t* acc_in, int up, int partial, int B, int H,
+                      int W, int C, int O, int k, int stride, int pad_h, int pad_w, int Ho,
+                      int Wo, int n, int mb, int split, int act, void* stream) {
   const int esize = x_bf16 ? 2 : 4;
-  if (!((k == 1 || k == 3) && (stride == 1 || stride == 2)) || B <= 0 || C <= 0 || O <= 0 ||
-      (C * esize) % 16 != 0 || C % 4 != 0 || n % 32 != 0 || n < 32 || n > kMaxN ||
-      (split ? n > 96 || mb % 2 != 0 : n % 64 != 0) ||
-      (reinterpret_cast<uintptr_t>(x) & 15) != 0 || (C % 16 != 0 && C > kChunk)) {
+  const bool packed = (C * esize) % 16 != 0;
+  const bool w_tma = C % 16 == 0;
+  if (!((k == 1 || k == 3 || k == 6) && (stride == 1 || stride == 2)) || B <= 0 || C <= 0 ||
+      O <= 0 || pad_h < 0 || pad_w < 0 || pad_h >= k || pad_w >= k || w_ld < C ||
+      (packed ? C >= 16 || (static_cast<long long>(W) * C * esize) % 16 != 0
+              : C % 4 != 0 || (C % 16 != 0 && C > kChunk)) ||
+      (w_tma && (w_ld % 16 != 0 || (reinterpret_cast<uintptr_t>(w) & 15) != 0)) ||
+      n % 32 != 0 || n < 32 || n > kMaxN || (split ? n > 96 || mb % 2 != 0 : n % 64 != 0) ||
+      (reinterpret_cast<uintptr_t>(x) & 15) != 0 || (partial && acc == nullptr) ||
+      (up && acc_in == nullptr) || (up != 0 && up != 1)) {
     return -1;
   }
   if (Ho <= 0 || Wo <= 0) return 0;
   const int nw = split ? n / 32 : n / 64, mbw = split ? mb / 2 : mb;  // a warpgroup's
   Params p{};
   p.x = x; p.w = w; p.a_scale = a_scale; p.w_scale = w_scale; p.bias = bias; p.y = y;
-  p.acc = acc; p.a_vec = a_vec; p.x_bf16 = x_bf16; p.y_bf16 = y_bf16; p.act = act;
-  p.w_tma = C % 16 == 0;
-  p.C = C; p.O = O; p.k = k; p.stride = stride; p.pad = (k - 1) / 2;
-  p.Ho = Ho; p.Wo = Wo; p.K = k * k * C; p.n = n;
+  p.acc = acc; p.acc_in = acc_in; p.up = up; p.partial = partial;
+  p.a_vec = a_vec; p.x_bf16 = x_bf16; p.y_bf16 = y_bf16; p.act = act;
+  p.w_tma = w_tma;
+  p.w_bytes = !w_tma && (C % 4 != 0 || w_ld % 4 != 0 || (reinterpret_cast<uintptr_t>(w) & 3) != 0);
+  p.packed = packed;
+  p.C = C; p.O = O; p.k = k; p.stride = stride; p.pad_h = pad_h; p.pad_w = pad_w;
+  p.Ho = Ho; p.Wo = Wo; p.n = n;
+  p.w_ld = w_ld; p.w_row = k * k * w_ld;
   p.tiles_w = (Wo + kTileW - 1) / kTileW;
   p.tiles_h = (Ho + 8 * mb - 1) / (8 * mb);
   p.ph = (8 * mb - 1) * stride + k;
   p.pw = (kTileW - 1) * stride + k;
   p.pwh = (p.pw + 1) / 2;
+  // a packed row: the patch's pw * C elements after a lead of less than 16
+  // bytes, rounded up to 16 bytes
+  p.rowb = (p.pw * C * esize + 15 + 15) / 16 * 16 / esize;
+  if (p.ph > 256 || (packed && p.rowb > 256)) return -1;  // a TMA box's largest extent
   p.chunks = (C + kChunk - 1) / kChunk;
   p.taps = k * k;
+  p.b_stages = w_tma ? kBStages : p.taps;
   const uint32_t npx = p.ph * p.pw;
-  p.raw_tx = npx * kChunk * esize;
+  p.raw_tx = packed ? p.ph * p.rowb * esize : npx * kChunk * esize;
   p.raw_bytes = round_up(p.raw_tx, 128);
   p.a_bytes = round_up(2 * npx * 16, 128);
   p.b_bytes = n * 32;
@@ -842,7 +981,7 @@ int cocodet_int8_conv(const void* x, int x_bf16, const int8_t* w, const float* a
     p.raw_stages = stages;
     p.off_a = p.off_raw + stages * p.raw_bytes;
     p.off_b = round_up(p.off_a + kABufs * p.a_bytes, 1024);
-    const uint32_t end = p.off_b + kBStages * p.b_bytes;
+    const uint32_t end = p.off_b + p.b_stages * p.b_bytes;
     const uint32_t staging = p.off_raw + kWarpgroups * 64 * mbw * 32 * nw * 4;
     return static_cast<int>((end > staging ? end : staging) + 1024);  // + alignment slack
   };
@@ -858,7 +997,18 @@ int cocodet_int8_conv(const void* x, int x_bf16, const int8_t* w, const float* a
   EncodeTiled encode = encoder();
   if (encode == nullptr) return -2;
   CUtensorMap x_map, w_map;
-  {
+  if (packed) {  // the (B, H, W * C) view: a box of rowb elements by ph rows
+    const cuuint64_t dims[3] = {(cuuint64_t)W * C, (cuuint64_t)H, (cuuint64_t)B};
+    const cuuint64_t strides[2] = {(cuuint64_t)W * C * esize, (cuuint64_t)H * W * C * esize};
+    const cuuint32_t box[3] = {(cuuint32_t)p.rowb, (cuuint32_t)p.ph, 1};
+    const cuuint32_t one[3] = {1, 1, 1};
+    if (encode(&x_map, x_bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+               3, const_cast<void*>(x), dims, strides, box, one, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+      return -3;
+    }
+  } else {
     const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)B};
     const cuuint64_t strides[3] = {(cuuint64_t)C * esize, (cuuint64_t)W * C * esize,
                                    (cuuint64_t)H * W * C * esize};
@@ -873,7 +1023,7 @@ int cocodet_int8_conv(const void* x, int x_bf16, const int8_t* w, const float* a
   }
   w_map = x_map;  // unused unless the weights come by TMA
   const int ysize = y_bf16 ? 2 : 4;
-  p.y_tma = (O * ysize) % 16 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+  p.y_tma = !partial && (O * ysize) % 16 == 0 && (reinterpret_cast<uintptr_t>(y) & 15) == 0;
   CUtensorMap y_map = x_map;  // unused unless y leaves by TMA
   if (p.y_tma) {
     const cuuint64_t dims[4] = {(cuuint64_t)O, (cuuint64_t)Wo, (cuuint64_t)Ho, (cuuint64_t)B};
@@ -890,7 +1040,7 @@ int cocodet_int8_conv(const void* x, int x_bf16, const int8_t* w, const float* a
   }
   if (p.w_tma) {
     const cuuint64_t dims[3] = {(cuuint64_t)C, (cuuint64_t)(k * k), (cuuint64_t)O};
-    const cuuint64_t strides[2] = {(cuuint64_t)C, (cuuint64_t)p.K};
+    const cuuint64_t strides[2] = {(cuuint64_t)w_ld, (cuuint64_t)p.w_row};
     const cuuint32_t box[3] = {kChunk, 1, (cuuint32_t)n};
     const cuuint32_t one[3] = {1, 1, 1};
     if (encode(&w_map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<int8_t*>(w), dims, strides,

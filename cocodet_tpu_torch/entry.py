@@ -5,7 +5,8 @@ of ``bench.py``'s headline and of the train step that
 ``entry``/``build_predictor``: YOLOX-M-P6 (depth 0.67, width 0.75) in bf16
 with BN folded. ``build_headline``: the same model slimmed to the committed
 channel plan ``artifacts/mp6_chain_slim_spec.json`` and quantized w8a8 with
-per-input-channel activation scales (bench.py:163-187, 218-306). Both end in
+per-input-channel activation scales (bench.py:163-187, 218-306), optionally
+served as the latency graph (``stem6``, ``split_cat``). Both end in
 the single batched postprocess at the production point: conf 0.001, NMS IoU
 0.55, pre-NMS top-K 1024, ``max_det`` 300. ``Predictor`` serves batches of
 NHWC float images; reading and resizing them is the data pipeline's
@@ -25,7 +26,7 @@ from __future__ import annotations
 
 import time
 from pathlib import Path
-from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,8 +37,9 @@ from .core.train_state import build_optimizer, create_train_state, make_train_st
 from .data.coco import COCODataset
 from .data.transforms import ValTransform
 from .evaluators.coco_evaluator import COCOEvaluator
+from .models.darknet import _FOCUS_ORDER
 from .models.yolox import MODEL_SPECS, YOLOX, build_model
-from .ops.fuse import fuse_model
+from .ops.fuse import fold_focus_quant, fold_focus_stem, fuse_model
 from .ops.nms import NMSResult
 from .ops.postprocess import PostprocessConfig, postprocess
 from .parallel.launch import run_ranks
@@ -95,28 +97,46 @@ def build_w8a8_predictor(variables: Mapping[str, Any],
                          dtype: torch.dtype = torch.bfloat16,
                          device: Union[str, torch.device] = "cuda",
                          cfg: PostprocessConfig = PRODUCTION_CONFIG,
-                         name: str = "yolox-p6") -> Predictor:
+                         name: str = "yolox-p6", stem6: bool = False,
+                         split_cat: bool = False) -> Predictor:
     """A fused YOLOX (``name``), slimmed to ``slim`` where one is given,
     built with quant="w8a8", with the quantized ``variables``
     (compress.quantize_model, or a ``tools.quantize_model`` checkpoint's
     params and ``quant`` collection) loaded, computing in ``dtype``, at the
-    postprocess point ``cfg`` (by default the production point)."""
-    model = build_model(name, depth=depth, width=width, fused=True,
-                        slim=slim, quant="w8a8", device=device, variables=variables)
+    postprocess point ``cfg`` (by default the production point). ``stem6``
+    and ``split_cat`` build the deployment rewrites; a ``stem6`` model
+    takes the 6x6 stem's tree (``fold_w8a8_stem``)."""
+    model = build_model(name, depth=depth, width=width, fused=True, slim=slim,
+                        quant="w8a8", device=device, variables=variables, stem6=stem6,
+                        split_cat=split_cat)
     return Predictor(cast_parameters(model, dtype), cfg)
+
+
+def fold_w8a8_stem(variables: Mapping[str, Any], name: str = "yolox-p6") -> Dict[str, Any]:
+    """A quantized tree's Focus stem as the 6x6 conv of a ``stem6`` model:
+    its int8 kernel by ``fold_focus_stem`` (a permutation, exact in int8)
+    and its scales re-homed by ``fold_focus_quant`` (harness/main.py:
+    100-122)."""
+    order = _FOCUS_ORDER[MODEL_SPECS[name].variant]
+    return dict(variables, params=fold_focus_stem(variables["params"], order=order),
+                quant=fold_focus_quant(variables["quant"]))
 
 
 def build_headline(spec_path: Union[str, Path] = SLIM_SPEC, depth: float = 0.67,
                    width: float = 0.75, dtype: torch.dtype = torch.bfloat16,
                    device: Union[str, torch.device] = "cuda",
-                   variables: Optional[Mapping[str, Any]] = None) -> Predictor:
+                   variables: Optional[Mapping[str, Any]] = None, stem6: bool = False,
+                   split_cat: bool = False) -> Predictor:
     """``bench.py``'s headline: the fused YOLOX-M-P6 slimmed to the channel
     plan at ``spec_path``, with weights drawn from numpy seed 0 (or the
     given fused, slim ``variables``), calibrated in ``dtype`` on
     ``RandomState(1).rand(2, 256, 256, 3) * 255`` (bench.py:238-239),
     quantized w8a8 with per-input-channel activation scales, served in
-    ``dtype``. The predictor carries ``variables`` (the quantized tree) and
-    ``seconds`` (build, calibration, quantization)."""
+    ``dtype``. ``stem6`` and ``split_cat`` serve it as the latency graph
+    (calibrated and quantized on the plain graph, whose numbers the
+    rewrites keep bit for bit). The predictor carries ``variables`` (the
+    quantized tree of the plain graph) and ``seconds`` (build,
+    calibration, quantization)."""
     t0 = time.perf_counter()
     slim = load_slim_spec(str(spec_path))
     if variables is None:
@@ -133,7 +153,9 @@ def build_headline(spec_path: Union[str, Path] = SLIM_SPEC, depth: float = 0.67,
     qvars, quant = quantize_weights(variables, build_quant_tree(stats, per_channel_act=True))
     qvars["quant"] = quant
     t3 = time.perf_counter()
-    predictor = build_w8a8_predictor(qvars, slim, depth, width, dtype, device)
+    served = fold_w8a8_stem(qvars) if stem6 else qvars
+    predictor = build_w8a8_predictor(served, slim, depth, width, dtype, device, stem6=stem6,
+                                     split_cat=split_cat)
     predictor.variables = qvars
     predictor.seconds = {"build": t1 - t0 + time.perf_counter() - t3,
                          "calibrate": t2 - t1, "quantize": t3 - t2}

@@ -39,8 +39,11 @@ kernels are float, so its convs run in float), the float model.
 a checkpoint's Focus stem, msgpack and ``.pth`` alike, and a ``variables``
 tree's, is rewritten by ``ops/fuse.py::fold_focus_stem``. (JAX's ``.pth``
 branch loads no stem there: its imported Focus kernel matches no leaf of
-the 6x6 stem, which keeps its random init; ROADMAP Queue 3.) A w8a8 model
-with either rewrite raises (ROADMAP Queue 1 item 3).
+the 6x6 stem, which keeps its random init; ROADMAP Queue 3.) A w8a8
+checkpoint under ``stem6`` has its stem's scales re-homed too
+(``fold_focus_quant``, harness/main.py:114-118); a w8a8 model with either
+rewrite serves through the int8 conv kernel (its 6x6 stem, its s32 sums of
+parts), bit for bit the plain graph's numbers.
 
 Several devices (harness/main.py:162-243). JAX runs one process over every
 device, the parameters replicated and the jitted program partitioned; here
@@ -58,8 +61,9 @@ than the space ranks runs whole on each of them. JAX's checks of the
 modes, with its messages, run before the first batch. Rank 0 gathers the
 records in batch order, writes the JSON and scores it; each rank's phase
 seconds are printed on rank 0. A config with neither mode runs one rank.
-A w8a8 model does not shard its height (its int8 conv takes whole maps;
-ROADMAP Queue 1 item 3). Runs on the card unless ``--device cpu`` is given.
+A w8a8 model shards its height too: each int8 conv takes its rank's rows
+with their halo rows and writes its own output rows. Runs on the card
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -77,11 +81,12 @@ import torch.distributed as dist
 from .compress import load_slim_spec
 from .data.coco import COCO_CLASS_ID
 from .data.folder import FolderLoader, ImageFolderDataset
-from .entry import Predictor, build_headline, build_w8a8_predictor, cast_parameters
+from .entry import (Predictor, build_headline, build_w8a8_predictor, cast_parameters,
+                    fold_w8a8_stem)
 from .evaluators.coco_metric import COCOMeanAP
 from .models.darknet import _FOCUS_ORDER
 from .models.yolox import MODEL_SPECS, YOLOX, build_model
-from .ops.fuse import fold_focus_stem
+from .ops.fuse import fold_focus_quant, fold_focus_stem
 from .ops.postprocess import PostprocessConfig, postprocess
 from .parallel import collectives
 from .parallel.collectives import gather_rows
@@ -170,8 +175,15 @@ def load_ckpt_variables(path: str, init: Mapping[str, Any], name: str = "yolox-p
             raise ValueError(f"config asks for quant={quant!r} but {path} has no 'quant' "
                              "collection — produce one with "
                              "cocodet_tpu_torch.tools.quantize_model")
-        variables["quant"] = tree["quant"]
+        variables["quant"] = (fold_focus_quant(tree["quant"]) if stem6 and _focus_quant(tree)
+                              else tree["quant"])
     return variables
+
+
+def _focus_quant(tree: Mapping[str, Any]) -> bool:
+    """Whether a tree's ``quant`` collection has the Focus stem's scales."""
+    return ("backbone", "backbone", "stem", "conv", "conv", "w_scale") in flatten_tree(
+        tree.get("quant", {}))
 
 
 def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
@@ -193,13 +205,9 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
     quant = cfg.get("quant")
     if quant not in (None, "w8a8"):
         raise ValueError(f"the harness serves quant=None or 'w8a8', not {quant!r}")
-    if quant == "w8a8" and (stem6 or split_cat):
-        raise NotImplementedError(
-            f"a w8a8 model with stem6={stem6} split_cat={split_cat} is not ported: the int8 "
-            "conv kernel takes k = 6 and one map, not s32 partial sums of parts "
-            "(ROADMAP Queue 1 item 3)")
     if variables is not None and stem6:
-        variables = dict(variables, params=_fold_stem(variables["params"], name))
+        variables = (fold_w8a8_stem(variables, name) if _focus_quant(variables) else
+                     dict(variables, params=_fold_stem(variables["params"], name)))
     ppcfg = postprocess_config(cfg)
     ckpt = cfg.get("ckpt")
     if ckpt and os.path.exists(ckpt):
@@ -210,14 +218,15 @@ def build_predictor_from_config(cfg: Mapping[str, Any], variables=None,
     elif variables is None:
         print("WARNING: no checkpoint — random weights (dummy-quality output)")
         if quant == "w8a8" and spec is not None and name == "yolox-p6":
-            headline = build_headline(spec, depth, width, dtype, device)
+            headline = build_headline(spec, depth, width, dtype, device, stem6=stem6,
+                                      split_cat=split_cat)
             predictor = Predictor(headline.model, ppcfg)
             print(f"# params: {count_params(predictor.model):,}")
             return predictor
         quant = None  # JAX's w8a8 init has float kernels: its convs run in float
     if quant == "w8a8" and "quant" in variables:
         predictor = build_w8a8_predictor(variables, slim, depth, width, dtype, device, ppcfg,
-                                         name=name)
+                                         name=name, stem6=stem6, split_cat=split_cat)
     else:
         if variables is None:
             variables = random_variables(_shapes(name, depth, width, slim, stem6=stem6), 0)
@@ -345,9 +354,6 @@ def run(cfg: Dict[str, Any], out_path: str, profile: bool = False, challenge: bo
     space = mesh.space if mesh else None
     rank0 = mesh is None or dist.get_rank() == 0
     converts = mesh is None or mesh.space_index == 0
-    if space is not None and model.quant == "w8a8":
-        raise NotImplementedError("spatial_partition with a w8a8 model is not ported: the "
-                                  "int8 conv takes whole maps (ROADMAP Queue 1 item 3)")
 
     @torch.inference_mode()
     def step(images: torch.Tensor, units):

@@ -12,6 +12,22 @@ from .blocks import (
     space_to_depth,
     upsample2x,
 )
+from .anchor_zoo import (
+    ANCHOR_MODELS,
+    AffineGate,
+    AnchorDetector,
+    BottleneckCSP,
+    BottleneckCSP2,
+    C3,
+    SPPCSP,
+    SPPF,
+    VBottleneck,
+    VConv,
+    build_anchor_model,
+    decode_anchor_outputs,
+    make_divisible,
+    mish,
+)
 from .darknet import BACKBONE_STAGES, CSPBackbone
 from .head import YOLOXHead
 from .pafpn import PAFPN_VARIANTS, YOLOPAFPN

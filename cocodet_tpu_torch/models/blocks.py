@@ -25,13 +25,14 @@ import contextlib
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.cuda import bn_act as bnk
 from ..ops.cuda import fake_quant as fq
 from ..ops.cuda import hard_swish as hs
-from ..ops.cuda.int8_conv import conv2d_w8a8
+from ..ops.cuda.int8_conv import conv2d_w8a8, conv2d_w8a8_parts
 from ..parallel.collectives import all_reduce_, halo_exchange
 from ..parallel.mesh import active_mesh, space_sizes
 
@@ -180,8 +181,16 @@ class Conv2d(nn.Module):
     the output dtype and adds the bias: one rounding more than the concat,
     as in JAX (not bit for bit in bf16). A grouped conv, or an ``up2x`` part
     into a conv that is not 1x1 stride 1, raises JAX's ``ValueError``; a
-    ``"calib"`` conv concatenates the parts' absmax; a ``"w8a8"`` conv
-    raises (its int8 kernel takes one map: ROADMAP Queue 1 item 3).
+    ``"calib"`` conv concatenates the parts' absmax; a ``"w8a8"`` conv sums
+    the parts' s32 convs before one epilogue (``ops/cuda/int8_conv.py::
+    conv2d_w8a8_parts``, :258-276), bit for bit the concat graph.
+
+    On a space mesh (``use_mesh``; the harness's ``spatial_partition``) a
+    conv takes its rank's rows with halos from its neighbours
+    (``_forward_sharded``): float, ``"calib"`` and ``"w8a8"`` convs, parts
+    included. A ``"calib"`` conv's absmax is the max over the space group,
+    the whole map's. A ``"qat"`` conv raises there: no JAX entry point
+    trains QAT on a mesh.
     """
 
     def __init__(self, cin: int, features: int, kernel_size: int = 1,
@@ -224,22 +233,23 @@ class Conv2d(nn.Module):
         dtype = dtype or x.dtype
         b = None if self.bias is None else self.bias.to(dtype)
         mesh = active_mesh()
+        sharded = mesh is not None and mesh.space is not None
         if self.quant == "w8a8":
-            if mesh is not None and mesh.space is not None:
-                raise NotImplementedError(
-                    "a height-sharded w8a8 conv is not ported: the int8 conv kernel takes "
-                    "whole maps (ROADMAP Queue 1 item 3)")
+            if sharded:
+                return self._forward_sharded(x, b, mesh, dtype=dtype, act=act)
             return conv2d_w8a8(x, self.weight, self.act_scale, self.w_scale, b,
                                self.stride, self.padding, self.dilation,
                                self.groups, dtype, act)
         if act is not None:
             raise ValueError("only a w8a8 conv applies an activation itself")
         if self.quant == "qat":
+            if sharded:
+                raise NotImplementedError("a height-sharded qat conv is not ported: no JAX "
+                                          "entry point trains QAT on a mesh")
             return self._forward_qat(x, dtype)
         if self.quant == "calib":
-            absmax = x.detach().float().abs().amax(dim=(0, 2, 3))
-            torch.maximum(self.act_absmax, absmax, out=self.act_absmax)
-        if mesh is not None and mesh.space is not None:
+            self._calibrate([x], mesh if sharded else None)
+        if sharded:
             return self._forward_sharded(x.to(dtype), b, mesh)
         return F.conv2d(x.to(dtype), self.kernel().to(dtype), b, self.stride,
                         self.padding, self.dilation, self.groups)
@@ -258,18 +268,21 @@ class Conv2d(nn.Module):
         if any(up for _, up in parts) and not (k == 1 and self.stride == 1
                                                and self.dilation == 1):
             raise ValueError("up2x parts need a 1x1 stride-1 conv (pointwise commute)")
-        if self.quant == "w8a8":
-            raise NotImplementedError(
-                "a split-concat w8a8 conv is not ported: the int8 conv kernel takes one map, "
-                "not s32 partial sums of parts (ROADMAP Queue 1 item 3)")
-        if act is not None:
-            raise ValueError("only a w8a8 conv applies an activation itself")
         dtype = dtype or parts[0][0].dtype
-        if self.quant == "calib":
-            absmax = torch.cat([p.detach().float().abs().amax(dim=(0, 2, 3)) for p, _ in parts])
-            torch.maximum(self.act_absmax, absmax, out=self.act_absmax)
         mesh = active_mesh()
         sharded = mesh is not None and mesh.space is not None
+        if self.quant == "w8a8":
+            b = None if self.bias is None else self.bias.to(dtype)
+            if sharded:  # each part with its halo rows; up2x parts are 1x1 (no halo)
+                parts = [(self._halo(p, mesh).contiguous(memory_format=torch.channels_last), up)
+                         for p, up in parts]
+            return conv2d_w8a8_parts(parts, self.weight, self.act_scale, self.w_scale, b,
+                                     self.stride, (0, self.padding) if sharded else self.padding,
+                                     dtype, act)
+        if act is not None:
+            raise ValueError("only a w8a8 conv applies an activation itself")
+        if self.quant == "calib":
+            self._calibrate([p for p, _ in parts], mesh if sharded else None)
         kernel = self.kernel().to(dtype)
         y, off = None, 0
         for p, up in parts:
@@ -305,25 +318,44 @@ class Conv2d(nn.Module):
         y = y.to(dtype)
         return y if b is None else y + b.to(dtype).view(1, -1, 1, 1)
 
-    def _forward_sharded(self, x: torch.Tensor, b: Optional[torch.Tensor],
-                         mesh, kernel: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """The conv of a height-sharded map: this rank's rows with halos
-        from its space neighbours (zeros past the map's edge, the conv's own
-        padding), convolved with no padding in H. Output row o reads input
-        rows o*stride - pad .. o*stride - pad + reach, so a rank whose first
-        output row is its first input row / stride needs ``pad`` rows from
-        above and ``reach - pad - (stride - 1)`` from below."""
-        if self.quant is not None:
-            raise NotImplementedError(f"a height-sharded {self.quant} conv is not ported: "
-                                      "a height-sharded conv is a float conv "
-                                      "(ROADMAP Queue 1 item 3)")
+    def _calibrate(self, xs, mesh) -> None:
+        """Max-reduce the per-input-channel absmax of the maps ``xs`` (the
+        parts of a concat, in channel order) into ``act_absmax``; on a space
+        ``mesh`` over its ranks' rows too, the whole map's absmax."""
+        absmax = torch.cat([x.detach().float().abs().amax(dim=(0, 2, 3)) for x in xs])
+        if mesh is not None:
+            all_reduce_(absmax, mesh.space, op=dist.ReduceOp.MAX)
+        torch.maximum(self.act_absmax, absmax, out=self.act_absmax)
+
+    def _halo(self, x: torch.Tensor, mesh) -> torch.Tensor:
+        """This rank's rows of a height-sharded map with the halos its conv
+        reads (zeros past the map's edge, the conv's own padding), for a conv
+        with no padding in H. Output row o reads input rows o*stride - pad ..
+        o*stride - pad + reach, so a rank whose first output row is its first
+        input row / stride needs ``pad`` rows from above and ``reach - pad -
+        (stride - 1)`` from below."""
         h = x.shape[2]
         if h % self.stride:
             raise ValueError(f"a height-sharded conv of stride {self.stride} needs a local "
                              f"height it divides, got {h}")
         reach = self.dilation * (self.weight.shape[2] - 1)
-        x = halo_exchange(x, self.padding, max(0, reach - self.padding - self.stride + 1),
-                          mesh.space, sizes=space_sizes(h))
+        return halo_exchange(x, self.padding, max(0, reach - self.padding - self.stride + 1),
+                             mesh.space, sizes=space_sizes(h))
+
+    def _forward_sharded(self, x: torch.Tensor, b: Optional[torch.Tensor],
+                         mesh, kernel: Optional[torch.Tensor] = None,
+                         dtype: Optional[torch.dtype] = None,
+                         act: Optional[str] = None) -> torch.Tensor:
+        """The conv of a height-sharded map: this rank's rows with their
+        halos (``_halo``), convolved with no padding in H; a w8a8 conv
+        quantizes the halo rows with its own (exact: quantization is
+        elementwise, and a zero row past the map's edge quantizes to the int8
+        zero of the padding) and writes only its own output rows."""
+        x = self._halo(x, mesh)
+        if self.quant == "w8a8":
+            return conv2d_w8a8(x.contiguous(memory_format=torch.channels_last), self.weight,
+                               self.act_scale, self.w_scale, b, self.stride,
+                               (0, self.padding), self.dilation, self.groups, dtype, act)
         kernel = self.kernel() if kernel is None else kernel
         return F.conv2d(x, kernel.to(x.dtype), b, self.stride, (0, self.padding),
                         self.dilation, self.groups)

@@ -22,8 +22,8 @@ from . import build, int8_conv
 # The text a variant removes from csrc/int8_conv.cu (each must occur once),
 # or (old, new, count) to replace.
 VARIANTS = {
-    "no quantize": [("      quantize_patch<__nv_bfloat16>(p, raw, a, scale, ct);\n", "", 1),
-                    ("      quantize_patch<float>(p, raw, a, scale, ct);\n", "", 1)],
+    "no quantize": [("      quantize_patch<__nv_bfloat16, false>(p, raw, a, scale, ct, 0);\n", "", 1),
+                    ("      quantize_patch<float, false>(p, raw, a, scale, ct, 0);\n", "", 1)],
     "no products": [("          wgmma_s8<NW <= 3 ? NW : 1>(&acc[mb][0][0], da, "
                      "gmma_desc_sw32(b_addr));\n", "", 1),
                     ("          wgmma_s8<2>(&acc[mb][0][0], da, gmma_desc_sw32(b_addr));\n",

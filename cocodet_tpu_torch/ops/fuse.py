@@ -1,6 +1,7 @@
 """Conv-BN folding (cocodet_tpu/ops/fuse.py:28-80), the Focus stem as one
-6x6 conv (``fold_focus_stem``, :86-135) and the cross-replica mean of the
-BN statistics (:151).
+6x6 conv (``fold_focus_stem``, :86-135, and its w8a8 scales,
+``fold_focus_quant``, :138-148) and the cross-replica mean of the BN
+statistics (:151).
 
 W' = W * gamma/sqrt(var+eps) per output channel,
 b' = beta - gamma*mean/sqrt(var+eps) (+ gamma/sqrt(var+eps) * conv bias);
@@ -111,6 +112,27 @@ def fold_focus_stem(params: Dict[str, Any], order: str = "pixel_unshuffle") -> D
     if bias is not None:
         flat[stem + ("conv", "bias")] = bias
     return unflatten_tree(flat)
+
+
+def fold_focus_quant(quant: Dict[str, Any]) -> Dict[str, Any]:
+    """A w8a8 ``quant`` collection re-homed for a ``fold_focus_stem``'d
+    tree (cocodet_tpu/ops/fuse.py:138-148): the stem's scales move from
+    ``backbone/backbone/stem/conv/conv`` to ``backbone/backbone/stem/conv``,
+    their values unchanged (the same input values, the same per-out-channel
+    kernels). A per-channel stem ``act_scale`` (one scale per Focus channel,
+    which no ``quantize_model`` writes) does not broadcast over the 6x6
+    conv's 3 input channels: it raises here, where JAX's w8a8 conv raises at
+    its first call."""
+    out = {}
+    for path, v in flatten_tree(quant).items():
+        if path[:5] == ("backbone", "backbone", "stem", "conv", "conv"):
+            if path[-1] == "act_scale" and np.ndim(v):
+                raise ValueError(f"Incompatible shapes for broadcasting: a per-channel stem "
+                                 f"act_scale of shape {np.shape(v)} against the 6x6 stem's 3 "
+                                 f"input channels (the Focus stem's scale stays per-tensor)")
+            path = path[:4] + path[5:]
+        out[path] = v
+    return unflatten_tree(out)
 
 
 def fuse_model(model: YOLOX) -> YOLOX:

@@ -9,6 +9,8 @@ per leaf:
     params/<scope>/kernel (HWIO)  -> <scope>.weight (OIHW)
     params/<scope>/bias           -> <scope>.bias
     params/<scope>/scale          -> <scope>.weight        (BatchNorm)
+    params/<scope>/weight         -> <scope>.gain          (a fused Affine gate,
+                                                            models/anchor_zoo.py)
     batch_stats/<scope>/mean      -> <scope>.running_mean
     batch_stats/<scope>/var       -> <scope>.running_var
     quant/<scope>/w_scale         -> <scope>.w_scale       (w8a8 conv)
@@ -55,7 +57,7 @@ from torch import nn
 Path = Tuple[str, ...]
 
 _TO_TORCH = {("params", "kernel"): "weight", ("params", "bias"): "bias",
-             ("params", "scale"): "weight",
+             ("params", "scale"): "weight", ("params", "weight"): "gain",
              ("batch_stats", "mean"): "running_mean",
              ("batch_stats", "var"): "running_var",
              ("quant", "w_scale"): "w_scale", ("quant", "act_scale"): "act_scale",
@@ -100,6 +102,8 @@ def jax_path(name: str, value: torch.Tensor) -> Tuple[Path, Tuple[int, ...]]:
         return ("masks", *scope, leaf), shape
     if leaf == "conv_mask":
         return ("masks", *scope, leaf), (shape[2], shape[3], shape[1], shape[0])
+    if leaf == "gain":
+        return ("params", *scope, "weight"), shape
     if leaf == "weight" and value.dim() == 4:
         return ("params", *scope, "kernel"), (shape[2], shape[3], shape[1], shape[0])
     if leaf == "weight":
@@ -183,7 +187,8 @@ def random_variables(model: nn.Module, seed: int,
     var U(0.5, 1.5), BN bias and mean N(0, 0.1), all f32. Non-trivial BN
     statistics make BN folding do real work. A w8a8 conv gets int8 kernels
     U{-127..127} with ``w_scale`` sqrt(3/fan_in)/127 and a scalar
-    ``act_scale`` U(0.1, 0.3) (an activation range of about 13-38).
+    ``act_scale`` U(0.1, 0.3) (an activation range of about 13-38). A
+    fused Affine gate's scale (flax ``weight``) is drawn as a BN scale.
 
     With ``prior_prob`` (training: 0.01) the head's cls and obj prediction
     biases are ``logit(prior_prob) = -log((1 - p) / p)``, the focal prior of
@@ -209,7 +214,7 @@ def random_variables(model: nn.Module, seed: int,
             v = np.full(shape, np.sqrt(3.0 / np.prod(kernel.shape[1:])) / 127.0)
         elif leaf == "act_scale":
             v = rng.uniform(0.1, 0.3, shape)
-        elif leaf in ("scale", "var"):
+        elif leaf in ("scale", "var", "weight"):
             v = rng.uniform(0.5, 1.5, shape)
         elif leaf == "bias" and path[-2] != "bn":
             v = rng.uniform(-0.1, 0.1, shape)

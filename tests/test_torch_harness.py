@@ -276,12 +276,48 @@ def test_w8a8_checkpoint_matches_jax(folder, tmp_path, slim):
 
 @pytest.mark.parametrize("over", [{"stem6": True}, {"split_cat": True}])
 def test_unported_options_raise(folder, tmp_path, over):
-    """The float latency graph serves (tests/test_torch_split_cat.py); a
-    w8a8 model with either rewrite still raises (ROADMAP Queue 1 item 3)."""
-    cfg = _config(folder)
-    cfg.update(over, quant="w8a8")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        harness.run(cfg, str(tmp_path / "out.json"), device="cpu")
+    """A w8a8 checkpoint served with either rewrite of the latency graph,
+    which raised before the int8 conv took the 6x6 stem and the parts' s32
+    sums: JAX's harness serves it (its stem's scales re-homed by
+    ``fold_focus_quant``), and the port's records equal JAX's at
+    test_w8a8_checkpoint_matches_jax's tolerances and its own plain graph's
+    bit for bit."""
+    from cocodet_tpu_torch.compress import build_quant_tree, calibrate, quantize_weights
+    from cocodet_tpu_torch.models import build_model
+    from cocodet_tpu_torch.utils.checkpoint import save_checkpoint
+
+    arch = dict(depth=0.33, width=0.125)
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], fused=True, **arch)
+    variables = random_variables(shapes, 3)
+    calib = build_model("yolox-p6", fused=True, quant="calib", device="cpu",
+                        variables=variables, **arch)
+    stats = calibrate(calib, variables, [np.random.RandomState(1).rand(2, 128, 128, 3) * 255])
+    qvars, quant = quantize_weights(variables, build_quant_tree(stats, per_channel_act=True))
+    ckpt = save_checkpoint({"params": qvars["params"], "quant": quant}, False, str(tmp_path),
+                           "int8")
+    cfg = _config(folder, conf_threshold=0.3)
+    cfg.update(ckpt=ckpt, quant="w8a8", annotation=None, **over)
+    want = _jax_harness().run(cfg, str(tmp_path / "jax.json"))
+    got = harness.run(cfg, str(tmp_path / "port.json"), device="cpu")
+    plain = harness.run(dict(cfg, stem6=False, split_cat=False),
+                        str(tmp_path / "plain.json"), device="cpu")
+    assert got == plain
+    g, w = _by_image(got), _by_image(want)
+    assert list(g) == list(w)
+    n_det = 0
+    for img, wr in w.items():
+        gr = g[img]
+        assert len(gr) == len(wr), img
+        gb = np.asarray([r["bbox"] + [r["score"]] for r in gr])
+        wb = np.asarray([r["bbox"] + [r["score"]] for r in wr])
+        tol = np.concatenate([0.5 + 1e-2 * np.abs(wb[:, :4]), np.full((len(wb), 1), 1e-3)], 1)
+        same_cat = (np.asarray([r["category_id"] for r in gr])[:, None]
+                    == np.asarray([r["category_id"] for r in wr])[None])
+        close = (np.abs(gb[:, None] - wb[None]) <= tol[None]).all(-1) & same_cat
+        assert close.any(1).all() and close.any(0).all(), img
+        n_det += sum(r["score"] > 0 for r in wr)
+    assert n_det > 0
 
 
 def test_jpeg_input_raises(tmp_path):

@@ -174,14 +174,46 @@ def test_validation_errors_are_jax(setup, tmp_path, over, n):
     assert str(got.value) == str(want.value)
 
 
-def test_w8a8_spatial_raises(setup, tmp_path):
-    """A w8a8 model does not shard its height (ROADMAP Queue 1 item 3): the
-    rank raises before the first batch, and so does the run."""
+def _w8a8_cfg(setup, tmp_path, **over):
+    """_cfg with a w8a8 checkpoint: the port's PTQ (per-channel activation
+    scales) of numpy seed 1 fused weights, as tools/quantize_model.py
+    writes it."""
+    from cocodet_tpu_torch.compress import build_quant_tree, calibrate, quantize_weights
+    from cocodet_tpu_torch.models import build_model
+
     with torch.device("meta"):
-        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, fused=True,
-                       quant="w8a8")
-    tree = random_variables(shapes, 4)
-    cfg = _cfg(setup, sp=2)
-    cfg.update(quant="w8a8", ckpt=save_checkpoint(tree, False, str(tmp_path), "int8"))
-    with pytest.raises(Exception, match="Queue 1 item 3"):
-        harness.serve(cfg, str(tmp_path / "x.json"), 2, "cpu", timeout=300)
+        shapes = YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, fused=True)
+    variables = random_variables(shapes, 1)
+    calib = build_model("yolox-p6", depth=0.33, width=0.125, fused=True, quant="calib",
+                        device="cpu", variables=variables)
+    stats = calibrate(calib, variables, [np.random.RandomState(1).rand(2, 128, 128, 3) * 255])
+    qvars, quant = quantize_weights(variables, build_quant_tree(stats, per_channel_act=True))
+    cfg = _cfg(setup, **over)
+    cfg.update(quant="w8a8", ckpt=save_checkpoint({"params": qvars["params"], "quant": quant},
+                                                  False, str(tmp_path), "int8"))
+    return cfg
+
+
+def test_w8a8_spatial_raises(setup, tmp_path):
+    """A w8a8 model shards its height (it raised before the int8 conv took a
+    slab with its halo rows): on 2 space ranks its records equal one
+    process's, and the halos went over the space group."""
+    cfg = _w8a8_cfg(setup, tmp_path)
+    one = harness.run(cfg, str(tmp_path / "one.json"), device="cpu")
+    assert sum(r["score"] > 0 for r in one) > 10
+    out = str(tmp_path / "ranks.json")
+    report = harness.serve(dict(cfg, spatial_partition=2), out, 2, "cpu", timeout=300)
+    assert report["ranks"][0]["collectives"].get("all_gather", 0) > 100
+    _assert_records_match(json.loads(open(out).read()), one)
+
+
+def test_w8a8_latency_graph_on_space_ranks(setup, tmp_path):
+    """The w8a8 latency graph (stem6 + split_cat: the 6x6 stem and the parts
+    convs on slabs) on 2 space ranks: the records of one process of the
+    plain w8a8 graph."""
+    cfg = _w8a8_cfg(setup, tmp_path)
+    one = harness.run(cfg, str(tmp_path / "one.json"), device="cpu")
+    out = str(tmp_path / "ranks.json")
+    harness.serve(dict(cfg, spatial_partition=2, stem6=True, split_cat=True), out, 2, "cpu",
+                  timeout=300)
+    _assert_records_match(json.loads(open(out).read()), one)

@@ -155,19 +155,44 @@ def test_rewrites_match_jax_bf16(weights):
 
 
 def test_parts_guards_raise():
-    """JAX's guards of a parts conv, with its messages; a w8a8 conv and a
-    stem6 model without BN fold raise as the port's own."""
+    """JAX's guards of a parts conv, with its messages (a w8a8 conv's too);
+    a stem6 model without BN fold raises as the port's own."""
     a, b = torch.zeros(1, 4, 8, 8), torch.zeros(1, 4, 8, 8)
     with pytest.raises(ValueError, match="groups must be 1"):
         Conv2d(8, 8, 1, groups=2)([a, b])
     with pytest.raises(ValueError, match="pointwise commute"):
         Conv2d(8, 8, 3)([(a, True), b])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        Conv2d(8, 8, 1, quant="w8a8")([a, b])
+    with pytest.raises(ValueError, match="pointwise commute"):
+        Conv2d(8, 8, 3, quant="w8a8")([(a, True), b])
     with pytest.raises(ValueError, match="deployment-graph"):
         Conv2d(8, 8, 1, quant="qat")([a, b])
     with pytest.raises(ValueError, match="stem6 is a deployment"):
         YOLOX(MODEL_SPECS["yolox-p6"], depth=0.33, width=0.125, stem6=True)
+
+
+@pytest.mark.parametrize("up", [False, True], ids=["parts", "up2x"])
+def test_w8a8_parts_conv_matches_concat(up):
+    """A w8a8 conv on split-concat parts sums the parts' s32 convs before
+    one epilogue (cocodet_tpu/models/blocks.py:258-276): bit for bit the
+    same conv on the materialized concat, in f32 and bf16."""
+    from cocodet_tpu_torch.models.blocks import upsample2x
+
+    rs = np.random.RandomState(2)
+    a = torch.from_numpy((rs.rand(2, 8, 4 if up else 8, 4 if up else 8) * 40 - 10)
+                         .astype(np.float32)).contiguous(memory_format=torch.channels_last)
+    b = torch.from_numpy((rs.rand(2, 16, 8, 8) * 40 - 10).astype(np.float32)).contiguous(
+        memory_format=torch.channels_last)
+    conv = Conv2d(24, 32, 1, use_bias=True, quant="w8a8")
+    conv.weight.copy_(torch.from_numpy(rs.randint(-127, 128, (32, 24, 1, 1)).astype(np.int8)))
+    conv.w_scale.copy_(torch.from_numpy((rs.rand(32) * 1e-2).astype(np.float32)))
+    conv.act_scale = torch.from_numpy((rs.rand(24) * 0.2 + 0.05).astype(np.float32))
+    conv.bias.data.copy_(torch.from_numpy(rs.rand(32).astype(np.float32)))
+    concat = torch.cat([upsample2x(a) if up else a, b], dim=1)
+    for dtype in (torch.float32, torch.bfloat16):
+        with torch.no_grad():
+            got = conv([(a, up), b], dtype, act="hard_swish")
+            want = conv(concat, dtype, act="hard_swish")
+        assert got.dtype == dtype and torch.equal(got, want)
 
 
 def _jax_harness():

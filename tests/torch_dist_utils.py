@@ -205,6 +205,68 @@ def layers_rank(rank, device):
     return out
 
 
+def quant_layers_rank(rank, device):
+    """Height-sharded int8 layers on a (1 data x 2 space) mesh against the
+    same layer on the whole map: a ``"calib"`` conv's ``act_absmax`` (its
+    parts' too) and output, and ``"w8a8"`` convs (1x1, 3x3, 3x3 stride 2,
+    the 6x6 stem on 3 channels, a parts conv with an up2x part): {case:
+    (max |output diff|, max |absmax diff|)}."""
+    torch.set_num_threads(1)
+    mesh = make_mesh_2d(2, device)
+    rs = np.random.RandomState(6)
+    out = {}
+
+    def share(t):
+        rows = t.shape[2] // mesh.n_space
+        return t.narrow(2, mesh.space_index * rows, rows).contiguous(
+            memory_format=torch.channels_last)
+
+    def w8a8(cin, o, k, stride):
+        conv = Conv2d(cin, o, k, stride, use_bias=True, quant="w8a8")
+        conv.weight.copy_(torch.from_numpy(rs.randint(-127, 128, (o, cin, k, k)).astype(np.int8)))
+        conv.w_scale.copy_(torch.from_numpy((rs.rand(o) * 1e-2).astype(np.float32)))
+        conv.act_scale.fill_(0.2)
+        conv.bias.data.uniform_(-1, 1)
+        return conv
+
+    def image(c, h, w=6):
+        return torch.from_numpy((rs.rand(1, c, h, w) * 60 - 20).astype(np.float32)).contiguous(
+            memory_format=torch.channels_last)
+
+    for name, conv, x in (("w8a8 k=1", w8a8(8, 6, 1, 1), image(8, 8)),
+                          ("w8a8 k=3", w8a8(8, 6, 3, 1), image(8, 8)),
+                          ("w8a8 k=3 stride 2", w8a8(8, 6, 3, 2), image(8, 8)),
+                          ("w8a8 6x6 stem", w8a8(3, 6, 6, 2), image(3, 16, 8))):
+        with torch.no_grad():
+            whole = conv(x, act="hard_swish")
+            with use_mesh(mesh):
+                mine = conv(share(x), act="hard_swish")
+        out[name] = (float((mine - share(whole)).abs().max()), 0.0)
+    conv = w8a8(12, 6, 1, 1)
+    a, b = image(4, 4, 3), image(8, 8)
+    with torch.no_grad():
+        whole = conv([(a, True), b])
+        with use_mesh(mesh):
+            mine = conv([(share(a), True), share(b)])
+    out["w8a8 parts"] = (float((mine - share(whole)).abs().max()), 0.0)
+    for name, parts in (("calib", False), ("calib parts", True)):
+        whole_conv = Conv2d(8, 5, 3, 1, use_bias=True, quant="calib")
+        torch.nn.init.uniform_(whole_conv.weight, -1, 1)
+        torch.nn.init.uniform_(whole_conv.bias, -1, 1)
+        shard_conv = Conv2d(8, 5, 3, 1, use_bias=True, quant="calib")
+        shard_conv.load_state_dict(whole_conv.state_dict())
+        x = image(8, 8)
+        x[:, :3, 1] *= 3.0  # the largest values of channels 0-2 on rank 0's rows only
+        inputs = [x[:, :3], x[:, 3:]] if parts else x
+        with torch.no_grad():
+            whole = whole_conv(inputs)
+            with use_mesh(mesh):
+                mine = shard_conv([share(t) for t in inputs] if parts else share(inputs))
+        out[name] = (float((mine - share(whole)).abs().max()),
+                     float((shard_conv.act_absmax - whole_conv.act_absmax).abs().max()))
+    return out
+
+
 # --------------------------------------------------------------------------
 # mesh helpers
 # --------------------------------------------------------------------------
