@@ -313,6 +313,21 @@ Phases, each of which must pass (the script exits non-zero otherwise):
      (the NMS pair once a batch at K = 2000), and f32 on the card against
      the CPU on a 256 px crop; (q4) predict_yolov4 on YOLOv4-P6 at 1280
      px, B=1. The int8 conv's kernels entry names its routes.
+  r. YOLOv3 and PASCAL VOC: (r1) tools.eval -n yolov3 --fuse on phase i's
+     JPEGs (Darknet-53 + YOLOFPN, 63,724,767 parameters, bf16, 640 px,
+     B=16): the records, the NMS pair once a batch, the forward and the
+     postprocess timed, both NMS kernels bit for bit on its candidates (K
+     2000 and 1024), f32 on the card against the CPU on a 256 px crop;
+     (r2) tools.train -n yolov3 at 640 px, B=16, 1 epoch of 3 iterations
+     and its evaluation, then one step timed (device and host ms, peak
+     memory, the loss, the largest |wh logit|) with the BN+act launches
+     its plan wants, the BN+act kernels bit for bit at that step's maps,
+     (16, 32, 640, 640) among them; (r3) a generated VOC tree through
+     tools.train and tools.eval of the VOC exp: the mAP50 under both
+     metrics, recomputed on the host from the records, the NMS kernels on
+     the 20-class model's candidates; (r4) check_param and export_torch on
+     r2's checkpoint (the .pth read back equal), eval_robustness on the
+     six variants.
 
     python3 chip_smoke.py --step TREE
 
@@ -364,11 +379,11 @@ runs phase a and phase q alone (without the kernels and ``ok`` lines).
 
     python3 chip_smoke.py --phase NAME[,NAME...]
 
-with each NAME one of h, i, k, l, n, p: runs phase a and those phases in
-turn, each followed by a ``result NAME: ...`` JSON line of what the full
-run takes from it (without the kernels and ``ok`` lines). The full run
-runs the timed phases (b-g, j, m, o, q) one after another, then h, i, k,
-l, n and p in three such processes beside each other (BESIDE), printing
+with each NAME one of h, i, k, l, n, p, r: runs phase a and those phases
+in turn, each followed by a ``result NAME: ...`` JSON line of what the
+full run takes from it (without the kernels and ``ok`` lines). The full
+run runs the timed phases (b-g, j, m, o, q) one after another, then h, i,
+k, l, n, p and r in three such processes beside each other (BESIDE), printing
 each process's output when it ends: the times those phases print there are
 not those of a run alone, which ``--phase NAME`` gives.
 
@@ -1815,7 +1830,8 @@ def bn_act_case(x, g, act, gen, determinism=False, gate=False):
     return {"rel": err, "rel_plain": err_p, "bits": bits, "resident_ways": resident, **absdiff}
 
 
-def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=True):
+def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=True,
+                         act="hard_swish"):
     """The BN+act pair held against its plain stages (bn_act_case) at each
     of ``shapes`` (one step's BN+act maps, channels-last) in bf16 and f32,
     each twice to show the reduce deterministic, and on ragged cases: C not
@@ -1825,8 +1841,10 @@ def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=Tru
     Returns the worst of bn_act_case's numbers over all cases; ``tag``
     begins the printed line. ``gate`` closes ChannelMask gates in the
     vectors of every case (bn_act_case); ``ragged_cases=False`` holds the
-    step's shapes only. The resident kernel is held on every case whose map
-    fits a cluster (bn_act_case, resident_fit)."""
+    step's shapes only; ``act`` is the step shapes' activation (YOLOv3's
+    BN runs with none: its lrelu follows as a torch op). The resident
+    kernel is held on every case whose map fits a cluster (bn_act_case,
+    resident_fit)."""
     import torch
 
     gen = torch.Generator(device=device).manual_seed(13)
@@ -1859,8 +1877,8 @@ def check_bn_act_kernels(device, shapes, tag="g3.", gate=False, ragged_cases=Tru
 
     for dtype in (torch.bfloat16, torch.float32):
         for (shape, _), n in shapes.items():
-            case(draw(shape, dtype), draw(shape, dtype), "hard_swish")
-        lines.append(f"{len(shapes)} step shapes in {str(dtype)[6:]}")
+            case(draw(shape, dtype), draw(shape, dtype), act)
+        lines.append(f"{len(shapes)} step shapes in {str(dtype)[6:]} ({act})")
     ragged = [
         ("C=13 bf16", draw((3, 13, 7, 5), torch.bfloat16), None, "hard_swish"),
         ("C=13 f32 identity", draw((3, 13, 7, 5), torch.float32), None, "identity"),
@@ -6721,6 +6739,421 @@ def phase_q(device, card, flags):
     return q1
 
 
+# phase r: YOLOv3 (Darknet-53 + YOLOFPN) and PASCAL VOC through the trainer
+# and the evaluators, then the checkpoint CLIs
+R_PARAMS = 63_724_767  # build_model("yolov3"), JAX's init's count
+R_TRAIN, R_VAL = 48, 16  # r2: 3 iterations of B=16, and its evaluation's val JPEGs
+R_VOC = (("2007", "trainval", 32), ("2007", "test", 16), ("2012", "trainval", 0))
+R_VOC_EXP = os.path.join("cocodet_tpu_torch", "exps", "example", "yolox_voc", "yolox_voc_s.py")
+R_CROP = 256             # r1: the f32 card-vs-CPU forward's crop
+R_CPU_TOL = 1e-4         # r1: |card - CPU| over each map's largest |v| (random weights
+                         # grow Darknet-53's activations to ~1e4)
+R_ROBUST = (320, 8)      # r4: eval_robustness's size and val images a variant
+R_CONF = 1e-5            # r2, r3: the evaluations' conf: a trained model's scores start
+                         # at the head's prior, 0.01 * 0.01, below the exps' 0.01
+
+
+def r_variables(name, seed=0, **kw):
+    """Flax-layout random variables of ``name`` with the obj/cls prediction
+    biases at logit(0.1), as serving_variables draws them."""
+    import torch
+
+    from cocodet_tpu_torch.models import MODEL_SPECS, YOLOX
+    from cocodet_tpu_torch.utils.convert import random_variables
+
+    with torch.device("meta"):
+        shapes = YOLOX(MODEL_SPECS[name], **kw)
+    variables = random_variables(shapes, seed)
+    for k in range(len(MODEL_SPECS[name].strides)):
+        for pred in (f"obj_pred{k}", f"cls_pred{k}"):
+            variables["params"]["head"][pred]["bias"][:] = float(_logit(0.1))
+    return variables, sum(p.numel() for p in shapes.parameters())
+
+
+def r_candidates(maps, strides, k, num_classes, conf):
+    """(class-offset boxes, valid) that batched_nms hands the NMS kernels
+    from these head maps at pre-NMS top-K ``k`` and ``conf``."""
+    from cocodet_tpu_torch.ops.nms import class_offset_boxes
+    from cocodet_tpu_torch.ops.postprocess import PostprocessConfig, _select_topk_fused
+
+    cfg = PostprocessConfig(num_classes=num_classes, conf_threshold=conf, pre_nms_topk=k)
+    boxes, _, classes, _, valid = _select_topk_fused(maps, strides, cfg)
+    return class_offset_boxes(boxes, classes, valid).contiguous(), valid.contiguous()
+
+
+def r_nms_checks(tag, maps, strides, num_classes, ks, conf=0.001):
+    """Both NMS kernels bit for bit against their plain versions on these
+    maps' candidates at each K of ``ks`` (thr 0.65 in evaluation, 0.55
+    served); their worst errors."""
+    worst = {"overlap_matrix": 0.0, "greedy_keep": 0.0}
+    for k, thr in ks:
+        err = check_kernels(f"{tag} {num_classes} classes, conf {conf}, K={k}, IoU {thr}",
+                            *r_candidates(maps, strides, k, num_classes, conf), thr)
+        worst = {n: max(worst[n], e) for n, e in err.items()}
+    return worst
+
+
+def phase_r1(device, card, root, tmp):
+    """r1: YOLOv3 at full width (Darknet-53, 640 px, B=16, bf16, BN folded)
+    through ``tools.eval -n yolov3 --fuse`` on phase i's JPEGs: the
+    parameter count, the records, the NMS pair once a batch; the forward
+    and the postprocess timed on a batch; both NMS kernels bit for bit on
+    its candidates (K 2000 and 1024); the f32 model on the card against the
+    CPU on a R_CROP px crop."""
+    import math
+
+    import torch
+
+    from cocodet_tpu_torch.entry import PRODUCTION_CONFIG
+    from cocodet_tpu_torch.exp import get_exp
+    from cocodet_tpu_torch.ops.fuse import fuse_batchnorm_tree
+    from cocodet_tpu_torch.ops.postprocess import postprocess
+    from cocodet_tpu_torch.tools import eval as teval
+    from cocodet_tpu_torch.utils.checkpoint import save_tree
+
+    variables, n_params = r_variables("yolov3")
+    ckpt = os.path.join(tmp, "yolov3_random.msgpack")
+    save_tree({"model": variables}, ckpt)
+    o_reset()
+    t0 = time.perf_counter()
+    got = teval.main(["-n", "yolov3", "-c", ckpt, "--fuse", "-b", str(BATCH), "--conf", "0.001",
+                      "--device", str(device), "data_dir", root])
+    wall = time.perf_counter() - t0
+    launches = o_counts()
+    batches = math.ceil(EVAL_IMAGES / BATCH)
+    print(f"r1. tools.eval -n yolov3 --fuse (Darknet-53 + YOLOFPN, {n_params:,} parameters, "
+          f"bf16, {SIZE} px, B={BATCH}, conf 0.001, NMS 0.65, K=2000) on {EVAL_IMAGES} JPEGs: "
+          f"{len(got['records'])} records, AP50:95 {got['ap']:.4f}, AP50 {got['ap50']:.4f}, "
+          f"{wall:.1f} s; launches {launches} ({launches['overlap_matrix'] / batches:g} overlap "
+          f"and {launches['greedy_keep'] / batches:g} greedy-keep a batch) ({card})", flush=True)
+    if n_params != R_PARAMS or not got["records"] or \
+            (launches["overlap_matrix"], launches["greedy_keep"]) != (batches, batches):
+        raise AssertionError(f"r1: {n_params} parameters, {len(got['records'])} records, "
+                             f"launches {launches} for {batches} batches")
+
+    exp = get_exp(None, "yolov3")
+    exp.merge(["data_dir", root])
+    fused = fuse_batchnorm_tree(variables, eps=exp.bn_eps)
+    model = exp.get_model(device=device, fused=True, variables=fused)
+    ev = exp.get_evaluator(batch_size=BATCH)
+    imgs = torch.from_numpy(next(ev._batches())[0]).to(device)
+    cfg = ev.postprocess_config._replace(conf_threshold=0.001)
+    with torch.inference_mode():
+        maps = model(imgs)
+        fwd_ms = cuda_ms(lambda: model(imgs), 10)
+        post_ms = cuda_ms(lambda: postprocess(maps, model.strides, cfg), 10)
+        worst = r_nms_checks("r1. YOLOv3's candidates,", maps, model.strides, 80,
+                             ((cfg.pre_nms_topk, cfg.nms_threshold),
+                              (PRODUCTION_CONFIG.pre_nms_topk, PRODUCTION_CONFIG.nms_threshold)))
+    print(f"r1. a batch of {BATCH} at {SIZE} px: forward {fwd_ms:.3f} ms, postprocess "
+          f"{post_ms:.3f} ms (device, card held) ({card})", flush=True)
+    del model, maps, imgs
+
+    crop = torch.from_numpy(next(exp.get_evaluator(batch_size=1)._batches())[0]
+                            [:, :R_CROP, :R_CROP].copy())
+    exp.compute_dtype = "float32"
+    outs = {}
+    with cudnn_deterministic():
+        for key, dev in (("card", device), ("cpu", torch.device("cpu"))):
+            m = exp.get_model(device=dev, fused=True, variables=fused)
+            with torch.inference_mode():
+                outs[key] = [{k: v.float().cpu() for k, v in lvl.items()}
+                             for lvl in m(crop.to(dev))]
+            del m
+    scaled = max(float((outs["card"][i][k] - w).abs().max() / w.abs().max())
+                 for i, lvl in enumerate(outs["cpu"]) for k, w in lvl.items())
+    elem = max(float(((outs["card"][i][k] - w).abs() / (1 + w.abs())).max())
+               for i, lvl in enumerate(outs["cpu"]) for k, w in lvl.items())
+    print(f"r1. YOLOv3 f32 on the card vs the CPU on a {R_CROP} px crop: head maps max |d| over "
+          f"the map's largest |v| {scaled:.3e} (limit {R_CPU_TOL}), max |d|/(1+|v|) "
+          f"{elem:.3e}", flush=True)
+    if not scaled <= R_CPU_TOL:
+        raise AssertionError("r1: YOLOv3 on the card disagrees with the CPU")
+    torch.cuda.empty_cache()
+    return worst
+
+
+def r_argv(name_or_file, root, out_dir, extra=()):
+    """tools.train's line for r2 and r3: B=16, 1 epoch with its evaluation,
+    no warm-up, at STEP_LR for the batch (g3's: random weights stay finite),
+    the evaluation at conf R_CONF."""
+    flag = ["-f", os.path.join(REPO, name_or_file)] if name_or_file.endswith(".py") \
+        else ["-n", name_or_file]
+    return flag + ["-b", str(BATCH), "data_dir", root, "output_dir", out_dir, "max_epoch", "1",
+                   "warmup_epochs", "0", "no_aug_epochs", "0", "eval_interval", "1",
+                   "print_interval", "1", "basic_lr_per_img", str(STEP_LR / BATCH),
+                   "test_conf", str(R_CONF), *extra]
+
+
+def phase_r2(device, card, root, out_dir):
+    """r2: ``tools.train -n yolov3`` at 640 px, B=16 (host mosaic, bf16), 1
+    epoch of R_TRAIN / 16 iterations and its evaluation, counts zeroed just
+    before; then one step of its trainer at 640 px timed (device and host
+    ms, peak memory, the loss, the largest |wh logit|) with its BN+act
+    launches held to the plan; the BN+act kernels bit for bit against their
+    plain stages at that step's maps, (16, 32, 640, 640) among them.
+    Returns the trainer's checkpoint and the checks' worst numbers."""
+    import math
+
+    import torch
+
+    from cocodet_tpu_torch import entry
+    from cocodet_tpu_torch.ops.cuda import bn_act as bnk
+
+    j_reset()
+    t0 = time.perf_counter()
+    trainer = entry.train(r_argv("yolov3", root, out_dir, ["multiscale_range", "0"]),
+                          device=device)
+    seconds = time.perf_counter() - t0
+    counts = j_counts()
+    j_report(trainer, "r2.")
+    stats = trainer.epoch_stats
+    bn = {k: v for k, v in counts.items() if k.startswith("bn_act.")}
+    print(f"r2. tools.train -n yolov3 (host mosaic, {trainer.exp.compute_dtype}, B={BATCH}, "
+          f"{trainer.exp.input_size[0]} px): {sum(st['iterations'] for st in stats)} iterations "
+          f"and {len(trainer.eval_stats)} evaluation in {seconds:.1f} s; launches: BN+act {bn}, "
+          f"NMS {counts['overlap_matrix']} / {counts['greedy_keep']} ({card})", flush=True)
+    if [st["iterations"] for st in stats] != [R_TRAIN // BATCH] or len(trainer.eval_stats) != 1 \
+            or not counts["overlap_matrix"] or not (bn["bn_act.reduce"] + bn[
+                "bn_act.resident_forward"]) or trainer.exp.device_mosaic:
+        raise AssertionError(f"r2: epochs {stats}, evaluations {trainer.eval_stats}, "
+                             f"launches {counts}")
+
+    images, labels = (torch.from_numpy(t).to(device) for t in training_batch(BATCH, SIZE, 21))
+    shapes = activation_shapes(trainer.model, lambda: trainer.train_step(images, labels))
+    want = bn_launches_wanted(shapes, device)
+    seen = []
+    hook = trainer.model.register_forward_hook(lambda mod, args, out: seen.append(widest_wh(out)))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    bnk.reset_launch_counts()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    metrics = trainer.train_step(images, labels)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    torch.cuda.synchronize()
+    hook.remove()
+    got = {f"bn_act.{fn.__name__}": fn.launches for fn in bnk.WRAPPERS}
+    loss, wh = float(metrics["loss"]), float(seen[-1])
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    plan = bn_plan_counts(shapes, device)
+    big = ((BATCH, 32, SIZE, SIZE), torch.bfloat16)
+    print(f"r2. a step at {SIZE} px, B={BATCH}: device {start.elapsed_time(end):.2f} ms, host "
+          f"{host_ms:.2f} ms to queue, peak {peak:.2f} GiB, loss {loss:.4f}, largest |wh logit| "
+          f"{wh:.2f}; {sum(shapes.values())} BN maps in {len(shapes)} shapes, plan {plan}; "
+          f"BN+act launches {got} ({card})", flush=True)
+    if got != want or not math.isfinite(loss) or big not in shapes:
+        raise AssertionError(f"r2: launches {got}, want {want}; loss {loss}; "
+                             f"(16, 32, 640, 640) bf16 among the maps: {big in shapes}")
+    del images, labels
+    torch.cuda.empty_cache()
+    worst = check_bn_act_kernels(device, shapes, tag="r2.", ragged_cases=False, act="identity")
+    return os.path.join(trainer.file_name, "latest_ckpt.msgpack"), worst
+
+
+def phase_r3(device, card, tmp):
+    """r3: a generated VOC tree (VOC2007 trainval and test, all 20 classes,
+    some boxes difficult); ``tools.train -f .../yolox_voc_s.py`` for 1 epoch
+    of 2 iterations with its VOC evaluation, then ``tools.eval`` of its
+    checkpoint: the mAP50 under both metrics, recomputed on the host from
+    the same records; both NMS kernels bit for bit on the 20-class
+    model's candidates."""
+    import torch
+
+    from cocodet_tpu_torch import entry
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_voc
+    from cocodet_tpu_torch.data.voc import parse_voc_xml
+    from cocodet_tpu_torch.exp import get_exp
+    from cocodet_tpu_torch.tools import eval as teval
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint
+
+    t0 = time.perf_counter()
+    devkit = make_synthetic_voc(os.path.join(tmp, "voc"), sets=R_VOC, size_range=(256, 512),
+                                seed=5)
+    root = os.path.dirname(devkit)
+    exp_file = os.path.join(REPO, R_VOC_EXP)
+    exp = get_exp(exp_file, None)
+    exp.merge(["data_dir", root])
+    ev = exp.get_evaluator(batch_size=BATCH)
+    ev.conf_threshold = R_CONF
+    gt = [parse_voc_xml(ev.dataset.annotation_path(i), True) for i in range(len(ev.dataset))]
+    n_diff = sum(sum(d) for _, d in gt)
+    classes = {int(c) for b, _ in gt for c in b[:, 4]}
+    print(f"r3. VOC tree: {', '.join(f'VOC{y} {s} {n}' for y, s, n in R_VOC)} JPEGs (256-512 "
+          f"px) in {time.perf_counter() - t0:.1f} s; the test set's {sum(len(b) for b, _ in gt)} "
+          f"boxes, {n_diff} difficult, {len(classes)} classes", flush=True)
+    out_dir = os.path.join(tmp, "voc_out")
+    j_reset()
+    t0 = time.perf_counter()
+    trainer = entry.train(r_argv(R_VOC_EXP, root, out_dir), device=device)
+    train_s = time.perf_counter() - t0
+    counts = j_counts()
+    j_report(trainer, "r3.")
+    ckpt = os.path.join(trainer.file_name, "latest_ckpt.msgpack")
+    got = teval.main(["-f", exp_file, "-c", ckpt, "-b", str(BATCH), "--conf", str(R_CONF),
+                      "--device", str(device), "data_dir", root])
+    m07 = ev.evaluate_prediction(got["records"], use_07_metric=True)["mAP"]
+    m_all = ev.evaluate_prediction(got["records"], use_07_metric=False)["mAP"]
+    print(f"r3. tools.train -f {R_VOC_EXP}: {[st['iterations'] for st in trainer.epoch_stats]} "
+          f"iterations, its VOC evaluation {trainer.eval_stats[0]['AP50'] if trainer.eval_stats else None}"
+          f", {train_s:.1f} s; launches {counts}", flush=True)
+    print(f"r3. tools.eval of its checkpoint: VOC mAP50 {got['ap50']:.6f} (all-point), "
+          f"{len(got['records'])} records; recomputed on the host from the records: all-point "
+          f"{m_all:.6f}, 07 11-point {m07:.6f}: equal {m_all == got['ap50']} ({card})", flush=True)
+    if [st["iterations"] for st in trainer.epoch_stats] != [2] or len(trainer.eval_stats) != 1 \
+            or not got["records"] or m_all != got["ap50"] or not counts["overlap_matrix"] \
+            or len(classes) != 20 or not n_diff:
+        raise AssertionError(f"r3: epochs {trainer.epoch_stats}, evaluations "
+                             f"{trainer.eval_stats}, mAP {got['ap50']} against {m_all}, "
+                             f"launches {counts}, classes {len(classes)}, difficult {n_diff}")
+    model = exp.get_model(device=device, variables=load_checkpoint(ckpt)["model"])
+    imgs = torch.from_numpy(next(ev._batches())[0]).to(device)
+    with torch.inference_mode():
+        worst = r_nms_checks("r3. the VOC model's candidates,", model(imgs), model.strides, 20,
+                             ((2000, ev.nms_threshold), (1024, 0.55)), conf=R_CONF)
+    del model, imgs
+    torch.cuda.empty_cache()
+    r3_card_cpu(device, card, exp, ev, ckpt)
+    return worst
+
+
+def r3_card_cpu(device, card, exp, ev, ckpt):
+    """r3's checkpoint in f32 on the card and on the CPU over the first two
+    test images, through the VOC evaluator's Predictor and records: the
+    same sets (``same_set``: categories exact, boxes within 1e-2 px + 1e-3
+    relative, scores within 1e-4). The conf sits in the widest relative gap
+    between the CPU's 32nd and 200th best anchor scores, so no anchor lies
+    near it and neither the top-K nor the 300 kept cut the set."""
+    import numpy as np
+    import torch
+
+    from cocodet_tpu_torch.entry import Predictor
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint
+
+    imgs, infos, ids = next(ev._batches())
+    imgs, infos, ids = torch.from_numpy(imgs[:2].copy()), infos[:2], ids[:2]
+    exp.compute_dtype = "float32"
+    variables = load_checkpoint(ckpt)["model"]
+    records, maps = {}, None
+    with cudnn_deterministic():
+        for key, dev in (("cpu", torch.device("cpu")), ("card", device)):
+            model = exp.get_model(device=dev, variables=variables)
+            if maps is None:
+                with torch.inference_mode():
+                    maps = model(imgs)
+                score = torch.cat([(torch.sigmoid(m["obj"][..., 0]) * torch.sigmoid(
+                    m["cls"].amax(-1))).reshape(-1) for m in maps]).double().sort(
+                    descending=True).values.numpy()
+                k = 32 + int(np.argmax(score[31:199] / score[32:200]))
+                conf = float(np.sqrt(score[k - 1] * score[k]))
+            serve = Predictor(model, ev.postprocess_config._replace(conf_threshold=conf))
+            with torch.inference_mode():
+                res = serve(imgs.to(dev))
+            records[key] = ev.convert_to_voc_format(tuple(t.cpu().numpy() for t in (
+                res.boxes, res.scores, res.classes, res.valid)), infos, ids)
+            del model, serve
+    rows = lambda rs, i: np.asarray([r["bbox"] + [r["score"]] for r in rs if r["image"] == i],
+                                    np.float64).reshape(-1, 5)
+    cats = lambda rs, i: [r["category"] for r in rs if r["image"] == i]
+    same = all(same_set(rows(records["card"], i), rows(records["cpu"], i),
+                        cats(records["card"], i), cats(records["cpu"], i)) for i in ids)
+    print(f"r3. the checkpoint in f32 on the card and on the CPU, the first two test images at "
+          f"conf {conf:.6e} (anchor scores {score[k - 1]:.6e} / {score[k]:.6e} either side, "
+          f"{k} anchors above): {len(records['card'])} / {len(records['cpu'])} records, the same "
+          f"sets {same} ({card})", flush=True)
+    if not (same and records["cpu"]):
+        raise AssertionError("r3: the VOC records on the card differ from the CPU's")
+    torch.cuda.empty_cache()
+
+
+def phase_r4(device, card, tmp, ckpt):
+    """r4: check_param and export_torch on r2's checkpoint, the .pth read
+    back equal through torch_import; eval_robustness on the six variants
+    (R_ROBUST), the NMS pair launched."""
+    import tempfile
+
+    import numpy as np
+
+    from cocodet_tpu_torch.tools import check_param, eval_robustness, export_torch
+    from cocodet_tpu_torch.utils.checkpoint import load_checkpoint, save_tree
+    from cocodet_tpu_torch.utils.convert import flatten_tree
+    from cocodet_tpu_torch.utils.torch_import import load_torch_checkpoint
+
+    lines = check_param.main(["-c", ckpt])
+    pth = os.path.join(tmp, "yolov3_export.pth")
+    sd = export_torch.main(["-c", ckpt, "-o", pth, "--variant", "standard", "--num-levels", "3"])
+    back = flatten_tree(load_torch_checkpoint(pth, "standard", 3))
+    want = flatten_tree(load_checkpoint(ckpt)["model"])
+    same = back.keys() == want.keys() and all(
+        np.array_equal(back[k], np.asarray(v, np.float32)) for k, v in want.items())
+    print(f"r4. check_param: {lines[0]}; {lines[-1]}. export_torch: {len(sd)} tensors, "
+          f"{os.path.getsize(pth) / 2 ** 20:.1f} MiB, read back by torch_import equal to the "
+          f"checkpoint's EMA tree: {same}", flush=True)
+    if not same:
+        raise AssertionError("r4: the exported .pth does not read back to the checkpoint")
+
+    p6 = os.path.join(tmp, "p6_fused.msgpack")
+    save_tree(r_variables("yolox-p6", 3, depth=0.33, width=0.25, fused=True)[0]["params"], p6)
+    size, n_val = R_ROBUST
+    o_reset()
+    t0 = time.perf_counter()
+    saved, tempfile.tempdir = tempfile.tempdir, tmp  # the variants' sets under this phase's dir
+    try:
+        table = eval_robustness.main(["-c", p6, "--img-size", str(size), "--n-val", str(n_val),
+                                      "-b", str(n_val), "-o", os.path.join(tmp, "robust.json")])
+    finally:
+        tempfile.tempdir = saved
+    launches = o_counts()
+    print(f"r4. eval_robustness (yolox-p6 depth 0.33 width 0.25, numpy seed 3, bf16, {size} px, "
+          f"{n_val} val images a variant): {table}; {time.perf_counter() - t0:.1f} s; launches "
+          f"{launches} ({card})", flush=True)
+    if list(table) != list(eval_robustness.VARIANTS) or \
+            launches["overlap_matrix"] != 2 * len(table):
+        raise AssertionError(f"r4: {table}, launches {launches} (want a batch and the "
+                             f"warm-up a variant)")
+
+
+def phase_r(device, card, flags):
+    """r: YOLOv3 and VOC (r1 eval, r2 train, r3 VOC), then the checkpoint
+    CLIs (r4). Returns the NMS and BN+act checks' worst numbers."""
+    import tempfile
+
+    import torch
+
+    from cocodet_tpu_torch.data.synthetic import make_synthetic_coco
+
+    t_start = time.perf_counter()
+    print(f"r. cuts: weights random from numpy seeds (no trained YOLOv3 in the repo); r1 on "
+          f"{EVAL_IMAGES} synthetic val JPEGs; r2 1 epoch of {R_TRAIN // BATCH} iterations (of "
+          f"300 epochs) on {R_TRAIN} synthetic JPEGs, {R_VAL} val; r3 on a generated VOC tree "
+          f"({', '.join(f'VOC{y} {s} {n}' for y, s, n in R_VOC)}), 1 epoch of 2 iterations; r4's "
+          f"robustness sets {R_ROBUST[1]} val images a variant at {R_ROBUST[0]} px", flush=True)
+    seconds = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_r_") as tmp, backend_flags(flags):
+        t = time.perf_counter()
+        val = o_val_set(tmp)
+        worst = phase_r1(device, card, val, tmp)
+        seconds["r1"] = time.perf_counter() - t
+        t = time.perf_counter()
+        root = make_synthetic_coco(os.path.join(tmp, "train"), n_train=R_TRAIN, n_val=R_VAL,
+                                   size_range=(256, 512), seed=4, variant="default")
+        ckpt, bn_worst = phase_r2(device, card, root, os.path.join(tmp, "out"))
+        seconds["r2"] = time.perf_counter() - t
+        t = time.perf_counter()
+        voc = phase_r3(device, card, tmp)
+        seconds["r3"] = time.perf_counter() - t
+        t = time.perf_counter()
+        phase_r4(device, card, tmp, ckpt)
+        seconds["r4"] = time.perf_counter() - t
+        torch.cuda.empty_cache()
+    print(f"r. phase r: {time.perf_counter() - t_start:.1f} s "
+          f"({', '.join(f'{k} {v:.1f} s' for k, v in seconds.items())}) ({card})", flush=True)
+    return {**{k: max(worst[k], voc[k]) for k in worst},
+            **{k: bn_worst[k] for k in ("reduce", "apply", "resident", "finish")}}
+
+
 def soft_nms_kernel(stats):
     """The kernels line's entry of the soft-NMS kernel."""
     return {"name": "soft_nms", "route": "cuda", "source": "cocodet_tpu_torch/csrc/soft_nms.cu",
@@ -6748,9 +7181,11 @@ def train_aug_kernels(aug_stats):
 # beside each other after the timed phases (b-g, j, m, o, q), in these
 # streams, each a process of this script that runs its phases in turn: on an
 # H100 host that ran the whole script serially in ~930 s, ~435 s of these
-# phases took 165-201 s this way (p the longest stream), the whole run ~580 s
-BESIDE_PHASES = ("h", "i", "k", "l", "n", "p")
-BESIDE = (("p",), ("h", "n"), ("i", "l", "k"))
+# phases took 165-201 s this way (p the longest stream), the whole run ~580 s;
+# with phase r in the (h, n) stream, that stream is the longest (~227 s) and
+# the whole run ~606 s
+BESIDE_PHASES = ("h", "i", "k", "l", "n", "p", "r")
+BESIDE = (("p",), ("h", "n", "r"), ("i", "l", "k"))
 # the backend flags phases c and d leave set (cuDNN benchmark on, TF32 off
 # for convs and matmuls), under which h and i ran when they followed them
 SERVED_FLAGS = (False, True, False, False)
@@ -6758,11 +7193,12 @@ SERVED_FLAGS = (False, True, False, False)
 
 def beside_phase(name, device, card, flags):
     """Phase ``name`` of BESIDE_PHASES; returns what main() takes from it
-    (h: the finish kernels' launches; k, l: their checks' worst errors)."""
+    (h: the finish kernels' launches; k, l, r: their checks' worst errors)."""
     if name in ("h", "i"):
         with backend_flags(SERVED_FLAGS):
             return phase_dp(device, card) if name == "h" else phase_i(device, card)
-    return {"k": phase_k, "l": phase_l, "n": phase_n, "p": phase_p}[name](device, card, flags)
+    return {"k": phase_k, "l": phase_l, "n": phase_n, "p": phase_p,
+            "r": phase_r}[name](device, card, flags)
 
 
 def process_tree(pid):
@@ -6965,12 +7401,12 @@ def main():
     done = phases_beside(BESIDE)
     lap("beside (" + "; ".join(map(",".join, BESIDE)) + ")")
     bn_stats["bn_act_finish"]["launches"] = done["h"]
-    k_worst, l_worst = done["k"], done["l"]
+    k_worst, l_worst, r_worst = done["k"], done["l"], done["r"]
     for name in ("overlap_matrix", "greedy_keep", "int8_conv"):
-        l_worst[name] = max(l_worst[name], m_worst[name])
+        l_worst[name] = max(l_worst[name], m_worst[name], r_worst.get(name, 0.0))
     for name, st in bn_stats.items():
         st["max_abs_err"] = max(st["max_abs_err"], k_worst[name[len("bn_act_"):]],
-                                l_worst[name[len("bn_act_"):]])
+                                l_worst[name[len("bn_act_"):]], r_worst[name[len("bn_act_"):]])
     hs_stats["max_abs_err"] = max(hs_stats["max_abs_err"], l_worst["hard_swish"])
     int8_stats["max_abs_err"] = max(int8_stats["max_abs_err"], l_worst["int8_conv"],
                                     q_stats["max_abs_err"])

@@ -76,6 +76,12 @@ class DeviceMosaicDataset:
                  rng=None):
         import random as _random
 
+        if not hasattr(dataset, "annotations"):
+            # the draws read each item's box count before its pixels
+            # (device_mosaic.py:485); a VOC dataset has no such list
+            raise TypeError(f"the device mosaic needs a dataset with an annotations list "
+                            f"(COCODataset); {type(dataset).__name__} has none: train it on "
+                            f"the host mosaic path (device_mosaic False)")
         self._dataset = dataset
         self.rng = rng or _random
         self.input_dim = tuple(img_size)

@@ -1,5 +1,6 @@
 """Procedural multi-class synthetic detection dataset in COCO layout
-(cocodet_tpu/data/synthetic.py), without cv2.
+(cocodet_tpu/data/synthetic.py), without cv2; and a PASCAL VOC tree of the
+same drawings for the VOC path (``make_synthetic_voc``, the port's own).
 
 K classes are shape x colour (disk/square/triangle/ring x R/G/B), 1 to
 max_objects instances an image at log-uniform scales, textured backgrounds
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -404,3 +405,81 @@ def make_fake_coco(root: str, n_images: int = 8, size: int = 96, seed: int = 0) 
         with open(os.path.join(root, "annotations", f"instances_{split}.json"), "w") as f:
             json.dump({"images": images, "annotations": annotations, "categories": cats}, f)
     return root
+
+
+# make_synthetic_voc: at most this many objects an image, each difficult with
+# this probability
+VOC_MAX_OBJECTS = 6
+VOC_DIFFICULT_PROB = 0.15
+
+
+def make_synthetic_voc(root: str,
+                       sets: Sequence[Tuple[str, str, int]] = (("2007", "trainval", 32),
+                                                              ("2007", "test", 16),
+                                                              ("2012", "trainval", 8)),
+                       size_range: Tuple[int, int] = (256, 512),
+                       long_side: Optional[int] = None, seed: int = 0) -> str:
+    """A PASCAL VOC tree under ``root``/VOCdevkit for the port's VOC path:
+    for each (year, image set, count) of ``sets``, JPEGs (``write_image``)
+    in ``VOC<year>/JPEGImages``, their XML in ``Annotations`` and the ids in
+    ``ImageSets/Main/<set>.txt``. Each image holds 1 to ``VOC_MAX_OBJECTS``
+    instances of the 20 VOC classes, taken in turn over a set's boxes and
+    class ``c`` drawn as the synthetic shape ``c % 12`` (so classes c and
+    c + 12 look alike), with 1-based
+    integer boxes, a ``difficult`` flag set with ``VOC_DIFFICULT_PROB``, and
+    now and then an object named in other case, padded, or outside the
+    classes (which the parser lowers, strips or drops). Sides are drawn
+    from ``size_range``; ``long_side`` fixes the longer one. Returns the
+    VOCdevkit path."""
+    from .voc import VOC_CLASSES
+
+    devkit = os.path.join(root, "VOCdevkit")
+    rs = np.random.RandomState(seed)
+    for year, image_set, count in sets:
+        placed = 0  # the classes in turn, so that each set holds all 20 once it has 20 boxes
+        base = os.path.join(devkit, f"VOC{year}")
+        for sub in ("JPEGImages", "Annotations", os.path.join("ImageSets", "Main")):
+            os.makedirs(os.path.join(base, sub), exist_ok=True)
+        ids = []
+        for i in range(count):
+            img_id = f"{year}_{image_set}_{i:06d}"
+            h = int(rs.randint(size_range[0], size_range[1] + 1))
+            w = int(rs.randint(size_range[0], size_range[1] + 1))
+            if long_side is not None:
+                h, w = (long_side, min(w, long_side)) if h >= w else (min(h, long_side),
+                                                                      long_side)
+            img = _draw_background(rs, h, w)
+            existing: list = []
+            objects = []
+            for _ in range(int(rs.randint(1, VOC_MAX_OBJECTS + 1))):
+                cls = placed % len(VOC_CLASSES)
+                bbox = _draw_instance(rs, img, cls % len(SYNTH_CLASSES), existing)
+                if bbox is None:
+                    continue
+                placed += 1
+                x, y, bw, bh = bbox
+                name = VOC_CLASSES[cls]
+                kind = int(rs.randint(12))
+                if kind == 0:
+                    name = f" {name.upper()} "
+                elif kind == 1:
+                    name = "zebra"
+                objects.append((name, int(rs.uniform() < VOC_DIFFICULT_PROB),
+                                (int(x) + 1, int(y) + 1, int(x + bw) + 1, int(y + bh) + 1)))
+            noise = rs.normal(0, 4, size=img.shape)
+            img = np.clip(img.astype(np.float32) + noise, 0, 255).astype(np.uint8)
+            write_image(os.path.join(base, "JPEGImages", f"{img_id}.jpg"), img)
+            xml = [f"<annotation><folder>VOC{year}</folder><filename>{img_id}.jpg</filename>",
+                   f"<size><width>{w}</width><height>{h}</height><depth>3</depth></size>"]
+            for name, diff, (x1, y1, x2, y2) in objects:
+                xml.append(f"<object><name>{name}</name><pose>Unspecified</pose>"
+                           f"<truncated>0</truncated><difficult>{diff}</difficult>"
+                           f"<bndbox><xmin>{x1}</xmin><ymin>{y1}</ymin><xmax>{x2}</xmax>"
+                           f"<ymax>{y2}</ymax></bndbox></object>")
+            xml.append("</annotation>")
+            with open(os.path.join(base, "Annotations", f"{img_id}.xml"), "w") as f:
+                f.write("\n".join(xml) + "\n")
+            ids.append(img_id)
+        with open(os.path.join(base, "ImageSets", "Main", f"{image_set}.txt"), "w") as f:
+            f.write("".join(f"{i}\n" for i in ids))
+    return devkit

@@ -70,11 +70,10 @@ class COCOEvaluator:
         batch k's compute on the card. A ragged last batch is padded with
         zero images (their detections are never read). A rank of a sharded
         run reads only its share of the images."""
-        ds = self.dataset
         lo, hi = self.shard_range()
 
         def build(start):
-            items = [ds[i] for i in range(start, min(start + self.batch_size, hi))]
+            items = [self._item(i) for i in range(start, min(start + self.batch_size, hi))]
             imgs = np.stack([np.asarray(it[0], np.float32) for it in items])
             pad = self.batch_size - len(items)
             if pad:
@@ -88,6 +87,10 @@ class COCOEvaluator:
                 if k + 2 < len(starts):
                     futures.append(pool.submit(build, starts[k + 2]))
                 yield futures[k].result()
+
+    def _item(self, index: int):
+        """(letterboxed image, _, (h, w) of the original, image id)."""
+        return self.dataset[index]
 
     def shard_range(self) -> Tuple[int, int]:
         """[lo, hi) of this rank's images: ``ceil(n / world)`` a rank."""

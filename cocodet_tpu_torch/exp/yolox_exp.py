@@ -15,8 +15,7 @@ device-mosaic path with ``device_mosaic True``, and with ``device_aug True``
 alone the host mosaic without its TrainTransform, whose HSV, flip and
 letterbox then run on the card (``data/device_aug.py``).
 ``get_model(use_mask=True)`` builds the ChannelMask model of the Pruner and
-Tuner, ``weight_mask=True`` SynFlow's (``SynFlowExp``). The yolov3 model
-raises ``NotImplementedError``.
+Tuner, ``weight_mask=True`` SynFlow's (``SynFlowExp``).
 
 ``bn_momentum`` is an attribute of every exp (0.01 in the phase-2 exp) that
 no ``get_model`` reads, in JAX as here: the BN momentum stays the blocks'

@@ -125,10 +125,9 @@ def postprocess_config(cfg: Mapping[str, Any]) -> PostprocessConfig:
 
 
 def model_name(cfg: Mapping[str, Any]) -> str:
-    name = NAME_MAP.get(cfg["model"].get("type", "yolox-p6"), "yolox-p6")
-    if name not in MODEL_SPECS:
-        raise NotImplementedError(f"model {name!r} is not ported")
-    return name
+    """The config's model type as a MODEL_SPECS key; an unknown type is
+    ``yolox-p6``, as harness/main.py:55-58 maps it."""
+    return NAME_MAP.get(cfg["model"].get("type", "yolox-p6"), "yolox-p6")
 
 
 def _shapes(name: str, depth: float, width: float, slim, quant=None,

@@ -6,6 +6,7 @@ from .blocks import (
     DWConv,
     DWConvNoP,
     Focus,
+    ResLayer,
     SPPBottleneck,
     get_activation,
     max_pool_same,
@@ -28,7 +29,8 @@ from .anchor_zoo import (
     make_divisible,
     mish,
 )
-from .darknet import BACKBONE_STAGES, CSPBackbone
+from .darknet import BACKBONE_STAGES, CSPBackbone, Darknet
 from .head import YOLOXHead
 from .pafpn import PAFPN_VARIANTS, YOLOPAFPN
+from .yolo_fpn import YOLOFPN
 from .yolox import MODEL_SPECS, ModelSpec, YOLOX, build_model

@@ -70,6 +70,23 @@ def hard_swish(x: torch.Tensor) -> torch.Tensor:
     return _HardSwish.apply(x)
 
 
+# the least normal magnitude of f32 and bf16 (2^-126): XLA:CPU compares with
+# subnormals read as zero, so a negative subnormal passes leaky_relu's x >= 0
+_LEAST_NORMAL = float.fromhex("0x1p-126")
+# 0.1 rounded to each dtype: a bf16 x is multiplied by bf16(0.1) and rounded
+# once, as XLA does (the product of two bf16 is exact in the f32 opmath)
+_SLOPE = {dt: float(torch.tensor(0.1, dtype=dt))
+          for dt in (torch.float16, torch.bfloat16, torch.float32, torch.float64)}
+
+
+def leaky_relu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.leaky_relu(x, 0.1)``, ``where(x >= 0, x, 0.1 * x)``, as
+    XLA:CPU computes it: -0.0 and a negative subnormal pass through
+    unchanged. Autograd of the ``where`` gives JAX's VJP, gradient 1 at
+    x = 0, where ``F.leaky_relu``'s is 0.1."""
+    return torch.where(x > -_LEAST_NORMAL, x, x * _SLOPE[x.dtype])
+
+
 def get_activation(name: str = "silu") -> Callable[[torch.Tensor], torch.Tensor]:
     """Activation registry (cocodet_tpu/models/blocks.py:48-63)."""
     name = name.lower()
@@ -80,7 +97,7 @@ def get_activation(name: str = "silu") -> Callable[[torch.Tensor], torch.Tensor]
     if name == "relu":
         return F.relu
     if name in ("lrelu", "leaky_relu"):
-        return lambda x: F.leaky_relu(x, 0.1)
+        return leaky_relu
     if name == "mish":
         return lambda x: x * torch.tanh(F.softplus(x))
     if name in ("identity", "none"):
@@ -591,6 +608,20 @@ class Bottleneck(nn.Module):
     def forward(self, x):
         y = self.conv2(self.conv1(x))
         return y + x if self.use_add else y
+
+
+class ResLayer(nn.Module):
+    """Residual 1x1/3x3 pair with lrelu (blocks.py:539-556): ``layer1`` to
+    half the width, ``layer2`` back, and the input added."""
+
+    def __init__(self, features: int, fused: bool = False, quant: Optional[str] = None):
+        super().__init__()
+        kw = dict(act="lrelu", fused=fused, quant=quant)
+        self.layer1 = ConvBnAct(features, features // 2, 1, 1, **kw)
+        self.layer2 = ConvBnAct(features // 2, features, 3, 1, **kw)
+
+    def forward(self, x):
+        return x + self.layer2(self.layer1(x))
 
 
 def max_pool_same(x: torch.Tensor, k: int) -> torch.Tensor:

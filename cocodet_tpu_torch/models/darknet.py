@@ -1,7 +1,7 @@
-"""CSPDarknet backbone family (cocodet_tpu/models/darknet.py:95-182).
+"""CSPDarknet backbone family (cocodet_tpu/models/darknet.py:95-182) and the
+legacy Darknet-21/53 of the ``yolov3`` model (:185-229).
 
-One parametric ``CSPBackbone`` over stage tables, as in the JAX package. The
-legacy Darknet-21/53 of the ``yolov3`` model is not ported yet.
+One parametric ``CSPBackbone`` over stage tables, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from typing import Any, Dict, Optional, Sequence
 import torch
 from torch import nn
 
-from .blocks import ConvBnAct, CSPLayer, Focus, SPPBottleneck
+from .blocks import ConvBnAct, CSPLayer, Focus, ResLayer, SPPBottleneck
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,5 +154,61 @@ class CSPBackbone(nn.Module):
             if spp is not None:
                 x = spp(x)
             x = getattr(self, f"{name}_csp")(x)
+            outputs[name] = x
+        return {k: v for k, v in outputs.items() if k in self.out_features}
+
+
+class Darknet(nn.Module):
+    """Legacy YOLOv3 Darknet-21/53 (darknet.py:185-229): a 3x3 stem conv,
+    then stride-2 groups (a 3x3 conv to twice the width and ``ResLayer``s),
+    lrelu throughout; dark5 ends in the SPP block (``spp_conv1..4`` around
+    an ``SPPBottleneck`` on 1024 channels, hidden 512). Takes NHWC images,
+    returns ``{stage: NCHW map}`` for dark3, dark4 and dark5 (the JAX
+    module's default ``out_features`` and stem width 32, the only ones any
+    model uses)."""
+
+    DEPTH2BLOCKS = {21: (1, 2, 2, 1), 53: (2, 8, 8, 4)}
+    out_features = ("dark3", "dark4", "dark5")
+
+    def __init__(self, depth: int = 53, fused: bool = False, quant: Optional[str] = None):
+        super().__init__()
+        kw = dict(fused=fused, quant=quant)
+        lrelu = dict(act="lrelu", **kw)
+        self.num_blocks = self.DEPTH2BLOCKS[depth]
+        c = 32
+        self.stem_conv = ConvBnAct(3, c, 3, 1, **lrelu)
+
+        def group(cin, n, prefix):
+            self.add_module(f"{prefix}_conv", ConvBnAct(cin, cin * 2, 3, 2, **lrelu))
+            for i in range(n):
+                self.add_module(f"{prefix}_res{i}", ResLayer(cin * 2, **kw))
+
+        group(c, 1, "stem_g")
+        cin = c * 2
+        for name, n in zip(("dark2", "dark3", "dark4"), self.num_blocks):
+            group(cin, n, name)
+            cin *= 2
+        group(cin, self.num_blocks[3], "dark5")
+        self.spp_conv1 = ConvBnAct(cin * 2, cin, 1, 1, **lrelu)
+        self.spp_conv2 = ConvBnAct(cin, cin * 2, 3, 1, **lrelu)
+        self.spp = SPPBottleneck(cin * 2, cin, **lrelu)
+        self.spp_conv3 = ConvBnAct(cin, cin * 2, 3, 1, **lrelu)
+        self.spp_conv4 = ConvBnAct(cin * 2, cin, 1, 1, **lrelu)
+
+    def _group(self, x, n, prefix):
+        x = getattr(self, f"{prefix}_conv")(x)
+        for i in range(n):
+            x = getattr(self, f"{prefix}_res{i}")(x)
+        return x
+
+    def forward(self, x_nhwc: torch.Tensor, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+        x = self.stem_conv(x_nhwc.permute(0, 3, 1, 2), dtype)
+        x = self._group(x, 1, "stem_g")
+        outputs = {"stem": x}
+        for name, n in zip(("dark2", "dark3", "dark4", "dark5"), self.num_blocks):
+            x = self._group(x, n, name)
+            if name == "dark5":
+                for spp in ("spp_conv1", "spp_conv2", "spp", "spp_conv3", "spp_conv4"):
+                    x = getattr(self, spp)(x)
             outputs[name] = x
         return {k: v for k, v in outputs.items() if k in self.out_features}

@@ -1,7 +1,8 @@
 """YOLOX model wrapper + registry (cocodet_tpu/models/yolox.py:30-155).
 
-The wrapper composes PAFPN + head and exposes raw per-level maps; decode and
-NMS live in ``cocodet_tpu_torch/ops``.
+The wrapper composes PAFPN (or, for ``yolov3``, Darknet-53 + YOLOFPN) and
+the head, and exposes raw per-level maps; decode and NMS live in
+``cocodet_tpu_torch/ops``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from torch import nn
 from ..utils.convert import load_variables, random_variables
 from .head import YOLOXHead
 from .pafpn import YOLOPAFPN
+from .yolo_fpn import YOLOFPN
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,13 +64,21 @@ class YOLOX(nn.Module):
                  quant: Optional[str] = None, use_mask: bool = False,
                  weight_mask: bool = False, stem6: bool = False, split_cat: bool = False):
         super().__init__()
-        if spec.variant == "yolofpn":
-            raise NotImplementedError(
-                "the yolov3 Darknet-53 + YOLOFPN model is not ported yet")
         self.spec, self.num_classes = spec, num_classes
         self.depth, self.width, self.fused, self.dtype = depth, width, fused, dtype
         self.slim, self.quant, self.use_mask = slim, quant, use_mask
         self.weight_mask, self.stem6, self.split_cat = weight_mask, stem6, split_cat
+        if spec.variant == "yolofpn":
+            # Darknet-53 + YOLOFPN takes fused and quant only (yolox.py:88-98)
+            unused = [k for k, v in (("slim", slim), ("use_mask", use_mask),
+                                     ("weight_mask", weight_mask), ("stem6", stem6),
+                                     ("split_cat", split_cat)) if v]
+            if unused:
+                raise ValueError(f"the yolov3 model takes no {', '.join(unused)}")
+            self.backbone = YOLOFPN(fused=fused, quant=quant)
+            self.head = YOLOXHead(YOLOFPN.widths, num_classes=num_classes, width=width,
+                                  act=spec.act, fused=fused, quant=quant)
+            return
         self.backbone = YOLOPAFPN(variant=spec.variant, depth=depth,
                                   width=width, act=spec.act,
                                   depthwise=spec.depthwise, fused=fused,
@@ -87,6 +97,8 @@ class YOLOX(nn.Module):
         if images.dim() != 4 or images.shape[-1] != 3:
             raise ValueError(f"expected NHWC images (B, H, W, 3), got {tuple(images.shape)}")
         if return_taps:
+            if self.spec.variant == "yolofpn":
+                raise ValueError("the yolov3 model has no distillation taps")
             outs, taps = self.backbone(images, self.dtype, return_taps=True)
             return self.head(outs), taps
         return self.head(self.backbone(images, self.dtype))

@@ -91,8 +91,9 @@ def test_entry_full_width_on_cpu():
 
 def test_port_imports_no_jax():
     """Importing every module of the port (64 or more, the evaluation
-    family's, the training runtime's and the compression family's among
-    them), and chip_smoke.py, loads no jax,
+    family's, the training runtime's, the compression family's, YOLOv3's,
+    VOC's and the checkpoint CLIs among them), and chip_smoke.py, loads no
+    jax,
     flax, cocodet_tpu, cv2, PIL or msgpack (the port writes and reads
     checkpoints with its own codec)."""
     code = textwrap.dedent("""
@@ -108,7 +109,14 @@ def test_port_imports_no_jax():
                 "cocodet_tpu_torch.tools.train_synflow", "cocodet_tpu_torch.tools.run_pipeline",
                 "cocodet_tpu_torch.exps.synflow.yolox_m_synflow",
                 "cocodet_tpu_torch.exps.p6.yolox_m_p6_tune",
-                "cocodet_tpu_torch.ops.cuda.fake_quant"} <= set(names), names
+                "cocodet_tpu_torch.ops.cuda.fake_quant", "cocodet_tpu_torch.models.yolo_fpn",
+                "cocodet_tpu_torch.data.voc", "cocodet_tpu_torch.evaluators.voc_evaluator",
+                "cocodet_tpu_torch.exps.default.yolov3",
+                "cocodet_tpu_torch.exps.example.yolox_voc.yolox_voc_s",
+                "cocodet_tpu_torch.exps.example.custom.nano",
+                "cocodet_tpu_torch.exps.example.custom.yolox_s",
+                "cocodet_tpu_torch.tools.check_param", "cocodet_tpu_torch.tools.export_torch",
+                "cocodet_tpu_torch.tools.eval_robustness"} <= set(names), names
         for name in names:
             importlib.import_module(name)
         import chip_smoke

@@ -4,8 +4,8 @@ ships, and the parameter count of ``get_model`` equal to JAX's
 ``jax.eval_shape`` of its model's init for each model family no other test
 counts (P6v2, which its exp sets to silu and no ``get_model`` reads, in
 JAX as here; the 3-level custom YOLOX-L; the depthwise Nano), at the exps'
-own depth and width. All exact. Files that wait: exps/default/yolov3.py
-(Darknet) and exps/example/ (VOC), ROADMAP Queue 1 item 4."""
+own depth and width (and YOLOv3's Darknet-53 + YOLOFPN). All exact. No
+file waits: exps/default/yolov3.py and exps/example/ (VOC) are ported."""
 
 import os
 
@@ -37,7 +37,7 @@ def test_every_jax_exp_but_the_waiting_ones_is_ported():
     jax_files = sorted(os.path.relpath(os.path.join(d, f), os.path.join(REPO, "exps"))
                        for d, _, fs in os.walk(os.path.join(REPO, "exps"))
                        for f in fs if f.endswith(".py"))
-    waiting = {"default/yolov3.py"} | {f for f in jax_files if f.startswith("example/")}
+    waiting = set()
     assert sorted(set(jax_files) - waiting) == PORTED
 
 
@@ -49,7 +49,7 @@ def test_exp_attributes_equal_jax(rel):
 
 
 @pytest.mark.parametrize("rel", ["p6/yolox_m_p6_v2.py", "custom/yolox_l_custom.py",
-                                 "default/nano.py"])
+                                 "default/nano.py", "default/yolov3.py"])
 def test_model_parameter_count_equals_jax(rel):
     port, jax_exp = both(rel)
     model = port.get_model(device="cpu")
